@@ -1,0 +1,138 @@
+"""Shared scaffolding of the plane-CSC kernels: bitmap decode, the
+tile-group view of a column's plane list, operand checks, and the plain
+PyTorch splice-and-dot both kernels' plain versions run.
+
+Checked against ``repro/kernels/sme_spmm/csc_grid.py`` (``unpack_row_bits``)
+and ``sme_spmm_planes_decode.py`` (``plane_group_index``).  The CUDA
+kernels share the matching device helpers in ``kernels/csrc/plane_csc.cuh``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = ["unpack_row_bits", "plane_group_index", "splice_dot_plain",
+           "check_operands"]
+
+
+def unpack_row_bits(packed: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
+    """u8 [..., bk//8, bn] row-packed bitmap (np.packbits along rows, MSB
+    first: byte ``r`` bit ``7-i`` is row ``8r+i``) -> u8 0/1 [..., bk, bn]."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8,
+                          device=packed.device).view(8, 1)
+    bits = (packed.unsqueeze(-2) >> shifts) & 1
+    return bits.reshape(*packed.shape[:-2], bk, bn)
+
+
+def _slot_groups(last: torch.Tensor, nnz: torch.Tensor, G: int):
+    """Per slot: valid (``l < nnz[j]``), group start flag, group index
+    (``G`` on padding slots)."""
+    nt, L = last.shape
+    iota = torch.arange(L, device=last.device).expand(nt, L)
+    valid = iota < nnz[:, None]
+    prev_last = torch.cat([torch.ones_like(last[:, :1]), last[:, :-1]], 1)
+    is_start = (prev_last == 1) & valid
+    gidx = torch.where(valid, torch.cumsum(is_start, 1) - 1,
+                       torch.full_like(iota, G)).clamp(max=G)
+    return iota, valid, is_start, gidx
+
+
+def plane_group_index(rowid: torch.Tensor, last: torch.Tensor,
+                      nnz: torch.Tensor, G: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Tile-group view of a v3 plane-CSC list: a group is the run of planes
+    of one (row, col) tile, ending at a ``last == 1`` slot.  Returns
+    ``(g_rowid, g_start, g_count)`` each i64 [Nt, G] and ``g_nnz`` [Nt];
+    unused groups have count 0 and start 0."""
+    nt, L = rowid.shape
+    iota, valid, is_start, gidx = _slot_groups(last, nnz, G)
+    # one spare column takes the padding slots' scatters and is dropped
+    g_start = torch.full((nt, G + 1), L, dtype=torch.int64,
+                         device=rowid.device).scatter_reduce(
+        1, gidx, iota, "amin")[:, :G]
+    g_start = torch.where(g_start == L, torch.zeros_like(g_start), g_start)
+    g_count = torch.zeros((nt, G + 1), dtype=torch.int64,
+                          device=rowid.device).scatter_add(
+        1, gidx, valid.long())[:, :G]
+    g_rowid = torch.zeros((nt, G + 1), dtype=torch.int64,
+                          device=rowid.device).scatter_reduce(
+        1, gidx, torch.where(valid, rowid.long(), 0), "amax")[:, :G]
+    return g_rowid, g_start, g_count, is_start.sum(1)
+
+
+def splice_dot_plain(x: torch.Tensor, planes: torch.Tensor,
+                     sign: torch.Tensor, rowscale: torch.Tensor,
+                     rowid: torch.Tensor, shift: torch.Tensor,
+                     last: torch.Tensor, nnz: torch.Tensor,
+                     plane_depth: Optional[int] = None) -> torch.Tensor:
+    """Unscaled ``x @ W_codes`` [M, Nt*bn] f32, in plain tensor ops.
+
+    Every column's plane list is spliced per group (``bits * 2^shift``,
+    exact in f32), the group's tile is signed and row-scaled, one matmul
+    runs per group, and the group products are summed in list order, as
+    the kernels do.  ``plane_depth`` keeps only each group's first
+    ``max(plane_depth, 1)`` planes."""
+    nt, L, bk8, bn = planes.shape
+    bk = bk8 * 8
+    m = x.shape[0]
+    iota, valid, is_start, gidx = _slot_groups(last, nnz, L)
+    G = max(int(is_start.sum(1).max()), 1)
+    g_rowid, g_start, _, g_nnz = plane_group_index(rowid, last, nnz, G)
+    gi = gidx.clamp(max=G - 1)
+    keep = valid
+    if plane_depth is not None:
+        rank = iota - g_start.gather(1, gi)
+        keep = keep & (rank < max(int(plane_depth), 1))
+    bits = unpack_row_bits(planes, bk, bn).float()
+    bits = bits * (torch.exp2(shift.float()) * keep)[..., None, None]
+    # sums of distinct powers of two: exact in any order
+    wg = torch.zeros((nt * G, bk, bn), dtype=torch.float32, device=x.device)
+    flat = (torch.arange(nt, device=x.device)[:, None] * G + gi).reshape(-1)
+    wg.index_add_(0, flat, bits.reshape(nt * L, bk, bn))
+    cols = torch.arange(nt, device=x.device)[:, None]
+    sgn = 1.0 - 2.0 * unpack_row_bits(sign[g_rowid, cols], bk, bn).float()
+    w = wg.view(nt, G, bk, bn) * sgn * rowscale[g_rowid, cols][..., None]
+    xt = x.float().view(m, -1, bk)[:, g_rowid]            # [M, Nt, G, bk]
+    t = torch.matmul(xt.permute(1, 2, 0, 3), w)           # [Nt, G, M, bn]
+    t = t * (torch.arange(G, device=x.device) < g_nnz[:, None])[..., None, None]
+    acc = torch.zeros((nt, m, bn), dtype=torch.float32, device=x.device)
+    for g in range(G):
+        acc += t[:, g]
+    return acc.permute(1, 0, 2).reshape(m, nt * bn)
+
+
+def check_operands(x, planes, sign, rowscale, rowid, shift, last, nnz,
+                   m_multiple: int) -> None:
+    """Raise on operands the kernels (and their plain versions) do not
+    take: wrong dtype, shape, device or layout."""
+    nt, L, bk8, bn = planes.shape
+    bk = bk8 * 8
+    if x.dim() != 2 or x.shape[0] % m_multiple or x.shape[1] % bk:
+        raise ValueError(f"x {tuple(x.shape)}: want [M, K_pad] with M a "
+                         f"multiple of {m_multiple} and K_pad of {bk}")
+    nr = x.shape[1] // bk
+    want = {"planes": (planes, torch.uint8, (nt, L, bk8, bn)),
+            "sign": (sign, torch.uint8, (nr, nt, bk8, bn)),
+            "rowscale": (rowscale, torch.float32, (nr, nt, bk)),
+            "rowid": (rowid, torch.int32, (nt, L)),
+            "shift": (shift, torch.int32, (nt, L)),
+            "last": (last, torch.int32, (nt, L)),
+            "nnz": (nnz, torch.int32, (nt,))}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, want "
+                             f"{dtype} {shape}")
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    if x.device.type == "cuda":
+        if x.dtype != torch.float32:
+            raise ValueError(f"x: {x.dtype}, the CUDA kernels take float32")
+        if (bk, bn) != (128, 128):
+            raise ValueError(f"tile {(bk, bn)}: the CUDA kernels take 128x128")
+        bad = [n for n, (t, _, _) in want.items() if not t.is_contiguous()]
+        if bad or not x.is_contiguous():
+            raise ValueError(f"non-contiguous operands: {bad or ['x']}")
+    elif x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")

@@ -1,0 +1,165 @@
+"""GQA self-attention: prefill over the whole prompt, decode one token
+against a per-slot KV cache.
+
+Checked against ``repro/models/attention.py`` (``gqa_prefill``,
+``gqa_decode``, ``blockwise_attention``, ``_decode_attend``,
+``_ring_gather``, ``_masked_row_scatter``), full attention only.  The
+reference has no attention kernel, so this stays plain tensor code with
+the reference's math: flash-style online softmax over KV blocks in f32.
+
+Decode positions are per batch row (``pos`` [B]) and ``active`` [B] masks
+which rows may write their cache slot.  Unlike the reference, decode
+updates the cache tensors in place (the engine owns them), which saves a
+copy of every layer's cache per step.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .common import apply_rope, linear, norm_pos_active
+
+__all__ = ["gqa_prefill", "gqa_decode", "blockwise_attention", "NEG_INF"]
+
+NEG_INF = -1e30
+
+
+def _attend_block(q, k, qpos, kpos, scale):
+    """Causal scores of one (q-block, k-block) tile: [B, KV, G, Bq, Bk]."""
+    b, bq, h, hd = q.shape
+    kv = k.shape[2]
+    qh = q.reshape(b, bq, kv, h // kv, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qh.float(), k.float()) * scale
+    mask = (qpos[:, None] >= kpos[None, :]) & (kpos[None, :] >= 0)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF))
+
+
+def _online_update(m, l, acc, s, v):
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    return m_new, l, acc * corr[..., None] + pv
+
+
+def blockwise_attention(q, k, v, *, q_offset: int = 0, block_q: int = 512,
+                        block_k: int = 512) -> torch.Tensor:
+    """Causal attention. q: [B, Sq, H, hd], k/v: [B, Sk, KV, hd] ->
+    [B, Sq, H, hd]; ``q_offset`` is the absolute position of q[0]."""
+    b, sq, h, hd = q.shape
+    hd_v = v.shape[-1]
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / (hd ** 0.5)
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    nq, nk = -(-sq // block_q), -(-sk // block_k)
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, nq * block_q - sq))
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * block_k - sk))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * block_k - sk))
+    dev = q.device
+    outs = []
+    for i in range(nq):
+        qi = q[:, i * block_q:(i + 1) * block_q]
+        qpos = q_offset + i * block_q + torch.arange(block_q, device=dev)
+        m = torch.full((b, kvh, g, block_q), NEG_INF, device=dev)
+        l = torch.zeros((b, kvh, g, block_q), device=dev)
+        acc = torch.zeros((b, kvh, g, block_q, hd_v), device=dev)
+        for j in range(nk):
+            idx = j * block_k + torch.arange(block_k, device=dev)
+            kpos = torch.where(idx < sk, idx, torch.full_like(idx, -1))
+            s = _attend_block(qi, k[:, j * block_k:(j + 1) * block_k], qpos,
+                              kpos, scale)
+            m, l, acc = _online_update(
+                m, l, acc, s, v[:, j * block_k:(j + 1) * block_k])
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.stack(outs, dim=3).reshape(b, h, nq * block_q, hd_v)[:, :, :sq]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _decode_attend(q, k, v, kpos, pos, scale):
+    """Single-step attention. q: [B, 1, H, hd]; k/v: [B, W, KV, hd];
+    kpos: [B, W]; pos: [B]."""
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    qh = q.reshape(b, kvh, h // kvh, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qh.float(), k.float()) * scale
+    valid = (kpos >= 0) & (kpos <= pos[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _masked_row_scatter(cache, new, slot, active):
+    """cache[i, slot[i]] <- new[i] where active[i], in place."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    keep = cache[rows, slot]
+    upd = active.reshape((-1,) + (1,) * (new.dim() - 1))
+    cache[rows, slot] = torch.where(upd, new.to(cache.dtype), keep)
+    return cache
+
+
+def _ring_gather(kv, plen, w: int):
+    """kv [B, S, ...] -> ring cache [B, w, ...] of a ragged prefill: slot j
+    of row i holds the largest position p < plen[i] with p % w == j, zeros
+    where there is none."""
+    b, s = kv.shape[:2]
+    j = torch.arange(w, device=kv.device)
+    pm1 = plen[:, None] - 1
+    p = pm1 - ((pm1 - j[None]) % w)                        # [B, w]
+    tail = (1,) * (kv.dim() - 2)
+    valid = (p >= 0).reshape((b, w) + tail)
+    idx = p.clamp(0, s - 1).reshape((b, w) + tail).expand((b, w) + kv.shape[2:])
+    out = torch.gather(kv, 1, idx)
+    return torch.where(valid, out, torch.zeros((), dtype=kv.dtype,
+                                               device=kv.device))
+
+
+def _qkv(p, x, cfg, positions, backend):
+    b, s, _ = x.shape
+    hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = linear(x, p["q"], backend).reshape(b, s, h, hd)
+    k = linear(x, p["k"], backend).reshape(b, s, kv, hd)
+    v = linear(x, p["v"], backend).reshape(b, s, kv, hd)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def gqa_prefill(p, x, cfg, cache_len: int = 0, plen=None,
+                backend: Optional[str] = None, block_q: int = 512,
+                block_k: int = 512):
+    """Full-sequence causal self-attention.  Returns (y, cache) with the
+    cache holding, per row, positions ``< plen[i]`` in ring order over
+    ``cache_len`` slots (None when ``cache_len`` is 0)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _qkv(p, x, cfg, positions, backend)
+    g = cfg.n_heads // cfg.n_kv_heads
+    kr, vr = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    y = blockwise_attention(q, kr, vr, block_q=block_q, block_k=block_k)
+    y = linear(y.reshape(b, s, -1), p["o"], backend)
+    if not cache_len:
+        return y, None
+    rows = (torch.full((b,), s, device=x.device) if plen is None
+            else torch.as_tensor(plen, device=x.device).long())
+    return y, {"k": _ring_gather(k, rows, cache_len),
+               "v": _ring_gather(v, rows, cache_len)}
+
+
+def gqa_decode(p, x, cache, pos, cfg, active=None,
+               backend: Optional[str] = None):
+    """One-step decode. x: [B, 1, D]; cache k/v: [B, W, KV, hd], updated in
+    place; pos: [B] per-row next position; active: [B] write mask."""
+    b = x.shape[0]
+    pos, active = norm_pos_active(pos, active, b, x.device)
+    q, k, v = _qkv(p, x, cfg, pos[:, None], backend)
+    w = cache["k"].shape[1]
+    slot = pos % w
+    kc = _masked_row_scatter(cache["k"], k[:, 0], slot, active)
+    vc = _masked_row_scatter(cache["v"], v[:, 0], slot, active)
+    j = torch.arange(w, device=x.device)
+    kpos = pos[:, None] - ((pos[:, None] - j[None]) % w)
+    y = _decode_attend(q, kc, vc, kpos, pos, 1.0 / (cfg.hd ** 0.5))
+    return linear(y.reshape(b, 1, -1), p["o"], backend), {"k": kc, "v": vc}

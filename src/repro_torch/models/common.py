@@ -1,0 +1,70 @@
+"""Shared model building blocks on torch tensors.
+
+Checked against ``repro/models/common.py``: ``rmsnorm``, ``linear``,
+``mlp_apply`` (SwiGLU), ``apply_rope`` and ``norm_pos_active`` compute the
+same functions in the same dtypes.  SME-packed weights dispatch through
+``core.backend.sme_apply``; ``backend`` is passed down explicitly.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..core.backend import sme_apply
+
+__all__ = ["rmsnorm", "linear", "mlp_apply", "rope_freqs", "apply_rope",
+           "norm_pos_active"]
+
+
+def norm_pos_active(pos, active, b: int, device):
+    """``pos`` as a [B] int64 per-row position vector (a scalar
+    broadcasts), ``active`` as a [B] bool mask (default all true)."""
+    pos = torch.as_tensor(pos, device=device).long().expand(b)
+    if active is None:
+        return pos, torch.ones(b, dtype=torch.bool, device=device)
+    return pos, torch.as_tensor(active, device=device).bool().expand(b)
+
+
+def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p["w"].float()).to(dt)
+
+
+def linear(x: torch.Tensor, p: dict, backend: Optional[str] = None
+           ) -> torch.Tensor:
+    """x @ w (+ b); SME-packed weights go through ``sme_apply``."""
+    we = p["w"]
+    if isinstance(we, dict):
+        y = sme_apply(x, we, backend, out_dtype=x.dtype)
+    else:
+        y = x @ we.to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def mlp_apply(x: torch.Tensor, p: dict, backend: Optional[str] = None
+              ) -> torch.Tensor:
+    """SwiGLU MLP: wo(silu(wg x) * wi x)."""
+    h = F.silu(linear(x, p["wg"], backend)) * linear(x, p["wi"], backend)
+    return linear(h, p["wo"], backend)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: broadcastable to [..., S]."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = (positions[..., None].float() * freqs)[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
