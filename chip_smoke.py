@@ -5,24 +5,38 @@
 
 1. Card: name, count, ``nvidia-smi`` name and power limit; build every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
-   in parallel) and print the build seconds and ptxas reports.
+   all four in parallel) and print the build seconds and ptxas reports.
 2. Kernels: at the three linear shapes of qwen1.5-0.5b (1024x1024 q/k/v/o,
    1024x2816 wi/wg, 2816x1024 wo), on ``sme_compress`` output of seeded
-   Gaussian weights, the decode kernel at M = 8 and the prefill kernel at
-   M = 512 are each held against their plain PyTorch version on the card
-   and against the f64 oracle ``sme_matmul_ref_np`` (relative error
-   <= 5e-5); the decode kernel must equal the prefill kernel bitwise at
-   M = 8, ``plane_depth`` >= the deepest group must be a bitwise no-op and
-   ``plane_depth = 2`` must match ``dequant_topk_planes(2)``.  Times from
-   CUDA events with the L2 cache flushed before every launch.
+   Gaussian weights, each kernel is held against its plain PyTorch version
+   on the card and against the f64 oracle ``sme_matmul_ref_np`` (relative
+   error <= 5e-5): v3's decode kernel at M = 8 and prefill kernel at
+   M = 512, v1's ``sme_spmm`` and v2's ``sme_spmm6`` (one kernel each for
+   decode and prefill) at both.  The decode kernel must equal the prefill
+   kernel bitwise at M = 8, ``plane_depth`` >= the deepest group must be a
+   bitwise no-op and ``plane_depth = 2`` must match
+   ``dequant_topk_planes(2)``; v1 and v2, after their power-of-two
+   scaling, must equal the v3 prefill kernel bitwise, also on a pruned
+   weight with empty tiles and an empty column tile (whose output must be
+   exactly 0); v1 must hold settings v2 cannot (squeeze 0, window 4)
+   against the oracle.  Times from CUDA events with the L2 cache flushed
+   before every launch, beside the plain version's, ``torch.matmul`` on
+   the dequantized weight and the bound.
 3. Serving: full-width qwen1.5-0.5b (24 layers, random weights from a
-   numpy seed, every attention/MLP weight packed to v3) serves 8 requests
-   through ``ServeEngine(slots=4, s_max=256, backend="v3")``; both kernels'
-   launch counters must cover every layer of every prefill and decode
-   step; one prefill's logits are held against the same model run through
-   the plain versions.
-4. Prints the kernels JSON line, the card line and, last,
-   ``{"ok": true, "device": {...}}``.  Any failed check raises first.
+   numpy seed, every attention/MLP weight packed once to v1, v2 and v3)
+   serves the same 8 requests three times through ``ServeEngine(slots=4,
+   s_max=256)``: with ``backend="auto"`` (which must resolve to v2, as the
+   reference's auto does), ``"v1"`` and ``"v3"``.  Each run's launch
+   counters, set to 0 just before it, must cover every linear of every
+   prefill and decode step with its own kernels and no other; the three
+   runs' tokens must be identical; one prefill window's logits through
+   v1, v2 and v3 must be bitwise equal (f32 and bf16) and within
+   tolerance of the same model run through the plain versions.  A
+   torch.profiler window profiles the v2 path.
+4. Prints the kernels JSON line (times per model layer: 4 q/k/v/o + 2
+   wi/wg + 1 wo calls; v1/v2 at decode M = 8 in the top-level keys and at
+   both M under ``at_m``), the card line and, last, ``{"ok": true,
+   "device": {...}}``.  Any failed check raises first.
 """
 from __future__ import annotations
 
@@ -90,31 +104,96 @@ def time_ms(fn, flush, iters: int = 10) -> float:
     return statistics.median(times)
 
 
+#: kernel -> the Pallas kernel it replaces.  Each kernel's wrapper is the
+#: function of that name in ``repro_torch/kernels/sme_spmm/<name>.py``,
+#: its plain version ``<name>_plain`` there, its CUDA source
+#: ``kernels/csrc/<name>.cu``
+KERNELS = {
+    "sme_spmm_planes_decode":
+        "src/repro/kernels/sme_spmm/sme_spmm_planes_decode.py:157",
+    "sme_spmm_planes": "src/repro/kernels/sme_spmm/sme_spmm_planes.py:77",
+    "sme_spmm6": "src/repro/kernels/sme_spmm/sme_spmm6.py:54",
+    "sme_spmm": "src/repro/kernels/sme_spmm/sme_spmm.py:54",
+}
+
+
+def _modules():
+    import importlib
+    return {name: importlib.import_module(
+        f"repro_torch.kernels.sme_spmm.{name}") for name in KERNELS}
+
+
+def wrappers():
+    """{kernel name: its wrapper}, resolved from the modules."""
+    return {name: getattr(mod, name) for name, mod in _modules().items()}
+
+
+def zero_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the v3 backend through the kernels' plain versions (the
-    backend resolves the wrappers from their modules at call time)."""
-    import repro_torch.kernels.sme_spmm.sme_spmm_planes as pmod
-    import repro_torch.kernels.sme_spmm.sme_spmm_planes_decode as dmod
-    saved = pmod.sme_spmm_planes, dmod.sme_spmm_planes_decode
-    pmod.sme_spmm_planes = pmod.sme_spmm_planes_plain
-    dmod.sme_spmm_planes_decode = dmod.sme_spmm_planes_decode_plain
+    """Route every kernel backend through the kernels' plain versions (the
+    backends resolve the wrappers from their modules at call time)."""
+    mods = _modules()
+    saved = {name: getattr(m, name) for name, m in mods.items()}
+    for name, m in mods.items():
+        setattr(m, name, getattr(m, f"{name}_plain"))
     try:
         yield
     finally:
-        pmod.sme_spmm_planes, dmod.sme_spmm_planes_decode = saved
+        for name, m in mods.items():
+            setattr(m, name, saved[name])
+
+
+def bound_of(nbytes: float, flops: float):
+    """(bound ms, what bounds it): bytes over the HBM rate or f32 FLOPs
+    over the non-tensor peak, whichever takes longer."""
+    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def _agg():
+    return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                max_abs_err=0.0, bytes=0.0, flops=0.0)
+
+
+def _finish(agg):
+    for a in agg.values():
+        a["bound_by"] = bound_of(a.pop("bytes"), a.pop("flops"))[1]
+    return agg
+
+
+def check_close(kind, y, yp, ref, what):
+    """Finite, kernel vs plain (TOL_PLAIN of max |plain|) and vs the f64
+    oracle (TOL_ORACLE); returns (max |kernel - plain|, oracle rel)."""
+    check(bool(torch.isfinite(y).all()), f"{kind} {what}: non-finite output")
+    err = float((y - yp).abs().max())
+    tol = TOL_PLAIN * float(yp.abs().max())
+    check(err <= tol, f"{kind} {what}: |kernel - plain| {err} > {tol}")
+    got = y[:, :ref.shape[1]].cpu().numpy()
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    check(rel <= TOL_ORACLE, f"{kind} {what}: oracle rel {rel}")
+    return err, rel
 
 
 def kernel_phase(dev, flush):
+    from repro_torch.core.backend import get_backend
     from repro_torch.core.sme import sme_compress, sme_matmul_ref_np
+    from repro_torch.kernels.sme_spmm.sme_spmm import (sme_spmm,
+                                                        sme_spmm_plain)
+    from repro_torch.kernels.sme_spmm.sme_spmm6 import (sme_spmm6,
+                                                         sme_spmm6_plain)
     from repro_torch.kernels.sme_spmm.sme_spmm_planes import (
         sme_spmm_planes, sme_spmm_planes_plain)
     from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import (
         sme_spmm_planes_decode, sme_spmm_planes_decode_plain)
     rng = np.random.default_rng(SEED)
-    agg = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   max_abs_err=0.0, bytes=0.0, flops=0.0)
-           for k in ("decode", "prefill")}
+    agg = {k: _agg() for k in ("decode", "prefill")}
+    tile_agg = {(k, m): _agg() for k in ("sme_spmm", "sme_spmm6")
+                for m in (8, 512)}
     for name, K, N, calls in SHAPES:
         w = rng.standard_normal((K, N)) / np.sqrt(K)
         smew = sme_compress(w, n_bits=8, window=3, squeeze=1)
@@ -122,6 +201,12 @@ def kernel_phase(dev, flush):
         ops = {k: torch.as_tensor(v, device=dev) for k, v in packed.items()}
         args = [ops[k] for k in ("planes", "sign", "rowscale")]
         idx = [ops[k] for k in ("rowid", "shift", "last", "nnz")]
+        on = lambda d, keys: [torch.as_tensor(d[k], device=dev) for k in keys]
+        csc1 = smew.pack_csc()
+        a1 = on(csc1, ("codes", "sign", "rowscale", "rowid", "nnz"))
+        a2 = on(get_backend("v2").pack_weight(smew),
+                ("packed", "rowscale", "rowid", "nnz"))
+        occ = int(csc1["nnz"].sum())
         nt = ops["planes"].shape[0]
         scale = torch.full((nt * 128,), float(smew.scale.reshape(-1)[0]),
                            dtype=torch.float32, device=dev)
@@ -136,6 +221,11 @@ def kernel_phase(dev, flush):
             x = rng.standard_normal((m, K)).astype(np.float32)
             xp = torch.as_tensor(x, device=dev)
             ref = sme_matmul_ref_np(x, smew)
+            x128 = torch.zeros((-(-m // 128) * 128, K), device=dev)
+            x128[:m] = xp
+            # the v3 prefill kernel's scaled rows: what v1 and v2 must equal
+            y_pre = (sme_spmm_planes(x128, *args, *idx)[:m]
+                     * scale * 2.0 ** -8)[:, :N]
             if kind == "decode":
                 def run(depth=None):
                     return sme_spmm_planes_decode(xp, *args, colscale, *idx,
@@ -154,20 +244,11 @@ def kernel_phase(dev, flush):
                             * scale * 2.0 ** -8)[:, :N]
             y, yp = run(), plain()
             torch.cuda.synchronize()
-            check(bool(torch.isfinite(y).all()) and y.shape == (m, N),
-                  f"{kind} {name}: non-finite or misshapen output")
-            err = float((y - yp).abs().max())
-            tol = TOL_PLAIN * float(yp.abs().max())
-            check(err <= tol, f"{kind} {name}: |kernel - plain| {err} > {tol}")
-            rel = float(np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max())
-            check(rel <= TOL_ORACLE, f"{kind} {name}: oracle rel {rel}")
+            check(y.shape == (m, N), f"{kind} {name}: misshapen output")
+            err, rel = check_close(kind, y, yp, ref, name)
             extra = ""
             if kind == "decode":
                 # decode kernel == prefill kernel (M padded to one 128 tile)
-                x128 = torch.zeros((128, K), device=dev)
-                x128[:m] = xp
-                y_pre = (sme_spmm_planes(x128, *args, *idx)[:m]
-                         * scale * 2.0 ** -8)[:, :N]
                 check(bool(torch.equal(y, y_pre)),
                       f"{name}: decode kernel != prefill kernel bitwise")
                 check(bool(torch.equal(run(deepest), y)),
@@ -185,9 +266,7 @@ def kernel_phase(dev, flush):
             nbytes = (m * K * 4 + int(nnz.sum()) * 2048 + groups * (2048 + 512)
                       + nt * 128 * 4 + m * N * 4)
             flops = 2.0 * m * 128 * 128 * groups
-            bound = max(nbytes / PEAK_BYTES, flops / PEAK_F32) * 1e3
-            by = "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_F32 \
-                else "operations"
+            bound, by = bound_of(nbytes, flops)
             print(f"kernel {kind:7s} {name:6s} M={m:3d} K={K} N={N} "
                   f"planes={int(nnz.sum())} groups={groups}: "
                   f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
@@ -201,14 +280,106 @@ def kernel_phase(dev, flush):
                              ("bytes", nbytes), ("flops", flops)):
                 a[key] += calls * val
             a["max_abs_err"] = max(a["max_abs_err"], err)
-    for a in agg.values():
-        a["bound_by"] = ("bytes" if a.pop("bytes") / PEAK_BYTES
-                         >= a.pop("flops") / PEAK_F32 else "operations")
-    return agg
+
+            # v1 and v2: one kernel for decode and prefill, unscaled output
+            for kname, kern, kplain, kargs, qscale, tile_bytes in (
+                    ("sme_spmm", sme_spmm, sme_spmm_plain, a1, 2.0 ** -8,
+                     16384 + 2048 + 512),
+                    ("sme_spmm6", sme_spmm6, sme_spmm6_plain, a2, 2.0 ** -1,
+                     12288 + 512)):
+                def krun():
+                    return (kern(xp, *kargs) * scale * qscale)[:, :N]
+
+                def kplainrun():
+                    return (kplain(xp, *kargs) * scale * qscale)[:, :N]
+                y, yp = krun(), kplainrun()
+                torch.cuda.synchronize()
+                err, rel = check_close(kname, y, yp, ref, f"{name} M={m}")
+                check(bool(torch.equal(y, y_pre)),
+                      f"{kname} {name} M={m}: != v3 prefill kernel bitwise")
+                ms, plain_ms = time_ms(krun, flush), time_ms(kplainrun, flush)
+                # bytes: x, each occupied tile's payload, the index (rowid
+                # per occupied slot, nnz), y; FLOPs: one dot per tile
+                nbytes = (m * K * 4 + occ * tile_bytes + occ * 4 + nt * 4
+                          + m * N * 4)
+                flops = 2.0 * m * 128 * 128 * occ
+                bound, by = bound_of(nbytes, flops)
+                print(f"kernel {kname:9s} {name:6s} M={m:3d} K={K} N={N} "
+                      f"tiles={occ}: {ms * 1e3:.1f} us, plain "
+                      f"{plain_ms * 1e3:.1f} us, torch.matmul "
+                      f"{lib_ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
+                      f"({by}: {nbytes} B, {flops:.3g} FLOP) | max|k-p|="
+                      f"{err:.2e} oracle_rel={rel:.2e} == v3", flush=True)
+                a = tile_agg[(kname, m)]
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", lib_ms), ("bound_ms", bound),
+                                 ("bytes", nbytes), ("flops", flops)):
+                    a[key] += calls * val
+                a["max_abs_err"] = max(a["max_abs_err"], err)
+    tile_csc_edges(dev, sme_compress, sme_matmul_ref_np)
+    return _finish(agg), _finish(tile_agg)
+
+
+def tile_csc_edges(dev, sme_compress, oracle):
+    """v1 and v2 on a pruned weight (empty tiles, column tile 1 empty:
+    its output must be exactly 0) bitwise against the v3 prefill kernel,
+    and v1 at settings v2 cannot hold, against the oracle."""
+    from repro_torch.core.backend import get_backend
+    from repro_torch.kernels.sme_spmm.sme_spmm import sme_spmm
+    from repro_torch.kernels.sme_spmm.sme_spmm6 import sme_spmm6
+    from repro_torch.kernels.sme_spmm.sme_spmm_planes import sme_spmm_planes
+    rng = np.random.default_rng(SEED + 2)
+    w = rng.standard_normal((384, 384)) / np.sqrt(384)
+    w[:, 128:256] = 0.0
+    w[256:, :128] = 0.0
+    w[:256, 256:] = 0.0
+    on = lambda d, keys: [torch.as_tensor(d[k], device=dev) for k in keys]
+    smew = sme_compress(w, squeeze=1)
+    csc1 = smew.pack_csc()
+    check(csc1["nnz"].tolist() == [2, 0, 1], f"pruned nnz {csc1['nnz']}")
+    a1 = on(csc1, ("codes", "sign", "rowscale", "rowid", "nnz"))
+    a2 = on(get_backend("v2").pack_weight(smew),
+            ("packed", "rowscale", "rowid", "nnz"))
+    a3 = on(smew.pack_plane_csc(), ("planes", "sign", "rowscale", "rowid",
+                                    "shift", "last", "nnz"))
+    scale = float(smew.scale.reshape(-1)[0])
+    for m in (8, 512):
+        x = torch.as_tensor(rng.standard_normal((m, 384)), dtype=torch.float32,
+                            device=dev)
+        x128 = torch.zeros((-(-m // 128) * 128, 384), device=dev)
+        x128[:m] = x
+        y3 = sme_spmm_planes(x128, *a3)[:m] * scale * 2.0 ** -8
+        y1 = sme_spmm(x, *a1) * scale * 2.0 ** -8
+        y2 = sme_spmm6(x, *a2) * scale * 2.0 ** -1
+        check(bool(torch.equal(y1, y3)) and bool(torch.equal(y2, y3)),
+              f"pruned M={m}: v1/v2 != v3 bitwise")
+        check(bool((y1[:, 128:256] == 0).all()), "empty column tile not 0")
+        ref = oracle(x.cpu().numpy(), smew)
+        rel = float(np.abs(y1.cpu().numpy() - ref).max() / np.abs(ref).max())
+        check(rel <= TOL_ORACLE, f"pruned M={m}: oracle rel {rel}")
+    rels = []
+    for kw in (dict(squeeze=0), dict(window=4, squeeze=1)):
+        wv = rng.standard_normal((1024, 1024)) / 32.0
+        sv = sme_compress(wv, **kw)
+        check(not get_backend("v2").supports(sv), f"v2 holds {kw}?")
+        x = torch.as_tensor(rng.standard_normal((64, 1024)),
+                            dtype=torch.float32, device=dev)
+        y = sme_spmm(x, *on(sv.pack_csc(), ("codes", "sign", "rowscale",
+                                             "rowid", "nnz")))
+        y = y * float(sv.scale.reshape(-1)[0]) * 2.0 ** -8
+        ref = oracle(x.cpu().numpy(), sv)
+        rels.append(float(np.abs(y.cpu().numpy() - ref).max()
+                          / np.abs(ref).max()))
+        check(rels[-1] <= TOL_ORACLE, f"v1 at {kw}: oracle rel {rels[-1]}")
+    torch.cuda.synchronize()
+    print(f"kernel edges: pruned weight (nnz 2/0/1) v1 == v2 == v3 bitwise, "
+          f"empty column exactly 0; v1 at squeeze 0 / window 4 oracle rel "
+          f"{rels[0]:.2e} / {rels[1]:.2e}", flush=True)
 
 
 def build_model_params(dev, cfg):
-    """Full-width random weights, generated and packed layer by layer."""
+    """Full-width random weights, generated and packed layer by layer,
+    each weight compressed once and packed for v1, v2 and v3."""
     from repro_torch.core.integrate import convert_params_to_sme, to_torch
     from repro_torch.models.transformer import init_layer
     rng = np.random.default_rng(SEED)
@@ -220,57 +391,90 @@ def build_model_params(dev, cfg):
     t0 = time.perf_counter()
     for _ in range(cfg.n_layers):
         params["blocks"].append(convert_params_to_sme(
-            init_layer(cfg, rng), backend="v3", device=dev))
+            init_layer(cfg, rng), backend="all", device=dev))
     return params, time.perf_counter() - t0
+
+
+#: serving runs: backend asked -> (what it must resolve to, its kernels)
+RUNS = {"auto": ("v2", ("sme_spmm6",)), "v1": ("v1", ("sme_spmm",)),
+        "v3": ("v3", ("sme_spmm_planes", "sme_spmm_planes_decode"))}
+
+
+def serve_run(api, params, prompts, backend, card):
+    """Serve the 8 requests once under ``backend``; returns (tokens,
+    launches per kernel, stats).  Counts are set to 0 just before."""
+    from repro_torch.serve import Request, ServeEngine
+    cfg = api.cfg
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    eng = ServeEngine(api, params, slots=4, s_max=256, backend=backend,
+                      device=api.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    stats = eng.run(reqs, max_steps=200)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers().items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want, mine = RUNS[backend]
+    per_pass = cfg.n_layers * 7
+    passes = stats["prefills"] + stats["decode_steps"]
+    print(f"serve[{backend}]: {stats}", flush=True)
+    print(f"serve[{backend}]: launches {launches}, per model pass {per_pass}")
+    check(stats["backend"] == want,
+          f"backend {backend!r} resolved to {stats['backend']}, not {want}")
+    check(stats["completed"] == 8, f"completed {stats['completed']} of 8")
+    check(all(len(r.out_tokens) == 16 for r in reqs), "short outputs")
+    check(all(launches[k] == 0 for k in launches if k not in mine),
+          f"{backend}: kernels of another backend launched: {launches}")
+    check(sum(launches[k] for k in mine) == per_pass * passes,
+          f"{backend}: {sum(launches[k] for k in mine)} launches of "
+          f"{mine} != {per_pass} x {passes} model passes")
+    if backend == "v3":
+        check(launches["sme_spmm_planes_decode"]
+              >= per_pass * stats["decode_steps"],
+              "v3 decode kernel does not cover every decode step")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(f"serve[{backend}]: {n_tok / stats['wall_s']:.1f} tokens/s end to "
+          f"end, {stats['decode_s'] / stats['decode_steps'] * 1e3:.2f} ms per "
+          f"decode step (4 slots), "
+          f"{stats['prefill_s'] / stats['prefills'] * 1e3:.1f} ms per "
+          f"prefill, peak memory {peak_gb:.2f} GiB | {card}", flush=True)
+    return [r.out_tokens for r in reqs], launches
 
 
 def serve_phase(dev, card):
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.sme_spmm.sme_spmm_planes import sme_spmm_planes
-    from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import \
-        sme_spmm_planes_decode
+    from repro_torch.core.integrate import sme_operand_bytes
     from repro_torch.models.model import build_model
-    from repro_torch.serve import Request, ServeEngine
     cfg = ARCHS["qwen1.5-0.5b"]
     params, pack_s = build_model_params(dev, cfg)
-    print(f"serve: packed {cfg.n_layers} layers x 7 linears to v3 in "
-          f"{pack_s:.1f}s", flush=True)
+    print(f"serve: packed {cfg.n_layers} layers x 7 linears to v1, v2 and "
+          f"v3 in {pack_s:.1f}s", flush=True)
+    ob = sme_operand_bytes(params["blocks"])
+    print("serve: operand bytes per weight over "
+          f"{ob['weights']} weights: " + ", ".join(
+              f"{be} {ob[be] / 1e6:.1f} MB = {ob[be] / ob['weights']:.4f} B"
+              for be in ("v1", "v2", "v3"))
+          + f"; dense bf16 {2 * ob['weights'] / 1e6:.1f} MB = 2 B",
+          flush=True)
     api = build_model(cfg, device=dev)
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, cfg.vocab, int(n))
                for n in rng.integers(40, 121, size=8)]
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
-            for i, p in enumerate(prompts)]
-    eng = ServeEngine(api, params, slots=4, s_max=256, backend="v3",
-                      device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    sme_spmm_planes.launches = sme_spmm_planes_decode.launches = 0
-    stats = eng.run(reqs, max_steps=200)
-    torch.cuda.synchronize()
-    launches = {"prefill": sme_spmm_planes.launches,
-                "decode": sme_spmm_planes_decode.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    per_pass = cfg.n_layers * 7
-    print(f"serve: {stats}", flush=True)
-    print(f"serve: launches {launches}, per model pass {per_pass}")
-    check(stats["completed"] == 8, f"completed {stats['completed']} of 8")
-    check(all(len(r.out_tokens) == 16 for r in reqs), "short outputs")
-    check(launches["prefill"] >= per_pass * stats["prefills"],
-          f"prefill kernel launches {launches['prefill']} < "
-          f"{per_pass} x {stats['prefills']} prefills")
-    check(launches["decode"] >= per_pass * stats["decode_steps"],
-          f"decode kernel launches {launches['decode']} < "
-          f"{per_pass} x {stats['decode_steps']} decode steps")
-    n_tok = sum(len(r.out_tokens) for r in reqs)
-    print(f"serve: {n_tok / stats['wall_s']:.1f} tokens/s end to end, "
-          f"{stats['decode_s'] / stats['decode_steps'] * 1e3:.2f} ms per "
-          f"decode step (4 slots), {stats['prefill_s'] / stats['prefills'] * 1e3:.1f}"
-          f" ms per prefill, peak memory {peak_gb:.2f} GiB | {card}",
-          flush=True)
+    tokens, launches = {}, {}
+    for backend in RUNS:
+        tokens[backend], counts = serve_run(api, params, prompts, backend,
+                                            card)
+        for name in RUNS[backend][1]:
+            launches[name] = counts[name]
+    check(tokens["auto"] == tokens["v1"] == tokens["v3"],
+          "v2 (auto), v1 and v3 served different tokens")
+    print("serve: v2 (auto), v1 and v3 tokens identical", flush=True)
 
-    # one prefill window (the engine's first: 4 rows, bucket 128), kernels
-    # vs plain versions, in f32 (the algorithm) and bf16 (as served)
+    # one prefill window (the engine's first: 4 rows, bucket 128): v1, v2
+    # and v3 bitwise equal, and each within tolerance of the plain
+    # versions, in f32 (the algorithm) and bf16 (as served)
     window = prompts[:4]
     toks = np.zeros((4, 128), np.int64)
     for i, p in enumerate(window):
@@ -278,29 +482,37 @@ def serve_phase(dev, card):
     plen = [len(p) for p in window]
     for dtype in ("float32", "bfloat16"):
         api_d = build_model(dataclasses.replace(cfg, dtype=dtype), device=dev)
-        lk, _ = api_d.prefill(params, toks, s_max=256, plen=plen,
-                              backend="v3")
-        with plain_kernels():
-            lp, _ = api_d.prefill(params, toks, s_max=256, plen=plen,
-                                  backend="v3")
-        check(bool(torch.isfinite(lk).all()) and lk.shape == (4, cfg.vocab),
-              f"{dtype} logits non-finite or misshapen")
-        diff = float((lk - lp).abs().max() / lp.abs().max())
-        agree = int((lk.argmax(-1) == lp.argmax(-1)).sum())
-        print(f"serve: {dtype} prefill logits kernels vs plain: max rel "
-              f"diff {diff:.2e} (tolerance {TOL_LOGITS[dtype]:.0e}), greedy "
-              f"agreement {agree}/4", flush=True)
-        check(diff <= TOL_LOGITS[dtype], f"{dtype} logits rel diff {diff}")
-    profile_window(api, params, prompts[4:], card)
+        lk = {be: api_d.prefill(params, toks, s_max=256, plen=plen,
+                                backend=be)[0] for be in ("v1", "v2", "v3")}
+        check(bool(torch.equal(lk["v1"], lk["v2"]))
+              and bool(torch.equal(lk["v1"], lk["v3"])),
+              f"{dtype} prefill logits differ between v1, v2 and v3")
+        for be, logits in lk.items():
+            with plain_kernels():
+                lp, _ = api_d.prefill(params, toks, s_max=256, plen=plen,
+                                      backend=be)
+            check(bool(torch.isfinite(logits).all())
+                  and logits.shape == (4, cfg.vocab),
+                  f"{dtype} {be} logits non-finite or misshapen")
+            diff = float((logits - lp).abs().max() / lp.abs().max())
+            agree = int((logits.argmax(-1) == lp.argmax(-1)).sum())
+            print(f"serve: {dtype} {be} prefill logits kernels vs plain: max "
+                  f"rel diff {diff:.2e} (tolerance {TOL_LOGITS[dtype]:.0e}), "
+                  f"greedy agreement {agree}/4", flush=True)
+            check(diff <= TOL_LOGITS[dtype],
+                  f"{dtype} {be} logits rel diff {diff}")
+        print(f"serve: {dtype} prefill logits v1 == v2 == v3 bitwise",
+              flush=True)
+    profile_window(api, params, prompts[4:], card, "auto")
     return launches
 
 
-def profile_window(api, params, prompts, card):
+def profile_window(api, params, prompts, card, backend):
     """Where a serving window's time goes: torch.profiler over one prefill
-    and 5 decode steps of 4 requests (after the counted run)."""
+    and 5 decode steps of 4 requests (after the counted runs)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Request, ServeEngine
-    eng = ServeEngine(api, params, slots=4, s_max=256, backend="v3",
+    eng = ServeEngine(api, params, slots=4, s_max=256, backend=backend,
                       device=api.device)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
             for i, p in enumerate(prompts)]
@@ -314,7 +526,8 @@ def profile_window(api, params, prompts, card):
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA" and e.self_device_time_total]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profile: 1 prefill + {stats['decode_steps']} decode steps, wall "
+    print(f"profile[{stats['backend']}]: 1 prefill + "
+          f"{stats['decode_steps']} decode steps, wall "
           f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}% | {card}")
@@ -352,23 +565,24 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
-    agg = kernel_phase(dev, flush)
+    agg, tile_agg = kernel_phase(dev, flush)
     launches = serve_phase(dev, card)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
     rows = []
-    for kind, name, src, pallas in (
-            ("decode", "sme_spmm_planes_decode",
-             "src/repro_torch/kernels/csrc/sme_spmm_planes_decode.cu",
-             "src/repro/kernels/sme_spmm/sme_spmm_planes_decode.py:157"),
-            ("prefill", "sme_spmm_planes",
-             "src/repro_torch/kernels/csrc/sme_spmm_planes.cu",
-             "src/repro/kernels/sme_spmm/sme_spmm_planes.py:77")):
-        a = agg[kind]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": pallas, "launches": launches[kind],
-                     "max_abs_err": a["max_abs_err"], "ms": a["ms"],
-                     "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-                     "bound_by": a["bound_by"],
-                     "library_ms": a["library_ms"]})
+    for name, pallas in KERNELS.items():
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+               "replaces": pallas, "launches": launches[name]}
+        if name in ("sme_spmm_planes_decode", "sme_spmm_planes"):
+            a = agg["decode" if name.endswith("decode") else "prefill"]
+            row.update({k: a[k] for k in keys})
+        else:
+            at = {str(m): {k: tile_agg[(name, m)][k] for k in keys}
+                  for m in (8, 512)}
+            row.update(at["8"])
+            row["at_m"] = at
+        rows.append(row)
     # times are per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,20 +1,30 @@
 """SME execution backends and the one dispatch entry point, ``sme_apply``.
 
-Checked against ``repro/core/backend.py``.  Two backends are registered:
+Checked against ``repro/core/backend.py``.  Four backends are registered:
 
   * ``torch`` — dequantize the packed codes to a dense weight and
     ``torch.matmul`` (the counterpart of the reference's ``xla``; operand
     free, correct on any device);
+  * ``v1``    — the tile-CSC bytecode kernel ``sme_spmm`` (``_tile_csc_call``);
+  * ``v2``    — the tile-CSC minifloat-6 kernel ``sme_spmm6``
+    (``_tile_csc_call``), for the settings :meth:`SpmmV2Backend.supports_settings`
+    admits;
   * ``v3``    — the plane-CSC kernels: ``sme_spmm_planes_decode`` when the
-    batch is decode-sized (``2*M <= 128``), ``sme_spmm_planes`` otherwise,
-    with the reference wrappers' padding and scaling exactly (``_v3_call``
-    and ``_v3_decode_impl``).
+    batch is decode-sized (``2*M <= 128``), ``sme_spmm_planes`` otherwise
+    (``_v3_call`` and ``_v3_decode_impl``).
 
-``sme_apply`` resolves a backend (explicit name, else ``v3`` when the
-param carries ``sme_v3_*`` operands, else ``torch``), gathers the input by
-``sme_perm`` for reordered weights, and loops over stacked lead dims.
-Operands are packed offline (``integrate.convert_params_to_sme``); a kernel
-backend asked to serve a param without them raises.
+Each backend packs its operands from one :class:`SMEWeight`
+(``pack_weight``; ``pad_hint`` is the list length one slice needs, so
+stacked slices share the largest).  The kernel backends keep the
+reference wrappers' epilogue ``y[:m, :n] * scale * qscale`` (qscale
+``2^-n_bits`` for v1/v3, ``2^-squeezed`` for v2); the v1/v2 kernels and
+the v3 decode kernel take M padded to a multiple of 8 only (rows are
+independent, so the results equal the reference's 128-row padding).
+
+``sme_apply`` resolves a backend (:func:`resolve_backend`), gathers the
+input by ``sme_perm`` for reordered weights, and loops over stacked lead
+dims.  Operands are packed offline (``integrate.convert_params_to_sme``);
+a kernel backend asked to serve a param without them raises.
 """
 from __future__ import annotations
 
@@ -24,8 +34,11 @@ import numpy as np
 import torch
 
 from .integrate import sme_dequant
+from .minifloat import encode6, pack6
+from .sme import csc_tile_order
 
-__all__ = ["SMEBackend", "get_backend", "resolve_backend", "sme_apply"]
+__all__ = ["SMEBackend", "SpmmV2Backend", "get_backend", "resolve_backend",
+           "resolved_backends", "sme_apply", "AUTO_ORDER"]
 
 _META = ("sme_nbits", "sme_squeezed", "sme_window")
 #: M tile of the prefill kernel's padding contract (the reference's bm)
@@ -39,6 +52,20 @@ class SMEBackend:
     #: operand names; stored in param dicts as ``sme_<name>_<op>`` (packed
     #: offline by ``integrate.convert_params_to_sme``)
     OPERANDS: Tuple[str, ...] = ()
+
+    def pack_weight(self, smew, pad_to: Optional[int] = None
+                    ) -> Dict[str, np.ndarray]:
+        """This backend's operands of one weight (numpy), lists padded to
+        ``pad_to`` entries."""
+        return {}
+
+    def pad_hint(self, smew) -> int:
+        """List length one slice needs: occupied tiles per column (the
+        plane-CSC backend counts (plane, tile) pairs)."""
+        return max(int(smew.occupancy.sum(axis=0).max()), 1)
+
+    def supports(self, smew) -> bool:
+        return True
 
     def matmul2d(self, x2d: torch.Tensor, ops: Dict[str, torch.Tensor],
                  param: dict) -> torch.Tensor:
@@ -58,11 +85,18 @@ class TorchBackend(SMEBackend):
     name = "torch"
 
 
-def _qscale(param: dict, like: torch.Tensor) -> torch.Tensor:
-    """2^-n_bits as an f32 tensor (exact)."""
-    nb = torch.as_tensor(param.get("sme_nbits", 8), dtype=torch.float32,
-                         device=like.device)
-    return torch.exp2(-nb)
+def _qscale(param: dict, like: torch.Tensor, key: str = "sme_nbits",
+            default: int = 8) -> torch.Tensor:
+    """2^-param[key] (n_bits, or v2's squeezed) as an f32 tensor (exact)."""
+    v = torch.as_tensor(param.get(key, default), dtype=torch.float32,
+                        device=like.device)
+    return torch.exp2(-v)
+
+
+def _m8(m: int) -> int:
+    """Rows padded to a multiple of 8 (at least 8): what the v1/v2 kernels
+    and the v3 decode kernel take."""
+    return -(-max(m, 8) // 8) * 8
 
 
 def _padded_x(x2d: torch.Tensor, mp: int, kp: int) -> torch.Tensor:
@@ -78,6 +112,87 @@ def _use_decode_kernel(m: int, bm: int) -> bool:
     """Decode kernel iff M is at most half an M tile, i.e. when the matmul
     grid would waste most of its padded rows."""
     return 2 * m <= bm
+
+
+def _tile_csc_call(kernel, x2d, args, bk: int, scale, qscale, *,
+                   n: int) -> torch.Tensor:
+    """v1/v2: the kernel output is the unscaled product; n_bits (v1) or
+    squeezed (v2) is folded into qscale, exactly."""
+    m, k = x2d.shape
+    xp = _padded_x(x2d, _m8(m), -(-k // bk) * bk)
+    return kernel(xp, *args)[:m, :n] * scale * qscale
+
+
+class SpmmV1Backend(SMEBackend):
+    """``sme_spmm``: uint8 codewords + per-slot sign bitmap, tile skip."""
+
+    name = "v1"
+    OPERANDS = ("codes", "sign", "rowscale", "rowid", "nnz")
+
+    def pack_weight(self, smew, pad_to=None):
+        return smew.pack_csc(pad_to=pad_to)
+
+    def matmul2d(self, x2d, ops, param):
+        from ..kernels.sme_spmm.sme_spmm import sme_spmm
+        return _tile_csc_call(
+            sme_spmm, x2d, [ops[o] for o in self.OPERANDS],
+            ops["codes"].shape[-2], param["sme_scale"].reshape(1, -1).float(),
+            _qscale(param, x2d), n=param["sme_scale"].shape[-1])
+
+
+class SpmmV2Backend(SMEBackend):
+    """``sme_spmm6``: minifloat-6 payload (0.75 B/weight), tile skip."""
+
+    name = "v2"
+    OPERANDS = ("packed", "rowscale", "rowid", "nnz")
+
+    @staticmethod
+    def supports_settings(n_bits: int, window: int, squeeze: int) -> bool:
+        """The minifloat-6 format constraint (lossless re-encoding)."""
+        return squeeze >= 1 and window <= 3 and (n_bits - squeeze) <= 7
+
+    def supports(self, smew):
+        return self.supports_settings(smew.n_bits, smew.window, smew.squeezed)
+
+    def pack_weight(self, smew, pad_to=None):
+        """One CSC gather pass over the occupied tiles (not through
+        ``pack_csc``, whose codes and signs v2 would discard)."""
+        if not self.supports(smew):
+            raise ValueError(
+                "backend v2 (minifloat-6) needs squeeze >= 1, window <= 3 "
+                f"and live_bits <= 7; got squeeze={smew.squeezed}, "
+                f"window={smew.window}, live_bits={smew.live_bits}")
+        occ = smew.occupancy
+        nc = smew.grid[1]
+        tr, tc = smew.tile
+        nnz = occ.sum(axis=0).astype(np.int32)
+        L = int(pad_to if pad_to is not None else max(int(nnz.max()), 1))
+        if int(nnz.max()) > L:
+            raise ValueError(
+                f"pad_to={L} < max nnz per column {int(nnz.max())}")
+        packed = np.zeros((nc, L, tr, 3 * tc // 4), np.uint8)
+        rowscale = np.ones((nc, L, tr), dtype=np.float32)
+        rowid = np.zeros((nc, L), dtype=np.int32)
+        col, row, slot = csc_tile_order(occ)
+        if col.size:
+            c6 = encode6(smew.tiled_codes[row, col],
+                         smew.sign_tiled()[row, col],
+                         smew.n_bits, smew.squeezed)
+            packed[col, slot] = pack6(c6)
+            rowscale[col, slot] = (2.0 ** smew.row_exp[row, col]
+                                   ).astype(np.float32)
+            rowid[col, slot] = row
+        return {"packed": packed, "rowscale": rowscale, "rowid": rowid,
+                "nnz": nnz}
+
+    def matmul2d(self, x2d, ops, param):
+        from ..kernels.sme_spmm.sme_spmm6 import sme_spmm6
+        # the kernel decodes with squeezed = 0
+        return _tile_csc_call(
+            sme_spmm6, x2d, [ops[o] for o in self.OPERANDS],
+            ops["packed"].shape[-2], param["sme_scale"].reshape(1, -1).float(),
+            _qscale(param, x2d, "sme_squeezed", 1),
+            n=param["sme_scale"].shape[-1])
 
 
 def _v3_call(x2d, ops, scale, qscale, *, n: int) -> torch.Tensor:
@@ -98,7 +213,7 @@ def _v3_decode_impl(x2d, ops, scale, qscale, *, n: int) -> torch.Tensor:
     m, k = x2d.shape
     nt, _, bk8, bn = ops["planes"].shape
     nr = -(-k // (bk8 * 8))
-    xp = _padded_x(x2d, -(-max(m, 8) // 8) * 8, nr * bk8 * 8)
+    xp = _padded_x(x2d, _m8(m), nr * bk8 * 8)
     # scale * 2^-n_bits fused into the kernel's store: bitwise equal to the
     # prefill path's (y * scale) * qscale, since qscale is a power of two
     colscale = torch.zeros(nt * bn, dtype=torch.float32, device=x2d.device)
@@ -117,6 +232,12 @@ class SpmmV3Backend(SMEBackend):
     OPERANDS = ("planes", "sign", "rowscale", "rowid", "shift", "last",
                 "nnz")
 
+    def pad_hint(self, smew):
+        return max(int(smew.plane_occupancy().sum(axis=(0, 1)).max()), 1)
+
+    def pack_weight(self, smew, pad_to=None):
+        return smew.pack_plane_csc(pad_to=pad_to)
+
     def matmul2d(self, x2d, ops, param):
         n = param["sme_scale"].shape[-1]
         scale = param["sme_scale"].reshape(1, -1).float()
@@ -126,8 +247,13 @@ class SpmmV3Backend(SMEBackend):
         return _v3_call(x2d, ops, scale, qscale, n=n)
 
 
-_REGISTRY: Dict[str, SMEBackend] = {b.name: b for b in
-                                    (TorchBackend(), SpmmV3Backend())}
+_REGISTRY: Dict[str, SMEBackend] = {
+    b.name: b for b in (TorchBackend(), SpmmV1Backend(), SpmmV2Backend(),
+                        SpmmV3Backend())}
+#: ``auto`` serves the first of these whose operands a param carries: the
+#: smallest guaranteed payload first (a weight packed for v3 alone, as a
+#: compiler plan may choose, serves through v3), as the reference does
+AUTO_ORDER = ("v2", "v3", "v1")
 
 
 def get_backend(name: str) -> SMEBackend:
@@ -138,12 +264,36 @@ def get_backend(name: str) -> SMEBackend:
                        f"{tuple(_REGISTRY)}") from None
 
 
-def resolve_backend(param: dict, name: Optional[str] = None) -> SMEBackend:
-    """Explicit name, else v3 when its operands are packed, else torch."""
-    if name is not None:
+def resolve_backend(param: Optional[dict] = None,
+                    name: Optional[str] = None) -> SMEBackend:
+    """An explicit name, else (``None`` or ``"auto"``) the first backend of
+    :data:`AUTO_ORDER` whose operands ``param`` carries, else ``torch``."""
+    if name not in (None, "auto"):
         return get_backend(name)
-    v3 = _REGISTRY["v3"]
-    return v3 if v3.has_operands(param) else _REGISTRY["torch"]
+    if param is not None:
+        for cand in AUTO_ORDER:
+            if _REGISTRY[cand].has_operands(param):
+                return _REGISTRY[cand]
+    return _REGISTRY["torch"]
+
+
+def resolved_backends(params, name: Optional[str] = None) -> Tuple[str, ...]:
+    """Sorted names of the backends the packed weights of a param tree
+    resolve to under ``name`` (empty for a dense tree)."""
+    found = set()
+
+    def walk(t):
+        if isinstance(t, dict):
+            if "sme_codes" in t:
+                found.add(resolve_backend(t, name).name)
+                return
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+    walk(params)
+    return tuple(sorted(found))
 
 
 def sme_apply(x: torch.Tensor, param: dict, backend: Optional[str] = None,

@@ -3,11 +3,13 @@ them for the operand-free backend.
 
 Checked against ``repro/core/integrate.py``: ``pack_sme_param`` and
 ``convert_params_to_sme`` emit the same packed dict (same keys, dtypes and
-bytes; ``sme_v3_*`` operands for ``backend="v3"``), with the same
-eligibility rule, and ``sme_dequant`` is the counterpart of
+bytes; ``sme_<name>_*`` operands of each backend ``backend`` names), with
+the same eligibility rule; ``sme_dequant`` is the counterpart of
 ``sme_dequant_jnp``: the dense weight of the ``torch`` backend and the CPU
-oracle of the kernels.  Packing is numpy on the host; the converted tree
-holds torch tensors on the requested device.
+oracle of the kernels; ``sme_storage_summary`` counts bytes as the
+reference does.  Packing is numpy on the host and compresses each weight
+once, whatever the number of operand sets; the converted tree holds torch
+tensors on the requested device.
 """
 from __future__ import annotations
 
@@ -20,9 +22,7 @@ from ..device import resolve_device
 from .sme import SMEWeight, sme_compress
 
 __all__ = ["pack_sme_param", "convert_params_to_sme", "sme_dequant",
-           "to_torch"]
-
-_V3 = ("planes", "sign", "rowscale", "rowid", "shift", "last", "nnz")
+           "sme_storage_summary", "sme_operand_bytes", "to_torch"]
 
 
 def _raw_param(smew: SMEWeight, row_perm=None) -> dict:
@@ -43,25 +43,35 @@ def _raw_param(smew: SMEWeight, row_perm=None) -> dict:
     return out
 
 
-def _check_backend(backend) -> bool:
-    """True when v3 operands are wanted."""
-    if backend not in (None, "torch", "v3"):
-        raise ValueError(f"backend {backend!r}: the port packs for 'torch' "
-                         f"(no operands) or 'v3'")
-    return backend == "v3"
+def _backend_names(backend) -> tuple:
+    """Operand sets to emit: none for ``None``/``"torch"``/``"auto"``
+    (auto resolves at call time among what was packed), all three kernel
+    formats for ``"all"``."""
+    if backend in (None, "torch", "auto"):
+        return ()
+    if backend == "all":
+        return ("v1", "v2", "v3")
+    if backend in ("v1", "v2", "v3"):
+        return (backend,)
+    raise ValueError(f"backend {backend!r}: want None, 'torch', 'auto', "
+                     f"'v1', 'v2', 'v3' or 'all'")
 
 
 def pack_sme_param(w2d: np.ndarray, n_bits=8, window=3, squeeze=1,
                    backend=None, row_perm=None, squeeze_max=None) -> dict:
     """Compress one 2-D weight (128x128 tiles) to the packed dict (numpy),
-    with the v3 kernel operands under ``sme_v3_*`` when ``backend="v3"``."""
+    with the kernel operands of each backend ``backend`` names under
+    ``sme_<name>_*``."""
+    from .backend import get_backend
+    names = _backend_names(backend)
     smew = sme_compress(np.asarray(w2d, np.float64), n_bits=n_bits,
                         window=window, squeeze=squeeze,
                         row_perm=row_perm, squeeze_max=squeeze_max)
     out = _raw_param(smew, row_perm)
-    if _check_backend(backend):
-        for op, arr in smew.pack_plane_csc().items():
-            out[f"sme_v3_{op}"] = arr
+    for name in names:
+        be = get_backend(name)
+        for op, arr in be.pack_weight(smew).items():
+            out[be.key(op)] = arr
     return out
 
 
@@ -99,9 +109,13 @@ def to_torch(tree, device=None):
 def convert_params_to_sme(params, n_bits=8, window=3, squeeze=1,
                           backend=None, squeeze_max=None, device=None):
     """A new param tree (torch tensors on ``device``) with every eligible
-    weight SME-packed.  Stacked ``[..., K, N]`` weights pack per slice and
-    share one plane-list length, so their operands stack rectangularly."""
-    want_v3 = _check_backend(backend)
+    weight SME-packed, with the operands of each backend ``backend`` names
+    (``"all"``: v1, v2 and v3, from one compression per weight).  Stacked
+    ``[..., K, N]`` weights pack per slice and share each backend's
+    largest list length (``pad_hint``), so their operands stack
+    rectangularly."""
+    from .backend import get_backend
+    backends = [get_backend(name) for name in _backend_names(backend)]
 
     def walk(tree, path):
         if isinstance(tree, dict):
@@ -119,12 +133,11 @@ def convert_params_to_sme(params, n_bits=8, window=3, squeeze=1,
                               squeeze_max=squeeze_max)
                  for w in leaf.reshape((-1, k, n))]
         per = [_raw_param(s) for s in smews]
-        if want_v3:
-            pad_to = max(max(int(s.plane_occupancy().sum(axis=(0, 1)).max()),
-                             1) for s in smews)
+        for be in backends:
+            pad_to = max(be.pad_hint(s) for s in smews)
             for p, s in zip(per, smews):
-                p.update({f"sme_v3_{op}": a for op, a in
-                          s.pack_plane_csc(pad_to=pad_to).items()})
+                p.update({be.key(op): a for op, a in
+                          be.pack_weight(s, pad_to=pad_to).items()})
         return {key: np.stack([p[key] for p in per]).reshape(
             lead + per[0][key].shape) for key in per[0]}
 
@@ -156,3 +169,67 @@ def sme_dequant(p: dict, dtype=torch.float32) -> torch.Tensor:
         # codes hold W[perm, :]: restore the row order for dense consumers
         w = w[..., torch.argsort(p["sme_perm"].long()), :]
     return w.to(dtype)
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def _nbytes(leaf) -> int:
+    if torch.is_tensor(leaf):
+        return leaf.numel() * leaf.element_size()
+    return np.asarray(leaf).nbytes
+
+
+def sme_storage_summary(params) -> dict:
+    """Bytes of the packed tree vs what bf16/f32 dense storage would need
+    (the reference's count: a packed weight's dense size is its padded
+    code array's)."""
+    packed = dense16 = dense32 = 0
+    for names, leaf in _leaves(params):
+        nb = _nbytes(leaf)
+        packed += nb
+        if "sme_codes" in names:
+            n_w = int(np.prod(tuple(leaf.shape)))
+            dense16 += 2 * n_w
+            dense32 += 4 * n_w
+        elif not any(s.startswith("sme_") for s in names):
+            dense16 += nb
+            dense32 += nb
+    return {"packed_bytes": packed, "dense_bf16_bytes": dense16,
+            "dense_f32_bytes": dense32,
+            "ratio_vs_bf16": dense16 / max(packed, 1)}
+
+
+def _packed(tree):
+    """Every packed weight dict of a param tree."""
+    if isinstance(tree, dict):
+        if "sme_codes" in tree:
+            yield tree
+            return
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for sub in tree:
+            yield from _packed(sub)
+
+
+def sme_operand_bytes(params) -> dict:
+    """What each kernel backend stores for the packed weights of a tree:
+    the bytes of its ``sme_<name>_*`` operands, and ``"weights"``, the
+    number of weights they encode (K * N per slice)."""
+    out = {"weights": 0}
+    for p in _packed(params):
+        out["weights"] += int(np.prod(tuple(p["sme_sign"].shape[:-1]))) \
+            * int(p["sme_scale"].shape[-1])
+        for key, leaf in p.items():
+            name = key.split("_")[1]
+            if name in ("v1", "v2", "v3"):
+                out[name] = out.get(name, 0) + _nbytes(leaf)
+    return out

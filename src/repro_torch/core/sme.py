@@ -1,11 +1,13 @@
 """End-to-end SME weight pipeline and the plane-CSC (v3) packer, numpy only.
 
-A copy of the parts of ``repro/core/sme.py`` the v3 serving path needs:
+A copy of the parts of ``repro/core/sme.py`` the serving path needs:
 ``sme_compress`` (quantize -> bit-slice -> squeeze-out), the
-:class:`SMEWeight` numerics (``dequant``, ``dequant_topk_planes``) and
-``pack_plane_csc``, whose operands ``tests/test_torch_format.py`` holds
-byte-identical to the reference's, so the two packages read each other's
-packed weights unchanged.
+:class:`SMEWeight` numerics (``dequant``, ``dequant_topk_planes``), the
+resource counts and the one byte accounting every format is priced by
+(``storage_bits_per_weight``), and the two CSC packers: ``pack_csc``
+(tile-CSC, the v1 operands) and ``pack_plane_csc`` (plane-CSC, v3).  The
+tests hold their operands byte-identical to the reference's, so the two
+packages read each other's packed weights unchanged.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from .bitslice import tile_codes, tiled_plane_occupancy, untile_codes
 from .quant import quantize
 from .squeeze import squeeze_out
 
-__all__ = ["SMEWeight", "sme_compress", "sme_matmul_ref_np", "plane_csc_order"]
+__all__ = ["SMEWeight", "sme_compress", "sme_matmul_ref_np", "csc_tile_order",
+           "plane_csc_order"]
 
 
 @dataclasses.dataclass
@@ -41,6 +44,14 @@ class SMEWeight:
     @property
     def grid(self) -> Tuple[int, int]:
         return self.tiled_codes.shape[0], self.tiled_codes.shape[1]
+
+    @property
+    def live_bits(self) -> int:
+        return self.n_bits - self.squeezed
+
+    @property
+    def n_weights(self) -> int:
+        return int(np.prod(self.shape))
 
     def dequant(self) -> np.ndarray:
         """Effective real weight matrix [K, N] (float64)."""
@@ -84,6 +95,99 @@ class SMEWeight:
             cached = tiled_plane_occupancy(self.tiled_codes, self.n_bits)
             self.__dict__["_plane_occ"] = cached
         return cached
+
+    def live_plane_occupancy(self) -> np.ndarray:
+        """bool [live_bits, nr, nc]."""
+        occ = []
+        for p in range(self.squeezed + 1, self.n_bits + 1):
+            bit = (self.tiled_codes >> (self.n_bits - p)) & 1
+            occ.append(bit.any(axis=(-1, -2)))
+        return np.stack(occ) if occ else np.zeros((0,) + self.grid, bool)
+
+    def plane_tiles_used(self) -> int:
+        """Occupied (plane, tile) pairs: the plane-CSC storage units."""
+        return int(self.plane_occupancy().sum())
+
+    def crossbars_used(self) -> int:
+        return int(self.live_plane_occupancy().sum())
+
+    def storage_bits_per_weight(self, fmt: str = "planes") -> float:
+        """Weight-storage bits per weight under a packed format.
+
+        * ``bytecode``   -- occupied tiles as whole uint8 codewords (v1);
+        * ``planes``     -- non-empty live (tile, plane) bitmaps, coupled
+          per tile;
+        * ``minifloat6`` -- 6 bits per code on occupied tiles, sign inside
+          the code (v2; raises where the format cannot hold the setting);
+        * ``plane_csc``  -- the v3 format exactly: one bitmap per occupied
+          (plane, tile), dense ``2^row_exp`` f32, and the per-entry index.
+
+        ``bytecode``/``planes``/``plane_csc`` add one sign bit per weight;
+        the tile-CSC formats add ``tr`` bytes of row exponent and 4 bytes
+        of index per occupied tile."""
+        tr, tc = self.tile
+        nr, nc = self.grid
+        occ_tiles = int(self.occupancy.sum())
+        sign_bits = self.n_weights
+        if fmt == "bytecode":
+            payload = occ_tiles * tr * tc * 8
+            meta_bits = occ_tiles * (tr * 8 + 32)
+        elif fmt == "planes":
+            payload = int(self.live_plane_occupancy().sum()) * tr * tc
+            meta_bits = occ_tiles * (tr * 8 + 32)
+        elif fmt == "minifloat6":
+            if not (self.squeezed >= 1 and self.window <= 3
+                    and self.live_bits <= 7):
+                raise ValueError(
+                    "minifloat-6 needs squeeze >= 1, window <= 3, "
+                    "live_bits <= 7")
+            payload = occ_tiles * tr * tc * 6
+            meta_bits = occ_tiles * (tr * 8 + 32)
+            sign_bits = 0
+        elif fmt == "plane_csc":
+            ents = self.plane_tiles_used()
+            payload = ents * tr * tc
+            meta_bits = ents * 96 + nc * 32 + nr * nc * tr * 32
+        else:
+            raise ValueError(f"unknown fmt {fmt!r}")
+        return (payload + meta_bits + sign_bits) / self.n_weights
+
+    def pack_csc(self, pad_to: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Tile-CSC operands of the v1 kernel.
+
+        Per output-column tile ``j`` the occupied row tiles are listed in
+        row order, padded to ``L = max_j nnz(j)`` (or ``pad_to``); padding
+        slots hold zero codes, rowscale 1 and rowid 0, guarded by ``nnz``.
+
+        Returns:
+          codes    u8  [Nt, L, tr, tc]    shifted codewords
+          sign     u8  [Nt, L, tr//8, tc] per-slot signs, rows packed MSB
+                                          first (1 = negative)
+          rowscale f32 [Nt, L, tr]        ``2^row_exp``
+          rowid    i32 [Nt, L]            source row tile
+          nnz      i32 [Nt]               occupied tiles per column
+        """
+        nr, nc = self.grid
+        tr, tc = self.tile
+        occ = self.occupancy
+        nnz = occ.sum(axis=0).astype(np.int32)
+        L = int(pad_to if pad_to is not None else max(int(nnz.max()), 1))
+        if int(nnz.max()) > L:
+            raise ValueError(f"pad_to={L} < max nnz per column {int(nnz.max())}")
+        codes = np.zeros((nc, L, tr, tc), dtype=self.tiled_codes.dtype)
+        sign = np.zeros((nc, L, tr // 8, tc), dtype=np.uint8)
+        rowscale = np.ones((nc, L, tr), dtype=np.float32)
+        rowid = np.zeros((nc, L), dtype=np.int32)
+        col, row, slot = csc_tile_order(occ)
+        if col.size:
+            codes[col, slot] = self.tiled_codes[row, col]
+            sign[col, slot] = np.packbits(
+                self.sign_tiled()[row, col].astype(np.uint8), axis=1)
+            rowscale[col, slot] = (2.0 ** self.row_exp[row, col]
+                                   ).astype(np.float32)
+            rowid[col, slot] = row
+        return {"codes": codes, "sign": sign, "rowscale": rowscale,
+                "rowid": rowid, "nnz": nnz}
 
     def sign_tiled(self) -> np.ndarray:
         """Dense 0/1 sign bits in the tiled view: uint8 [nr, nc, tr, tc]."""
@@ -137,6 +241,17 @@ class SMEWeight:
             "sign": np.packbits(self.sign_tiled(), axis=-2),
             "rowscale": np.exp2(self.row_exp.astype(np.float32)),
         }
+
+
+def csc_tile_order(occ: np.ndarray):
+    """Occupied tiles of a [nr, nc] occupancy map in CSC order: (col, row,
+    slot) vectors sorted by ``(col, row)``; tile ``(row[t], col[t])`` lands
+    in list slot ``slot[t]`` of its column."""
+    col, row = np.nonzero(occ.T)
+    nnz = occ.sum(axis=0).astype(np.int64)
+    offsets = np.cumsum(nnz) - nnz
+    slot = np.arange(col.size) - np.repeat(offsets, nnz)
+    return col, row, slot
 
 
 def plane_csc_order(occp: np.ndarray):

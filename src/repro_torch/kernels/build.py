@@ -26,6 +26,8 @@ __all__ = ["build_all", "load", "BUILD_DIR", "NVCC_FLAGS", "SIGNATURES"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+#: no --use_fast_math / -ftz=true: flushing subnormals would break the
+#: kernels' bitwise agreement up to powers of two (plane_csc.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +43,11 @@ SIGNATURES: Dict[str, List] = {
     # y, device, stream
     "sme_spmm_planes": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                         _I, _P],
+    # x, m, k_pad, codes, sign, rowscale, rowid, nnz, nt, L, y, device,
+    # stream
+    "sme_spmm": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    # x, m, k_pad, packed, rowscale, rowid, nnz, nt, L, y, device, stream
+    "sme_spmm6": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,20 +1,37 @@
-// Device helpers shared by the two plane-CSC (v3) kernels.
+// Device helpers shared by the CSC-of-tiles SME kernels: the two
+// plane-CSC (v3) kernels, the bytecode (v1) kernel and the minifloat-6 (v2)
+// kernel.
 //
-// Both kernels compute, per output column tile j, the SME product
+// All four compute, per output column tile j, the SME product
 //   acc[m, c] = sum over the tile groups g of column j, in list order, of
 //               sum_k x[m, rowtile(g)*128 + k] * W_g[k, c]
-// where W_g is the group's codeword tile spliced from its 1-bit plane
-// bitmaps (bits * 2^shift, exact in f32), signed and scaled by 2^row_exp.
-// Every output is summed by one thread in one fixed order: a sequential
-// fmaf chain over k = 0..127 per group, then acc += t over groups.  The
-// decode and prefill kernels run this same walk, so they agree bitwise.
-// No split-K: blocks split output columns and M rows only.
+// where W_g is the group's weight tile, signed and scaled by 2^row_exp.
+// They differ only in how a tile is decoded (a `Tiles` decoder of
+// walk_column_strip): v3 splices it from its 1-bit plane bitmaps (bits *
+// 2^shift) over the group's slots, v1 reads uint8 codewords, v2 unpacks
+// 6-bit minifloats; one slot is one group in v1 and v2.  Every decoded
+// value is exact in f32 (v2's is v1's times 2^-(n_bits - squeezed)), and
+// every output is summed by one thread in one fixed order: a sequential
+// fmaf chain over k = 0..127 per group, then acc += t over groups.  So the
+// four kernels agree bitwise (v2 up to that power of two, which commutes
+// with f32 rounding).  No split-K: blocks split output columns and M rows
+// only.  Built without fast-math or flush-to-zero, which would break the
+// power-of-two argument.
 //
-// Layouts (the reference packer's, unchanged; bk = bn = 128):
-//   planes   u8  [Nt, L, 16, 128]   rows packed MSB first (np.packbits)
-//   sign     u8  [nr, Nt, 16, 128]  1 = negative
-//   rowscale f32 [nr, Nt, 128]      2^row_exp
-//   rowid/shift/last i32 [Nt, L], nnz i32 [Nt]; slots l >= nnz[j] are padding
+// Layouts (the reference packers', unchanged; bk = bn = 128):
+//   v3: planes   u8  [Nt, L, 16, 128]   rows packed MSB first (np.packbits)
+//       sign     u8  [nr, Nt, 16, 128]  1 = negative
+//       rowscale f32 [nr, Nt, 128]      2^row_exp
+//       rowid/shift/last i32 [Nt, L]
+//   v1: codes    u8  [Nt, L, 128, 128]
+//       sign     u8  [Nt, L, 16, 128]   per slot, rows packed MSB first
+//       rowscale f32 [Nt, L, 128]       per slot
+//       rowid    i32 [Nt, L]
+//   v2: packed   u8  [Nt, L, 128, 96]   4 six-bit codes per 3 bytes, first
+//                                       code in the low bits
+//       rowscale f32 [Nt, L, 128]       per slot
+//       rowid    i32 [Nt, L]
+//   nnz i32 [Nt]; slots l >= nnz[j] are padding.
 #pragma once
 
 #include <cstddef>
@@ -31,6 +48,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerBlock = 64;           // M rows per block
 constexpr int kAcc = kRowsPerBlock / kWarps;  // outputs per thread
+constexpr int kRowBytes6 = kTile / 4 * 3;   // v2 bytes per tile row
 
 // Splice one plane's strip into the thread's 16 codeword cells.  Thread
 // (warp w, lane) owns packed bytes (w, col) and (w + 8, col), i.e. rows
@@ -90,17 +108,112 @@ __device__ __forceinline__ void tile_dot(const float* xtile, int k_pad,
   for (int a = 0; a < kAcc; ++a) acc[a] = __fadd_rn(acc[a], t[a]);
 }
 
+// The v3 decoder: a group is the run of planes of one (row, col) tile,
+// ending at a `last` slot.  Each thread splices its 16 cells of the strip
+// in registers over the group's planes, at most `depth` of them (the most
+// significant first), then signs and row-scales them from the dense
+// per-tile arrays.
+struct PlaneTiles {
+  const uint8_t* planes;
+  const uint8_t* sign;
+  const float* rowscale;
+  const int* rowid;
+  const int* shift;
+  const int* last;
+  int nt;
+  int depth;
+  float cell[16];
+  int in_group;
+
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) cell[i] = 0.0f;
+    in_group = 0;
+  }
+  __device__ __forceinline__ bool take(size_t slot, int col, int w) {
+    if (in_group < depth)
+      splice_plane(planes + slot * kTileBytes, col, w,
+                   ldexpf(1.0f, shift[slot]), cell);
+    ++in_group;
+    return last[slot];
+  }
+  __device__ __forceinline__ void fill(size_t slot, int j, int col, int lane,
+                                       int w, float* wtile) {
+    const size_t tile = (size_t)rowid[slot] * nt + j;
+    finish_group(sign + tile * kTileBytes, rowscale + tile * kTile, col, lane,
+                 w, cell, wtile);
+    start();
+  }
+};
+
+// The v1 decoder: each slot is one tile of uint8 codewords with its own
+// sign bitmap and 2^row_exp, indexed by the slot (not by rowid).
+struct BytecodeTiles {
+  const uint8_t* codes;
+  const uint8_t* sign;
+  const float* rowscale;
+
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ bool take(size_t, int, int) { return true; }
+  __device__ __forceinline__ void fill(size_t slot, int, int col, int lane,
+                                       int w, float* wtile) {
+    const uint8_t* tile = codes + slot * kTile * kTile;
+    float cell[16];
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        cell[b * 8 + i] = (float)tile[(8 * (w + 8 * b) + i) * kTile + col];
+    finish_group(sign + slot * kTileBytes, rowscale + slot * kTile, col, lane,
+                 w, cell, wtile);
+  }
+};
+
+// The v2 decoder: code c of a row sits at bits 6*(c%4).. of the 24-bit
+// little-endian word of bytes 3*(c/4)..+2; sign | exp(3) | mant(2) decodes
+// to (e > 0) ? +-(4 + m) * 2^-(e + 2) : 0 (squeezed = 0: the caller
+// applies 2^-squeezed), then times 2^row_exp of the slot.  A zero code may
+// carry a sign bit; e == 0 still decodes it to +0.
+struct Minifloat6Tiles {
+  const uint8_t* packed;
+  const float* rowscale;
+
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ bool take(size_t, int, int) { return true; }
+  __device__ __forceinline__ void fill(size_t slot, int, int col, int lane,
+                                       int w, float* wtile) {
+    const uint8_t* tile = packed + slot * kTile * kRowBytes6 + 3 * (col >> 2);
+    const float* rs = rowscale + slot * kTile;
+    const int sh = 6 * (col & 3);
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 8 * (w + 8 * b) + i;
+        const uint8_t* p = tile + r * kRowBytes6;
+        const uint32_t word = (uint32_t)p[0] | ((uint32_t)p[1] << 8) |
+                              ((uint32_t)p[2] << 16);
+        const uint32_t c = (word >> sh) & 63u;
+        const uint32_t e = (c >> 2) & 7u;
+        const float mag = ldexpf((float)(4u + (c & 3u)), -(int)(e + 2u));
+        const float v = e ? ((c >> 5) ? -mag : mag) : 0.0f;
+        wtile[r * kStrip + lane] = v * rs[r];
+      }
+    }
+  }
+};
+
 // One block: column tile j = blockIdx.x / 4, strip blockIdx.x % 4, rows
-// [64*blockIdx.y, +64).  Walks column j's plane list in order; each group
-// splices at most `depth` planes (its most significant ones).  Writes
-// acc * colscale (colscale may be null: unscaled) into y [M, Nt*128].
+// [64*blockIdx.y, +64).  Walks column j's list in order up to nnz[j]:
+// `tiles.take(slot)` consumes a slot and says whether it closes a tile
+// group, whose signed, row-scaled strip `tiles.fill` then writes to shared
+// memory for the dot.  Writes acc * colscale (colscale may be null:
+// unscaled) into y [M, Nt*128].
+template <class Tiles>
 __device__ __forceinline__ void walk_column_strip(
-    const float* __restrict__ x, int m, int k_pad,
-    const uint8_t* __restrict__ planes, const uint8_t* __restrict__ sign,
-    const float* __restrict__ rowscale, const float* __restrict__ colscale,
-    const int* __restrict__ rowid, const int* __restrict__ shift,
-    const int* __restrict__ last, const int* __restrict__ nnz, int nt, int L,
-    int depth, float* __restrict__ y) {
+    const float* __restrict__ x, int m, int k_pad, Tiles& tiles,
+    const float* __restrict__ colscale, const int* __restrict__ rowid,
+    const int* __restrict__ nnz, int nt, int L, float* __restrict__ y) {
   __shared__ float wtile[kTile * kStrip];
   const int j = blockIdx.x / kStrips;
   const int col0 = (blockIdx.x % kStrips) * kStrip;
@@ -113,29 +226,17 @@ __device__ __forceinline__ void walk_column_strip(
   float acc[kAcc];
 #pragma unroll
   for (int a = 0; a < kAcc; ++a) acc[a] = 0.0f;
-  float cell[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) cell[i] = 0.0f;
+  tiles.start();
 
   const int n = nnz[j];
-  int in_group = 0;
   for (int l = 0; l < n; ++l) {
     const size_t slot = (size_t)j * L + l;
-    if (in_group < depth)
-      splice_plane(planes + slot * kTileBytes, col, w,
-                   ldexpf(1.0f, shift[slot]), cell);
-    ++in_group;
-    if (last[slot]) {
-      const size_t tile = (size_t)rowid[slot] * nt + j;
-      finish_group(sign + tile * kTileBytes, rowscale + tile * kTile, col,
-                   lane, w, cell, wtile);
+    if (tiles.take(slot, col, w)) {
+      tiles.fill(slot, j, col, lane, w, wtile);
       __syncthreads();
       tile_dot(x + (size_t)m0 * k_pad + (size_t)rowid[slot] * kTile, k_pad,
                m_rows, wtile, lane, w, acc);
       __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 16; ++i) cell[i] = 0.0f;
-      in_group = 0;
     }
   }
 

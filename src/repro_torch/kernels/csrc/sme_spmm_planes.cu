@@ -27,8 +27,10 @@ sme_spmm_planes_kernel(const float* x, int m, int k_pad, const uint8_t* planes,
                        const uint8_t* sign, const float* rowscale,
                        const int* rowid, const int* shift, const int* last,
                        const int* nnz, int nt, int L, float* y) {
-  plane_csc::walk_column_strip(x, m, k_pad, planes, sign, rowscale, nullptr,
-                               rowid, shift, last, nnz, nt, L, INT_MAX, y);
+  plane_csc::PlaneTiles tiles{planes, sign, rowscale, rowid, shift, last,
+                              nt, INT_MAX};
+  plane_csc::walk_column_strip(x, m, k_pad, tiles, nullptr, rowid, nnz, nt, L,
+                               y);
 }
 
 }  // namespace

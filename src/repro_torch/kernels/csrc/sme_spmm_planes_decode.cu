@@ -35,8 +35,10 @@ sme_spmm_planes_decode_kernel(const float* x, int m, int k_pad,
                               const int* rowid, const int* shift,
                               const int* last, const int* nnz, int nt, int L,
                               int depth, float* y) {
-  plane_csc::walk_column_strip(x, m, k_pad, planes, sign, rowscale, colscale,
-                               rowid, shift, last, nnz, nt, L, depth, y);
+  plane_csc::PlaneTiles tiles{planes, sign, rowscale, rowid, shift, last,
+                              nt, depth};
+  plane_csc::walk_column_strip(x, m, k_pad, tiles, colscale, rowid, nnz, nt,
+                               L, y);
 }
 
 }  // namespace

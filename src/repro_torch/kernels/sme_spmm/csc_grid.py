@@ -1,10 +1,13 @@
-"""Shared scaffolding of the plane-CSC kernels: bitmap decode, the
-tile-group view of a column's plane list, operand checks, and the plain
-PyTorch splice-and-dot both kernels' plain versions run.
+"""Shared scaffolding of the CSC-of-tiles kernels (v1, v2, v3): bitmap
+decode, the tile-group view of a v3 plane list, operand checks per
+format, and the plain PyTorch walk every plain version runs
+(:func:`tile_dot_plain`: one matmul per tile group, summed in list order
+up to ``nnz[j]``).
 
-Checked against ``repro/kernels/sme_spmm/csc_grid.py`` (``unpack_row_bits``)
-and ``sme_spmm_planes_decode.py`` (``plane_group_index``).  The CUDA
-kernels share the matching device helpers in ``kernels/csrc/plane_csc.cuh``.
+Checked against ``repro/kernels/sme_spmm/csc_grid.py`` (``unpack_row_bits``
+and the ``csc_step`` walk) and ``sme_spmm_planes_decode.py``
+(``plane_group_index``).  The CUDA kernels share the matching device
+helpers in ``kernels/csrc/plane_csc.cuh``.
 """
 from __future__ import annotations
 
@@ -12,8 +15,9 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["unpack_row_bits", "plane_group_index", "splice_dot_plain",
-           "check_operands"]
+__all__ = ["unpack_row_bits", "plane_group_index", "tile_dot_plain",
+           "csc_dot_plain", "splice_dot_plain", "check_operands",
+           "check_v1_operands", "check_v2_operands"]
 
 
 def unpack_row_bits(packed: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
@@ -62,6 +66,35 @@ def plane_group_index(rowid: torch.Tensor, last: torch.Tensor,
     return g_rowid, g_start, g_count, is_start.sum(1)
 
 
+def tile_dot_plain(x: torch.Tensor, w: torch.Tensor, rowid: torch.Tensor,
+                   count: torch.Tensor) -> torch.Tensor:
+    """``sum_g x[:, rowid[j, g]] @ w[j, g]`` per column tile ``j`` over its
+    first ``count[j]`` groups, in group order: [M, Nt*bn] f32.
+
+    ``w``: f32 [Nt, G, bk, bn] signed, row-scaled weight tiles; ``rowid``:
+    [Nt, G] row tile of each.  One batched matmul computes every group's
+    product, then the products are summed one group after another, as the
+    kernels do, so formats whose tiles agree agree bitwise here too."""
+    nt, G, bk, bn = w.shape
+    m = x.shape[0]
+    xt = x.float().view(m, -1, bk)[:, rowid.long()]        # [M, Nt, G, bk]
+    t = torch.matmul(xt.permute(1, 2, 0, 3), w.contiguous())  # [Nt, G, M, bn]
+    t = t * (torch.arange(G, device=x.device) < count[:, None])[..., None, None]
+    acc = torch.zeros((nt, m, bn), dtype=torch.float32, device=x.device)
+    for g in range(G):
+        acc += t[:, g]
+    return acc.permute(1, 0, 2).reshape(m, nt * bn)
+
+
+def csc_dot_plain(x: torch.Tensor, tiles, rowid: torch.Tensor,
+                  nnz: torch.Tensor) -> torch.Tensor:
+    """The tile-CSC (v1/v2) walk: ``tiles(G)`` gives the signed, row-scaled
+    f32 weight tiles [Nt, G, bk, bn] of the first ``G`` list slots, one
+    group per slot; slots past ``nnz[j]`` are skipped."""
+    G = min(max(int(nnz.max()), 1), rowid.shape[1])
+    return tile_dot_plain(x, tiles(G), rowid[:, :G], nnz)
+
+
 def splice_dot_plain(x: torch.Tensor, planes: torch.Tensor,
                      sign: torch.Tensor, rowscale: torch.Tensor,
                      rowid: torch.Tensor, shift: torch.Tensor,
@@ -94,32 +127,12 @@ def splice_dot_plain(x: torch.Tensor, planes: torch.Tensor,
     cols = torch.arange(nt, device=x.device)[:, None]
     sgn = 1.0 - 2.0 * unpack_row_bits(sign[g_rowid, cols], bk, bn).float()
     w = wg.view(nt, G, bk, bn) * sgn * rowscale[g_rowid, cols][..., None]
-    xt = x.float().view(m, -1, bk)[:, g_rowid]            # [M, Nt, G, bk]
-    t = torch.matmul(xt.permute(1, 2, 0, 3), w)           # [Nt, G, M, bn]
-    t = t * (torch.arange(G, device=x.device) < g_nnz[:, None])[..., None, None]
-    acc = torch.zeros((nt, m, bn), dtype=torch.float32, device=x.device)
-    for g in range(G):
-        acc += t[:, g]
-    return acc.permute(1, 0, 2).reshape(m, nt * bn)
+    return tile_dot_plain(x, w, g_rowid, g_nnz)
 
 
-def check_operands(x, planes, sign, rowscale, rowid, shift, last, nnz,
-                   m_multiple: int) -> None:
+def _check(x, want: dict, bk: int, bn: int, m_multiple: int) -> None:
     """Raise on operands the kernels (and their plain versions) do not
     take: wrong dtype, shape, device or layout."""
-    nt, L, bk8, bn = planes.shape
-    bk = bk8 * 8
-    if x.dim() != 2 or x.shape[0] % m_multiple or x.shape[1] % bk:
-        raise ValueError(f"x {tuple(x.shape)}: want [M, K_pad] with M a "
-                         f"multiple of {m_multiple} and K_pad of {bk}")
-    nr = x.shape[1] // bk
-    want = {"planes": (planes, torch.uint8, (nt, L, bk8, bn)),
-            "sign": (sign, torch.uint8, (nr, nt, bk8, bn)),
-            "rowscale": (rowscale, torch.float32, (nr, nt, bk)),
-            "rowid": (rowid, torch.int32, (nt, L)),
-            "shift": (shift, torch.int32, (nt, L)),
-            "last": (last, torch.int32, (nt, L)),
-            "nnz": (nnz, torch.int32, (nt,))}
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, want "
@@ -136,3 +149,53 @@ def check_operands(x, planes, sign, rowscale, rowid, shift, last, nnz,
             raise ValueError(f"non-contiguous operands: {bad or ['x']}")
     elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
+
+
+def _check_x(x, bk: int, m_multiple: int) -> int:
+    """Check x's shape; return the number of row tiles."""
+    if x.dim() != 2 or x.shape[0] % m_multiple or x.shape[1] % bk:
+        raise ValueError(f"x {tuple(x.shape)}: want [M, K_pad] with M a "
+                         f"multiple of {m_multiple} and K_pad of {bk}")
+    return x.shape[1] // bk
+
+
+def check_operands(x, planes, sign, rowscale, rowid, shift, last, nnz,
+                   m_multiple: int) -> None:
+    """The v3 (plane-CSC) operand check."""
+    nt, L, bk8, bn = planes.shape
+    bk = bk8 * 8
+    nr = _check_x(x, bk, m_multiple)
+    _check(x, {"planes": (planes, torch.uint8, (nt, L, bk8, bn)),
+               "sign": (sign, torch.uint8, (nr, nt, bk8, bn)),
+               "rowscale": (rowscale, torch.float32, (nr, nt, bk)),
+               "rowid": (rowid, torch.int32, (nt, L)),
+               "shift": (shift, torch.int32, (nt, L)),
+               "last": (last, torch.int32, (nt, L)),
+               "nnz": (nnz, torch.int32, (nt,))}, bk, bn, m_multiple)
+
+
+def check_v1_operands(x, codes, sign, rowscale, rowid, nnz,
+                      m_multiple: int = 8) -> None:
+    """The v1 (tile-CSC bytecode) operand check: signs and rowscale per
+    list slot."""
+    nt, L, bk, bn = codes.shape
+    _check_x(x, bk, m_multiple)
+    _check(x, {"codes": (codes, torch.uint8, (nt, L, bk, bn)),
+               "sign": (sign, torch.uint8, (nt, L, bk // 8, bn)),
+               "rowscale": (rowscale, torch.float32, (nt, L, bk)),
+               "rowid": (rowid, torch.int32, (nt, L)),
+               "nnz": (nnz, torch.int32, (nt,))}, bk, bn, m_multiple)
+
+
+def check_v2_operands(x, packed, rowscale, rowid, nnz,
+                      m_multiple: int = 8) -> None:
+    """The v2 (tile-CSC minifloat-6) operand check: 3 bytes per 4 codes."""
+    nt, L, bk, nbytes = packed.shape
+    if nbytes % 3:
+        raise ValueError(f"packed rows of {nbytes} bytes: want 3 per 4 codes")
+    _check_x(x, bk, m_multiple)
+    _check(x, {"packed": (packed, torch.uint8, (nt, L, bk, nbytes)),
+               "rowscale": (rowscale, torch.float32, (nt, L, bk)),
+               "rowid": (rowid, torch.int32, (nt, L)),
+               "nnz": (nnz, torch.int32, (nt,))}, bk, nbytes // 3 * 4,
+           m_multiple)

@@ -2,14 +2,18 @@
 
 Checked against ``repro/launch/serve.py`` (a subset of its flags).  Weights
 come from a numpy generator seeded by ``--seed`` (the reference init's
-distributions); ``--sme`` packs every eligible weight for ``--backend``
-(``v3`` emits the plane-CSC kernel operands, ``torch`` serves the dense
-dequant).  Runs on the card unless ``--device cpu``.  Full width by
-default; ``--small`` is the 2-layer, 128-wide config the CPU tests use.
+distributions); ``--sme`` packs every eligible weight at ``--squeeze`` and
+emits the kernel operands ``--backend`` serves from: ``v1``/``v2``/``v3``
+their own; ``auto`` on the card v2 when ``--squeeze >= 1`` and v1 when it
+is 0 (the reference's choice on its chip), on ``--device cpu`` none, so
+auto serves the dense dequant (``torch``) as the reference does off its
+chip; ``torch`` none.  Runs on the card unless ``--device cpu``.  Full
+width by default; ``--small`` is the 2-layer, 128-wide config the CPU
+tests use.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --sme --backend v3
+    PYTHONPATH=src python -m repro_torch.launch.serve --sme
     PYTHONPATH=src python -m repro_torch.launch.serve --small --device cpu \\
-        --sme --backend v3 --requests 3 --max-new 4
+        --sme --backend v2 --requests 3 --max-new 4
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import time
 import numpy as np
 
 from repro_torch.configs import ARCHS, scale_down
-from repro_torch.core.integrate import convert_params_to_sme, to_torch
+from repro_torch.core.integrate import (convert_params_to_sme,
+                                        sme_storage_summary, to_torch)
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import lm_init
 from repro_torch.serve import Request, ServeEngine
@@ -40,7 +45,10 @@ def main(argv=None):
     ap.add_argument("--s-max", type=int, default=96)
     ap.add_argument("--sme", action="store_true",
                     help="serve SME-packed weights")
-    ap.add_argument("--backend", default="v3", choices=["torch", "v3"])
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "torch", "v1", "v2", "v3"])
+    ap.add_argument("--squeeze", type=int, default=1,
+                    help="bits squeezed out of every SME codeword")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -53,9 +61,14 @@ def main(argv=None):
     t0 = time.perf_counter()
     params = lm_init(cfg, rng)
     if args.sme:
-        params = convert_params_to_sme(
-            params, backend=args.backend if args.backend == "v3" else None,
-            device=args.device)
+        emit = args.backend if args.backend in ("v1", "v2", "v3") else None
+        if args.backend == "auto" and api.device.type == "cuda":
+            # auto on the card serves through the kernels, whose operands
+            # are packed offline
+            emit = "v2" if args.squeeze >= 1 else "v1"
+        params = convert_params_to_sme(params, squeeze=args.squeeze,
+                                       backend=emit, device=args.device)
+        print("SME storage:", sme_storage_summary(params))
     else:
         params = to_torch(params, args.device)
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "

@@ -15,6 +15,10 @@ Checked against ``repro/serve/engine.py``, a subset of it: ``Request`` and
   never write their cache.
 * Sampling is greedy.  A prompt must be shorter than ``s_max`` (the first
   decoded token needs a cache slot); longer ones are rejected.
+* ``backend`` (None, ``"auto"``, ``"torch"``, ``"v1"``, ``"v2"``, ``"v3"``)
+  reaches every ``sme_apply`` unchanged; ``stats["backend"]`` names what
+  the packed weights resolve to under it (``"dense"`` for a dense tree,
+  names joined by ``+`` where layers differ).
 
 Not ported yet (ROADMAP): chunked prefill, prefix cache, speculative
 decode, streaming submit/poll, preemption, telemetry, mesh, artifacts.
@@ -28,6 +32,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..core.backend import get_backend, resolved_backends
 from ..device import resolve_device
 
 __all__ = ["Request", "ServeEngine"]
@@ -55,6 +60,8 @@ class ServeEngine:
     def __init__(self, api, params, *, slots: int = 4, s_max: int = 128,
                  backend: Optional[str] = None, device=None):
         self.device = resolve_device(device)
+        if backend not in (None, "auto"):
+            get_backend(backend)                # unknown names raise here
         if api.device != self.device:
             raise ValueError(f"model on {api.device}, engine on {self.device}")
         self.api = api
@@ -66,8 +73,9 @@ class ServeEngine:
         self.pos = np.zeros(slots, np.int64)       # next position per slot
         self.active: List[Optional[Request]] = [None] * slots
         self.last_token = np.zeros((slots, 1), np.int64)
-        self.stats = {"prefills": 0, "decode_steps": 0, "tokens": 0,
-                      "prefill_s": 0.0, "decode_s": 0.0}
+        self.stats = {"backend": "+".join(resolved_backends(params, backend))
+                      or "dense", "prefills": 0, "decode_steps": 0,
+                      "tokens": 0, "prefill_s": 0.0, "decode_s": 0.0}
 
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.active) if r is None]

@@ -28,6 +28,8 @@ from repro_torch.core.integrate import pack_sme_param, to_torch
 from repro_torch.core.sme import sme_compress
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sme_spmm.csc_grid import unpack_row_bits
+from repro_torch.kernels.sme_spmm.sme_spmm import sme_spmm
+from repro_torch.kernels.sme_spmm.sme_spmm6 import sme_spmm6
 from repro_torch.kernels.sme_spmm.sme_spmm_planes import (
     sme_spmm_planes, sme_spmm_planes_plain)
 from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import (
@@ -39,6 +41,8 @@ SETTINGS = [dict(n_bits=8, window=3, squeeze=1),
             dict(n_bits=8, window=3, squeeze=1, squeeze_max=7),
             dict(n_bits=6, window=2, squeeze=2)]
 OPS = ("planes", "sign", "rowscale", "rowid", "shift", "last", "nnz")
+V1 = ("codes", "sign", "rowscale", "rowid", "nnz")
+V2 = ("packed", "rowscale", "rowid", "nnz")
 
 
 def _weight(seed, shape):
@@ -172,11 +176,16 @@ def test_plane_depth_truncates_to_top_planes():
 
 def test_cpu_calls_do_not_count_launches():
     x, ops, smew = _case(SETTINGS[0], m=8)
-    before = (sme_spmm_planes.launches, sme_spmm_planes_decode.launches)
+    wrappers = (sme_spmm_planes, sme_spmm_planes_decode, sme_spmm, sme_spmm6)
+    before = [f.launches for f in wrappers]
     sme_spmm_planes(torch.from_numpy(_pad(x, 128, 384)),
                     *(torch.from_numpy(ops[k]) for k in OPS))
-    assert (sme_spmm_planes.launches,
-            sme_spmm_planes_decode.launches) == before
+    xt = torch.from_numpy(_pad(x, 8, 384))
+    v1 = smew.pack_csc()
+    sme_spmm(xt, *(torch.from_numpy(v1[k]) for k in V1))
+    v2 = PB.get_backend("v2").pack_weight(smew)
+    sme_spmm6(xt, *(torch.from_numpy(v2[k]) for k in V2))
+    assert [f.launches for f in wrappers] == before
 
 
 # ------------------------------------------------------------- backend
@@ -246,7 +255,9 @@ def test_wrappers_never_run_the_plain_version_off_cpu(monkeypatch):
     the wrapper modules that call them, by a trap (a CPU call proves the
     trap is live).  A meta tensor (no card to launch on) is refused by the
     operand check; past that check, the wrapper's only way on is the
-    kernel loader."""
+    kernel loader.  All four wrappers: v3 prefill and decode, v1, v2."""
+    import repro_torch.kernels.sme_spmm.sme_spmm as v1mod
+    import repro_torch.kernels.sme_spmm.sme_spmm6 as v2mod
     import repro_torch.kernels.sme_spmm.sme_spmm_planes as pmod
     import repro_torch.kernels.sme_spmm.sme_spmm_planes_decode as dmod
     from repro_torch.kernels import build
@@ -264,11 +275,18 @@ def test_wrappers_never_run_the_plain_version_off_cpu(monkeypatch):
         raise Launch(name)
     for mod in (pmod, dmod):
         monkeypatch.setattr(mod, "splice_dot_plain", trap)
+    for mod in (v1mod, v2mod):
+        monkeypatch.setattr(mod, "csc_dot_plain", trap)
     monkeypatch.setattr(pmod, "sme_spmm_planes_plain", trap)
     monkeypatch.setattr(dmod, "sme_spmm_planes_decode_plain", trap)
+    monkeypatch.setattr(v1mod, "sme_spmm_plain", trap)
+    monkeypatch.setattr(v2mod, "sme_spmm6_plain", trap)
     x, ops, smew = _case(SETTINGS[0], m=8)
     cpu = {k: torch.from_numpy(v) for k, v in ops.items()}
     cs_cpu = torch.from_numpy(_colscale(smew, ops["planes"].shape[0]))
+    v1 = {k: torch.from_numpy(v) for k, v in smew.pack_csc().items()}
+    v2 = {k: torch.from_numpy(v) for k, v in
+          PB.get_backend("v2").pack_weight(smew).items()}
 
     def calls(dev):
         args = [cpu[k].to(dev) for k in OPS]
@@ -277,7 +295,11 @@ def test_wrappers_never_run_the_plain_version_off_cpu(monkeypatch):
                                         *args),
                 lambda: sme_spmm_planes_decode(
                     torch.zeros(8, 384, device=dev), *args[:3], cs,
-                    *args[3:]))
+                    *args[3:]),
+                lambda: sme_spmm(torch.zeros(8, 384, device=dev),
+                                 *(v1[k].to(dev) for k in V1)),
+                lambda: sme_spmm6(torch.zeros(8, 384, device=dev),
+                                  *(v2[k].to(dev) for k in V2)))
     for call in calls("cpu"):
         with pytest.raises(PlainCalled):
             call()
@@ -287,7 +309,10 @@ def test_wrappers_never_run_the_plain_version_off_cpu(monkeypatch):
     monkeypatch.setattr(build, "load", load)
     for mod in (pmod, dmod):
         monkeypatch.setattr(mod, "check_operands", lambda *a, **k: None)
+    monkeypatch.setattr(v1mod, "check_v1_operands", lambda *a, **k: None)
+    monkeypatch.setattr(v2mod, "check_v2_operands", lambda *a, **k: None)
     for call, name in zip(calls("meta"), ("sme_spmm_planes",
-                                          "sme_spmm_planes_decode")):
+                                          "sme_spmm_planes_decode",
+                                          "sme_spmm", "sme_spmm6")):
         with pytest.raises(Launch, match=f"^{name}$"):
             call()
