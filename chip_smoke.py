@@ -10,18 +10,26 @@
    1024x2816 wi/wg, 2816x1024 wo), on ``sme_compress`` output of seeded
    Gaussian weights, each kernel is held against its plain PyTorch version
    on the card and against the f64 oracle ``sme_matmul_ref_np`` (relative
-   error <= 5e-5): v3's decode kernel at M = 8 and prefill kernel at
-   M = 512, v1's ``sme_spmm`` and v2's ``sme_spmm6`` (one kernel each for
-   decode and prefill) at both.  The decode kernel must equal the prefill
-   kernel bitwise at M = 8, ``plane_depth`` >= the deepest group must be a
-   bitwise no-op and ``plane_depth = 2`` must match
-   ``dequant_topk_planes(2)``; v1 and v2, after their power-of-two
-   scaling, must equal the v3 prefill kernel bitwise, also on a pruned
-   weight with empty tiles and an empty column tile (whose output must be
-   exactly 0); v1 must hold settings v2 cannot (squeeze 0, window 4)
-   against the oracle.  Times from CUDA events with the L2 cache flushed
-   before every launch, beside the plain version's, ``torch.matmul`` on
-   the dequantized weight and the bound.
+   error <= 5e-5): v3's decode kernel at M = 8 and 64 (the smallest and
+   largest decode bucket) and prefill kernel at M = 512, v1's ``sme_spmm``
+   and v2's ``sme_spmm6`` (one entry point each for decode and prefill) at
+   all three.  The decode kernel must equal the prefill kernel bitwise,
+   ``plane_depth`` >= the deepest group must be a bitwise no-op and
+   ``plane_depth = 2`` must match ``dequant_topk_planes(2)``; v1 and v2,
+   after their power-of-two scaling, must equal the v3 prefill kernel
+   bitwise, also on a pruned weight with empty tiles and an empty column
+   tile (whose output must be exactly 0), where the decode kernel must
+   also equal the prefill kernel and hold ``plane_depth`` 1, 2 and 8; v1
+   must hold settings v2 cannot (squeeze 0, window 4) against the oracle.
+   The launch geometry (blocks, cluster size, dynamic shared memory) of
+   the two cluster kernels is printed per shape and M.  Times from CUDA
+   events with the L2 cache flushed before every launch: the kernel's
+   launch alone (the unscaled product for v1, v2 and v3-prefill; the log
+   line adds the time with the backend's scaling epilogue, two elementwise
+   launches), beside the plain version's, ``torch.matmul`` on the
+   dequantized weight and the bound.
+   Then the card tests (``pytest -m gpu tests/test_torch_cuda.py``, in a
+   child process on the same build) must all pass.
 3. Serving: full-width qwen1.5-0.5b (24 layers, random weights from a
    numpy seed, every attention/MLP weight packed once to v1, v2 and v3)
    serves the same 8 requests three times through ``ServeEngine(slots=4,
@@ -34,9 +42,10 @@
    tolerance of the same model run through the plain versions.  A
    torch.profiler window profiles the v2 path.
 4. Prints the kernels JSON line (times per model layer: 4 q/k/v/o + 2
-   wi/wg + 1 wo calls; v1/v2 at decode M = 8 in the top-level keys and at
-   both M under ``at_m``), the card line and, last, ``{"ok": true,
-   "device": {...}}``.  Any failed check raises first.
+   wi/wg + 1 wo calls; decode M = 8 in the top-level keys, every M a
+   kernel ran at under ``at_m``; every number measured in this run but
+   ``bound_ms``), the card line and, last, ``{"ok": true, "device":
+   {...}}``.  Any failed check raises first.
 """
 from __future__ import annotations
 
@@ -67,6 +76,9 @@ TOL_LOGITS = {"float32": 1e-3, "bfloat16": 5e-2}
 #: qwen1.5-0.5b linears per layer: (name, K, N, calls per layer)
 SHAPES = (("qkvo", 1024, 1024, 4), ("wi_wg", 1024, 2816, 2),
           ("wo", 2816, 1024, 1))
+#: bytes written to flush the 50 MB L2 before each timed launch: ~0.3 ms on
+#: the device, longer than the host takes to issue a wrapper's launches
+FLUSH_BYTES = 2 ** 30
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 #: embedding std of the random serving model: small enough that the layers,
@@ -81,6 +93,31 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(reports) -> list:
+    """One line per compiled kernel of nvcc's ``-Xptxas -v`` reports:
+    library, demangled entry function, registers and spills."""
+    import re
+    import shutil
+    filt = shutil.which("c++filt") or shutil.which("cu++filt")
+    lines = []
+    for lib, rep in reports.items():
+        entry, spill = "?", ""
+        for line in rep.splitlines():
+            found = re.search(r"entry function '(\w+)'", line)
+            if found:
+                entry = found.group(1)
+                if filt:
+                    entry = subprocess.run(
+                        [filt, entry], capture_output=True,
+                        text=True).stdout.strip().split("(")[0]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                lines.append(f"{lib}: {entry}: {line.split(':', 1)[1].strip()}"
+                             f"; {spill}")
+    return lines
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -88,7 +125,10 @@ def check(ok: bool, what: str) -> None:
 
 def time_ms(fn, flush, iters: int = 10) -> float:
     """Median device ms of ``fn`` over ``iters`` launches, each after the
-    L2 cache was flushed (the main path finds its weights cold)."""
+    L2 cache was flushed (the main path finds its weights cold).  The flush
+    (:data:`FLUSH_BYTES`) keeps the device busy while the host issues the
+    start event and ``fn``'s launches, so the events time device work, not
+    the host's Python in front of it."""
     fn()
     fn()
     times = []
@@ -190,10 +230,11 @@ def kernel_phase(dev, flush):
         sme_spmm_planes, sme_spmm_planes_plain)
     from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import (
         sme_spmm_planes_decode, sme_spmm_planes_decode_plain)
+    from repro_torch.kernels import build
     rng = np.random.default_rng(SEED)
-    agg = {k: _agg() for k in ("decode", "prefill")}
+    agg = {k: _agg() for k in RUN_M}
     tile_agg = {(k, m): _agg() for k in ("sme_spmm", "sme_spmm6")
-                for m in (8, 512)}
+                for _, m in RUN_M}
     for name, K, N, calls in SHAPES:
         w = rng.standard_normal((K, N)) / np.sqrt(K)
         smew = sme_compress(w, n_bits=8, window=3, squeeze=1)
@@ -217,7 +258,9 @@ def kernel_phase(dev, flush):
         deepest = 8
         w_dense = torch.as_tensor(smew.dequant(), dtype=torch.float32,
                                   device=dev)
-        for kind, m in (("decode", 8), ("prefill", 512)):
+        print_geometry(build, name, K, nt, ops["rowid"].shape[1],
+                       a2[0].shape[1])
+        for kind, m in RUN_M:
             x = rng.standard_normal((m, K)).astype(np.float32)
             xp = torch.as_tensor(x, device=dev)
             ref = sme_matmul_ref_np(x, smew)
@@ -234,14 +277,19 @@ def kernel_phase(dev, flush):
                 def plain():
                     return sme_spmm_planes_decode_plain(
                         xp, *args, colscale, *idx)[:, :N]
+                kernel_only, plain_only = run, plain
             else:
+                def kernel_only():
+                    return sme_spmm_planes(xp, *args, *idx)
+
+                def plain_only():
+                    return sme_spmm_planes_plain(xp, *args, *idx)
+
                 def run():
-                    return (sme_spmm_planes(xp, *args, *idx)
-                            * scale * 2.0 ** -8)[:, :N]
+                    return (kernel_only() * scale * 2.0 ** -8)[:, :N]
 
                 def plain():
-                    return (sme_spmm_planes_plain(xp, *args, *idx)
-                            * scale * 2.0 ** -8)[:, :N]
+                    return (plain_only() * scale * 2.0 ** -8)[:, :N]
             y, yp = run(), plain()
             torch.cuda.synchronize()
             check(y.shape == (m, N), f"{kind} {name}: misshapen output")
@@ -250,7 +298,7 @@ def kernel_phase(dev, flush):
             if kind == "decode":
                 # decode kernel == prefill kernel (M padded to one 128 tile)
                 check(bool(torch.equal(y, y_pre)),
-                      f"{name}: decode kernel != prefill kernel bitwise")
+                      f"{name} M={m}: decode kernel != prefill kernel bitwise")
                 check(bool(torch.equal(run(deepest), y)),
                       f"{name}: plane_depth {deepest} is not a no-op")
                 ref2 = np.asarray(x, np.float64) @ smew.dequant_topk_planes(2)
@@ -258,8 +306,10 @@ def kernel_phase(dev, flush):
                              / np.abs(ref2).max())
                 check(rel2 <= TOL_ORACLE, f"{name}: plane_depth 2 rel {rel2}")
                 extra = f" depth2_rel={rel2:.2e} decode==prefill"
-            ms = time_ms(run, flush)
-            plain_ms = time_ms(plain, flush)
+            else:
+                extra = f" (with epilogue {time_ms(run, flush) * 1e3:.1f} us)"
+            ms = time_ms(kernel_only, flush)
+            plain_ms = time_ms(plain_only, flush)
             lib_ms = time_ms(lambda: torch.matmul(xp, w_dense), flush)
             # bytes: x, every stored plane bitmap, sign + 2^row_exp of every
             # occupied tile, colscale, y; FLOPs: one 128x128 dot per group
@@ -274,7 +324,7 @@ def kernel_phase(dev, flush):
                   f"{bound * 1e3:.2f} us ({by}: {nbytes} B, {flops:.3g} FLOP)"
                   f" | max|k-p|={err:.2e} oracle_rel={rel:.2e}{extra}",
                   flush=True)
-            a = agg[kind]
+            a = agg[(kind, m)]
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
                              ("library_ms", lib_ms), ("bound_ms", bound),
                              ("bytes", nbytes), ("flops", flops)):
@@ -297,7 +347,9 @@ def kernel_phase(dev, flush):
                 err, rel = check_close(kname, y, yp, ref, f"{name} M={m}")
                 check(bool(torch.equal(y, y_pre)),
                       f"{kname} {name} M={m}: != v3 prefill kernel bitwise")
-                ms, plain_ms = time_ms(krun, flush), time_ms(kplainrun, flush)
+                ms = time_ms(lambda: kern(xp, *kargs), flush)
+                plain_ms = time_ms(lambda: kplain(xp, *kargs), flush)
+                epi_ms = time_ms(krun, flush)
                 # bytes: x, each occupied tile's payload, the index (rowid
                 # per occupied slot, nnz), y; FLOPs: one dot per tile
                 nbytes = (m * K * 4 + occ * tile_bytes + occ * 4 + nt * 4
@@ -305,7 +357,8 @@ def kernel_phase(dev, flush):
                 flops = 2.0 * m * 128 * 128 * occ
                 bound, by = bound_of(nbytes, flops)
                 print(f"kernel {kname:9s} {name:6s} M={m:3d} K={K} N={N} "
-                      f"tiles={occ}: {ms * 1e3:.1f} us, plain "
+                      f"tiles={occ}: {ms * 1e3:.1f} us (with epilogue "
+                      f"{epi_ms * 1e3:.1f} us), plain "
                       f"{plain_ms * 1e3:.1f} us, torch.matmul "
                       f"{lib_ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
                       f"({by}: {nbytes} B, {flops:.3g} FLOP) | max|k-p|="
@@ -320,14 +373,36 @@ def kernel_phase(dev, flush):
     return _finish(agg), _finish(tile_agg)
 
 
+#: (kind, M) the kernel phase runs: the smallest and largest decode bucket
+#: and a prefill window
+RUN_M = (("decode", 8), ("decode", 64), ("prefill", 512))
+
+
+def print_geometry(build, name, K, nt, L3, L2):
+    """Launch shape of the two cluster kernels at one linear shape."""
+    parts = []
+    for kernel, ms, extra in (("sme_spmm_planes_decode", (8, 64), (L3, 0)),
+                              ("sme_spmm6", (8, 64, 512), (L2,))):
+        for m in ms:
+            g = build.geometry(kernel, m, K, nt, *extra)
+            parts.append(f"{kernel} M={m}: {g['grid_x']}x{g['grid_y']} "
+                         f"blocks, cluster {g['cluster']}, "
+                         f"{g['smem_bytes']} B shared")
+    print(f"geometry {name}: " + "; ".join(parts), flush=True)
+
+
 def tile_csc_edges(dev, sme_compress, oracle):
-    """v1 and v2 on a pruned weight (empty tiles, column tile 1 empty:
-    its output must be exactly 0) bitwise against the v3 prefill kernel,
-    and v1 at settings v2 cannot hold, against the oracle."""
+    """v1, v2 and the v3 decode kernel on a pruned weight (empty tiles,
+    column tile 1 empty: its output must be exactly 0) bitwise against the
+    v3 prefill kernel, the decode kernel's ``plane_depth`` 1, 2 and 8 on
+    those uneven lists, and v1 at settings v2 cannot hold, against the
+    oracle."""
     from repro_torch.core.backend import get_backend
     from repro_torch.kernels.sme_spmm.sme_spmm import sme_spmm
     from repro_torch.kernels.sme_spmm.sme_spmm6 import sme_spmm6
     from repro_torch.kernels.sme_spmm.sme_spmm_planes import sme_spmm_planes
+    from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import \
+        sme_spmm_planes_decode
     rng = np.random.default_rng(SEED + 2)
     w = rng.standard_normal((384, 384)) / np.sqrt(384)
     w[:, 128:256] = 0.0
@@ -343,7 +418,9 @@ def tile_csc_edges(dev, sme_compress, oracle):
     a3 = on(smew.pack_plane_csc(), ("planes", "sign", "rowscale", "rowid",
                                     "shift", "last", "nnz"))
     scale = float(smew.scale.reshape(-1)[0])
-    for m in (8, 512):
+    colscale = torch.full((3, 128), scale * 2.0 ** -8, device=dev)
+    depth_rel = {}
+    for m in (8, 64, 512):
         x = torch.as_tensor(rng.standard_normal((m, 384)), dtype=torch.float32,
                             device=dev)
         x128 = torch.zeros((-(-m // 128) * 128, 384), device=dev)
@@ -357,6 +434,24 @@ def tile_csc_edges(dev, sme_compress, oracle):
         ref = oracle(x.cpu().numpy(), smew)
         rel = float(np.abs(y1.cpu().numpy() - ref).max() / np.abs(ref).max())
         check(rel <= TOL_ORACLE, f"pruned M={m}: oracle rel {rel}")
+        if 2 * m > 128:
+            continue
+
+        def dec(depth=None):
+            return sme_spmm_planes_decode(x, *a3[:3], colscale, *a3[3:],
+                                          plane_depth=depth)
+        yd = dec()
+        check(bool(torch.equal(yd, y3)) and bool(torch.equal(dec(8), yd)),
+              f"pruned M={m}: decode kernel != prefill kernel, or depth 8 "
+              "is not a no-op")
+        check(bool((yd[:, 128:256] == 0).all()), "decode: empty column not 0")
+        for k in (1, 2):
+            ref_k = np.asarray(x.cpu().numpy(), np.float64) \
+                @ smew.dequant_topk_planes(k)
+            rel_k = float(np.abs(dec(k).cpu().numpy() - ref_k).max()
+                          / np.abs(ref_k).max())
+            check(rel_k <= TOL_ORACLE, f"pruned M={m} depth {k}: rel {rel_k}")
+            depth_rel[(m, k)] = rel_k
     rels = []
     for kw in (dict(squeeze=0), dict(window=4, squeeze=1)):
         wv = rng.standard_normal((1024, 1024)) / 32.0
@@ -372,9 +467,27 @@ def tile_csc_edges(dev, sme_compress, oracle):
                           / np.abs(ref).max()))
         check(rels[-1] <= TOL_ORACLE, f"v1 at {kw}: oracle rel {rels[-1]}")
     torch.cuda.synchronize()
-    print(f"kernel edges: pruned weight (nnz 2/0/1) v1 == v2 == v3 bitwise, "
-          f"empty column exactly 0; v1 at squeeze 0 / window 4 oracle rel "
-          f"{rels[0]:.2e} / {rels[1]:.2e}", flush=True)
+    print(f"kernel edges: pruned weight (tiles per column 2/0/1) v1 == v2 == "
+          f"v3 == v3-decode bitwise at M = 8, 64 (and v1 == v2 == v3 at 512), "
+          f"empty column exactly 0, decode plane_depth 8 a no-op, depth 1/2 "
+          f"oracle rel <= {max(depth_rel.values()):.2e}; v1 at squeeze 0 / "
+          f"window 4 oracle rel {rels[0]:.2e} / {rels[1]:.2e}", flush=True)
+
+
+def card_tests() -> None:
+    """The ``gpu``-marked tests, in a child process (it reuses the build)."""
+    import os
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "gpu",
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] or ["(no output)"]
+    print(f"card tests: {tail[0]} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    check(proc.returncode == 0,
+          f"card tests failed:\n{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
 
 
 def build_model_params(dev, cfg):
@@ -559,13 +672,13 @@ def main() -> int:
         build.load(name)
     print(f"build: {time.perf_counter() - t0:.1f}s for "
           f"{len(build.SIGNATURES)} kernels", flush=True)
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    for line in ptxas_summary(reports):
+        print(f"  ptxas {line}")
 
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     agg, tile_agg = kernel_phase(dev, flush)
+    del flush                    # not part of the serving peak memory
+    card_tests()
     launches = serve_phase(dev, card)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
@@ -574,14 +687,16 @@ def main() -> int:
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                "replaces": pallas, "launches": launches[name]}
-        if name in ("sme_spmm_planes_decode", "sme_spmm_planes"):
-            a = agg["decode" if name.endswith("decode") else "prefill"]
-            row.update({k: a[k] for k in keys})
+        if name == "sme_spmm_planes":
+            at = {"512": agg[("prefill", 512)]}
+        elif name == "sme_spmm_planes_decode":
+            at = {str(m): agg[(kind, m)] for kind, m in RUN_M
+                  if kind == "decode"}
         else:
-            at = {str(m): {k: tile_agg[(name, m)][k] for k in keys}
-                  for m in (8, 512)}
-            row.update(at["8"])
-            row["at_m"] = at
+            at = {str(m): tile_agg[(name, m)] for _, m in RUN_M}
+        at = {m: {k: a[k] for k in keys} for m, a in at.items()}
+        row.update(at["512" if name == "sme_spmm_planes" else "8"])
+        row["at_m"] = at
         rows.append(row)
     # times are per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls
     print(json.dumps({"kernels": rows}))

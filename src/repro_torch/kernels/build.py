@@ -22,7 +22,8 @@ import subprocess
 import tempfile
 from typing import Dict, List
 
-__all__ = ["build_all", "load", "BUILD_DIR", "NVCC_FLAGS", "SIGNATURES"]
+__all__ = ["build_all", "load", "geometry", "BUILD_DIR", "NVCC_FLAGS",
+           "SIGNATURES"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -119,3 +120,20 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def geometry(name: str, *sizes: int) -> Dict[str, int]:
+    """Launch shape of kernel ``name`` at ``sizes`` (the arguments of its
+    ``<name>_geometry`` export, which the kernels with a launch of their
+    own shape have): grid, cluster size and dynamic shared memory.  Raises
+    where the export refuses the sizes (more shared memory than a block
+    has), as the launch would."""
+    fn = getattr(load(name), f"{name}_geometry")
+    fn.argtypes = [_I] * len(sizes) + [_P]
+    fn.restype = _I
+    out = (ctypes.c_int * 4)()
+    err = fn(*sizes, ctypes.cast(out, _P))
+    if err:
+        raise RuntimeError(f"{name} cannot launch at {sizes}: CUDA error "
+                           f"{err} ({out[3]} B of shared memory)")
+    return dict(zip(("grid_x", "grid_y", "cluster", "smem_bytes"), out))

@@ -1,8 +1,8 @@
-// Device helpers shared by the CSC-of-tiles SME kernels: the two
-// plane-CSC (v3) kernels, the bytecode (v1) kernel and the minifloat-6 (v2)
-// kernel.
+// Device helpers of the first CSC-of-tiles SME walk, walk_column_strip, which
+// the v3 prefill kernel (sme_spmm_planes) and the bytecode (v1) kernel run;
+// the v3-decode and minifloat-6 (v2) kernels run ordered_partials.cuh.
 //
-// All four compute, per output column tile j, the SME product
+// All four kernels compute, per output column tile j, the SME product
 //   acc[m, c] = sum over the tile groups g of column j, in list order, of
 //               sum_k x[m, rowtile(g)*128 + k] * W_g[k, c]
 // where W_g is the group's weight tile, signed and scaled by 2^row_exp.
@@ -11,12 +11,13 @@
 // 2^shift) over the group's slots, v1 reads uint8 codewords, v2 unpacks
 // 6-bit minifloats; one slot is one group in v1 and v2.  Every decoded
 // value is exact in f32 (v2's is v1's times 2^-(n_bits - squeezed)), and
-// every output is summed by one thread in one fixed order: a sequential
-// fmaf chain over k = 0..127 per group, then acc += t over groups.  So the
-// four kernels agree bitwise (v2 up to that power of two, which commutes
-// with f32 rounding).  No split-K: blocks split output columns and M rows
-// only.  Built without fast-math or flush-to-zero, which would break the
-// power-of-two argument.
+// every output is summed in one fixed order: a sequential fmaf chain over
+// k = 0..127 per group (the partial t_g, never split), then acc += t_g over
+// groups in list order from 0.  So the four kernels agree bitwise (v2 up to
+// that power of two, which commutes with f32 rounding).  Here one thread
+// computes both for its outputs; ordered_partials.cuh computes the t_g of
+// one column in parallel and adds them in the same order.  Built without
+// fast-math or flush-to-zero, which would break the power-of-two argument.
 //
 // Layouts (the reference packers', unchanged; bk = bn = 128):
 //   v3: planes   u8  [Nt, L, 16, 128]   rows packed MSB first (np.packbits)
@@ -48,7 +49,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerBlock = 64;           // M rows per block
 constexpr int kAcc = kRowsPerBlock / kWarps;  // outputs per thread
-constexpr int kRowBytes6 = kTile / 4 * 3;   // v2 bytes per tile row
 
 // Splice one plane's strip into the thread's 16 codeword cells.  Thread
 // (warp w, lane) owns packed bytes (w, col) and (w + 8, col), i.e. rows
@@ -166,40 +166,6 @@ struct BytecodeTiles {
         cell[b * 8 + i] = (float)tile[(8 * (w + 8 * b) + i) * kTile + col];
     finish_group(sign + slot * kTileBytes, rowscale + slot * kTile, col, lane,
                  w, cell, wtile);
-  }
-};
-
-// The v2 decoder: code c of a row sits at bits 6*(c%4).. of the 24-bit
-// little-endian word of bytes 3*(c/4)..+2; sign | exp(3) | mant(2) decodes
-// to (e > 0) ? +-(4 + m) * 2^-(e + 2) : 0 (squeezed = 0: the caller
-// applies 2^-squeezed), then times 2^row_exp of the slot.  A zero code may
-// carry a sign bit; e == 0 still decodes it to +0.
-struct Minifloat6Tiles {
-  const uint8_t* packed;
-  const float* rowscale;
-
-  __device__ __forceinline__ void start() {}
-  __device__ __forceinline__ bool take(size_t, int, int) { return true; }
-  __device__ __forceinline__ void fill(size_t slot, int, int col, int lane,
-                                       int w, float* wtile) {
-    const uint8_t* tile = packed + slot * kTile * kRowBytes6 + 3 * (col >> 2);
-    const float* rs = rowscale + slot * kTile;
-    const int sh = 6 * (col & 3);
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = 8 * (w + 8 * b) + i;
-        const uint8_t* p = tile + r * kRowBytes6;
-        const uint32_t word = (uint32_t)p[0] | ((uint32_t)p[1] << 8) |
-                              ((uint32_t)p[2] << 16);
-        const uint32_t c = (word >> sh) & 63u;
-        const uint32_t e = (c >> 2) & 7u;
-        const float mag = ldexpf((float)(4u + (c & 3u)), -(int)(e + 2u));
-        const float v = e ? ((c >> 5) ? -mag : mag) : 0.0f;
-        wtile[r * kStrip + lane] = v * rs[r];
-      }
-    }
   }
 };
 

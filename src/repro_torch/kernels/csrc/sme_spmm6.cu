@@ -9,42 +9,78 @@
 // of packed codes and 512 B of 2^row_exp (0.78 B per weight, the smallest
 // of the three formats): ~0.9 MB, 0.26 us, for a 1024x1024 layer at
 // M = 8, where the 2*M*K*N f32 FLOPs (67 TFLOP/s) already take 0.25 us;
-// the FLOPs bound it from there up.
+// the FLOPs bound it from there up (16 us per 1024x1024 call at M = 512).
 //
-// Design: the v3 kernels' walk (plane_csc.cuh) with the Minifloat6Tiles
-// decoder: one 256-thread block per (column tile, 32-column strip, 64-row
-// M tile) walks the column's tile list in order up to nnz[j]; each thread
-// unpacks its 16 six-bit codes of the slot's strip from their 3-byte
-// groups (24 bytes per row of a strip) in 32-bit integers, decodes
-// (e > 0) * s * (4 + m) * 2^-(e + 2), row-scales into shared memory, and the
-// f32 fmaf dot runs as in v3.  One kernel serves decode and prefill (M a
-// multiple of 8).  The decoded tile is v1's times 2^-(n_bits - squeezed)
-// exactly and the summation order is v1's, so after the caller's scaling
-// the result is bitwise v1's and v3's.
-#include "plane_csc.cuh"
+// Design: one C entry point, two device kernels chosen by M as v3 chooses
+// (ordered_partials.cuh).
+//  * 2*M <= 128: decode_walk with Minifloat6Strip<32>, as v3-decode: a
+//    cluster of up to 8 blocks per (column tile, 32-column strip) splits
+//    the column's tiles over its ranks (one tile each at 1024 rows), each
+//    copies its tile's 24-byte row strips and x slice with cp.async into a
+//    two-stage ring, decodes in 32-bit words and dots only real rows; the
+//    partials are added in list order over distributed shared memory.
+//  * otherwise: tiled_walk with Minifloat6Strip<64>: one block per (column
+//    tile, 64-column half, 64-row M tile), 128 blocks for a 1024x1024 layer
+//    at M = 512 and two per SM; each tile half is decoded once per block and
+//    reused by all 64 rows, each thread accumulates a 4x4 grid of outputs,
+//    and the next tile's 6 KB payload and 32 KB x slice load during the dot.
+// The decoded tile is v1's times 2^-(n_bits - squeezed) exactly and each
+// output is one fmaf chain per tile added in list order, so after the
+// caller's scaling the result is bitwise v1's and v3's.
+#include "ordered_partials.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(plane_csc::kThreads)
-sme_spmm6_kernel(const float* x, int m, int k_pad, const uint8_t* packed,
-                 const float* rowscale, const int* rowid, const int* nnz,
-                 int nt, int L, float* y) {
-  plane_csc::Minifloat6Tiles tiles{packed, rowscale};
-  plane_csc::walk_column_strip(x, m, k_pad, tiles, nullptr, rowid, nnz, nt, L,
-                               y);
+bool decode_sized(int m) { return 2 * m <= ordered_partials::kTile; }
+
+template <int BN>
+ordered_partials::Minifloat6Strip<BN> v2_strip(const uint8_t* packed,
+                                               const float* rowscale,
+                                               const int* rowid,
+                                               const int* nnz, int L) {
+  return {packed, rowscale, rowid, nnz, L, nullptr};
 }
 
 }  // namespace
 
-// Returns cudaGetLastError().
+// Returns the CUDA error of the launch.
 extern "C" int sme_spmm6(const float* x, int m, int k_pad,
                          const uint8_t* packed, const float* rowscale,
                          const int* rowid, const int* nnz, int nt, int L,
                          float* y, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  sme_spmm6_kernel<<<plane_csc::grid_for(m, nt), plane_csc::kThreads, 0,
-                     (cudaStream_t)stream>>>(x, m, k_pad, packed, rowscale,
-                                             rowid, nnz, nt, L, y);
-  return (int)cudaGetLastError();
+  if (decode_sized(m))
+    return (int)ordered_partials::launch_decode(
+        v2_strip<32>(packed, rowscale, rowid, nnz, L), m, k_pad, nt, L, x,
+        nullptr, y, (cudaStream_t)stream);
+  return (int)ordered_partials::launch_tiled(
+      v2_strip<64>(packed, rowscale, rowid, nnz, L), m, k_pad, nt, x, y,
+      (cudaStream_t)stream);
+}
+
+// Launch shape for these sizes: out = {grid x, grid y, cluster size,
+// dynamic shared memory bytes}.  Returns cudaErrorInvalidValue where the
+// shape needs more shared memory than a block has (the launch would
+// refuse it), else 0.
+extern "C" int sme_spmm6_geometry(int m, int k_pad, int nt, int L, int* out) {
+  size_t smem;
+  if (decode_sized(m)) {
+    const auto s = ordered_partials::decode_shape(
+        v2_strip<32>(nullptr, nullptr, nullptr, nullptr, L), m, k_pad, nt, L);
+    out[0] = (int)s.grid.x;
+    out[1] = (int)s.grid.y;
+    out[2] = s.cs;
+    smem = s.smem;
+  } else {
+    const dim3 grid = ordered_partials::tiled_grid(m, nt);
+    out[0] = (int)grid.x;
+    out[1] = (int)grid.y;
+    out[2] = 1;
+    smem = ordered_partials::tiled_smem_bytes(
+        v2_strip<64>(nullptr, nullptr, nullptr, nullptr, L));
+  }
+  out[3] = (int)smem;
+  return smem > (size_t)ordered_partials::kMaxSmem ? (int)cudaErrorInvalidValue
+                                                   : 0;
 }

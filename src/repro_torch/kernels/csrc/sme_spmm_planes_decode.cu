@@ -10,40 +10,45 @@
 // bitmap (2 KB per (plane, tile)), the sign bitmap and 2^row_exp of every
 // occupied tile, x and colscale, and write y: about 1.1 MB for a 1024x1024
 // layer at 7 of 8 planes occupied, 0.3 us at 3.35 TB/s, against 2*M*K*N
-// FLOPs that stay far under the f32 rate at M <= 64.
+// FLOPs that stay far under the f32 rate at M <= 64.  So the call is
+// latency-bound: what counts is how few dependent steps stand between the
+// launch and the last store.
 //
-// Design: one 256-thread block per (column tile, 32-column strip), so a
-// 1024-wide layer launches 8 x 4 blocks and a 2816-wide one 22 x 4 (the
-// TPU's one-step-per-column grid would leave most of 132 SMs idle).  A
-// block walks its column's list in order directly over rowid/shift/last,
-// so it needs no group index; each thread splices its 16 cells of the
-// strip in registers, one __syncthreads pair per group publishes the
-// signed tile to shared memory for the f32 fmaf dot.  No tensor cores and
-// no split-K: the result stays within the 5e-5 relative bound and
-// bitwise equal to the prefill kernel.  Latency, not bandwidth, bounds this
-// first version: the list walk is serial per block.
+// Design (ordered_partials.cuh, decode_walk with PlaneStrip): a cluster of
+// up to 8 blocks per (column tile, 32-column strip) splits the column's
+// tile groups over its ranks, so a 1024x1024 layer launches 8 x 4 x 8 = 256
+// blocks and each computes one group (a 2816-row wo three).  Each block
+// finds the group boundaries itself (a scan of `last`, no host index),
+// copies a group's plane strips, sign strip, 2^row_exp and x slice with
+// cp.async into a two-stage ring (the next group in flight), splices the
+// planes as integers (exact), and runs the 128-term fmaf dot with each
+// thread on its own output rows only (M bucketed to 8/16/32/64).  The
+// partials stay in shared memory; after cluster.sync() they are added in
+// list order through distributed shared memory.  No tensor cores and no
+// split of a partial's chain: the result is bitwise the prefill kernel's.
 #include <climits>
 
-#include "plane_csc.cuh"
+#include "ordered_partials.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(plane_csc::kThreads)
-sme_spmm_planes_decode_kernel(const float* x, int m, int k_pad,
-                              const uint8_t* planes, const uint8_t* sign,
-                              const float* rowscale, const float* colscale,
-                              const int* rowid, const int* shift,
-                              const int* last, const int* nnz, int nt, int L,
-                              int depth, float* y) {
-  plane_csc::PlaneTiles tiles{planes, sign, rowscale, rowid, shift, last,
-                              nt, depth};
-  plane_csc::walk_column_strip(x, m, k_pad, tiles, colscale, rowid, nnz, nt,
-                               L, y);
+ordered_partials::PlaneStrip plane_strip(const uint8_t* planes,
+                                         const uint8_t* sign,
+                                         const float* rowscale,
+                                         const int* rowid, const int* shift,
+                                         const int* last, const int* nnz,
+                                         int nt, int L, int depth) {
+  const int d = depth > 0 ? depth : INT_MAX;
+  int cap = ordered_partials::kMaxPlanes < L ? ordered_partials::kMaxPlanes
+                                             : L;
+  cap = cap < d ? cap : d;
+  return {planes, sign,   rowscale, rowid, shift,  last,   nnz,
+          nt,     L,      d,        cap,   nullptr, nullptr, nullptr};
 }
 
 }  // namespace
 
-// depth <= 0 means full precision.  Returns cudaGetLastError().
+// depth <= 0 means full precision.  Returns the CUDA error of the launch.
 extern "C" int sme_spmm_planes_decode(
     const float* x, int m, int k_pad, const uint8_t* planes,
     const uint8_t* sign, const float* rowscale, const float* colscale,
@@ -51,10 +56,27 @@ extern "C" int sme_spmm_planes_decode(
     int nt, int L, int depth, float* y, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  sme_spmm_planes_decode_kernel<<<plane_csc::grid_for(m, nt),
-                                  plane_csc::kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-      x, m, k_pad, planes, sign, rowscale, colscale, rowid, shift, last, nnz,
-      nt, L, depth > 0 ? depth : INT_MAX, y);
-  return (int)cudaGetLastError();
+  return (int)ordered_partials::launch_decode(
+      plane_strip(planes, sign, rowscale, rowid, shift, last, nnz, nt, L,
+                  depth),
+      m, k_pad, nt, L, x, colscale, y, (cudaStream_t)stream);
+}
+
+// Launch shape for these sizes: out = {grid x, grid y, cluster size,
+// dynamic shared memory bytes}.  Returns cudaErrorInvalidValue where the
+// shape needs more shared memory than a block has (the launch would
+// refuse it), else 0.
+extern "C" int sme_spmm_planes_decode_geometry(int m, int k_pad, int nt,
+                                               int L, int depth, int* out) {
+  const auto s = ordered_partials::decode_shape(
+      plane_strip(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nt, L, depth),
+      m, k_pad, nt, L);
+  out[0] = (int)s.grid.x;
+  out[1] = (int)s.grid.y;
+  out[2] = s.cs;
+  out[3] = (int)s.smem;
+  return s.smem > (size_t)ordered_partials::kMaxSmem
+             ? (int)cudaErrorInvalidValue
+             : 0;
 }

@@ -6,8 +6,9 @@ up to ``nnz[j]``).
 
 Checked against ``repro/kernels/sme_spmm/csc_grid.py`` (``unpack_row_bits``
 and the ``csc_step`` walk) and ``sme_spmm_planes_decode.py``
-(``plane_group_index``).  The CUDA kernels share the matching device
-helpers in ``kernels/csrc/plane_csc.cuh``.
+(``plane_group_index``).  The CUDA kernels' device walks are in
+``kernels/csrc/plane_csc.cuh`` (v1, v3 prefill) and
+``kernels/csrc/ordered_partials.cuh`` (v3 decode, v2).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 __all__ = ["unpack_row_bits", "plane_group_index", "tile_dot_plain",
            "csc_dot_plain", "splice_dot_plain", "check_operands",
-           "check_v1_operands", "check_v2_operands"]
+           "check_v1_operands", "check_v2_operands", "check_aligned"]
 
 
 def unpack_row_bits(packed: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
@@ -149,6 +150,14 @@ def _check(x, want: dict, bk: int, bn: int, m_multiple: int) -> None:
             raise ValueError(f"non-contiguous operands: {bad or ['x']}")
     elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
+
+
+def check_aligned(**tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary: the
+    kernels that copy with cp.async read 16 bytes at a time."""
+    bad = [n for n, t in tensors.items() if t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"operands not 16-byte aligned: {bad}")
 
 
 def _check_x(x, bk: int, m_multiple: int) -> int:

@@ -9,8 +9,11 @@ and what the design does about it.
 3-bit exponent, 2-bit mantissa) per 3 bytes, decoded as ``(e > 0) * s *
 (4 + m) * 2^-(e + 2) * 2^row_exp``; the caller applies ``(y * scale) *
 2^-squeezed``.  The decoded tile is the v1 tile times
-``2^-(n_bits - squeezed)``, and the kernel walks the same list in the same
-order, so after scaling it equals v1 and v3 bitwise.
+``2^-(n_bits - squeezed)``, and the kernel sums each output as v1 does
+(one f32 chain per tile, tiles added in list order), so after scaling it
+equals v1 and v3 bitwise.  One entry point serves decode-sized M (a
+cluster per column strip splits the tiles over its blocks) and larger M
+(one block per 64x64 output tile).
 
 The wrapper launches the kernel for CUDA tensors (or raises) and runs the
 plain version :func:`sme_spmm6_plain` only for CPU tensors.
@@ -21,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from .csc_grid import check_v2_operands, csc_dot_plain
+from .csc_grid import check_aligned, check_v2_operands, csc_dot_plain
 
 __all__ = ["sme_spmm6", "sme_spmm6_plain", "decode6_plain"]
 
@@ -55,6 +58,7 @@ def sme_spmm6(x: torch.Tensor, packed: torch.Tensor, rowscale: torch.Tensor,
     check_v2_operands(x, packed, rowscale, rowid, nnz)
     if x.device.type == "cpu":
         return sme_spmm6_plain(x, packed, rowscale, rowid, nnz)
+    check_aligned(x=x, packed=packed, rowscale=rowscale)
     nt, L, _, nbytes = packed.shape
     m, k_pad = x.shape
     y = torch.empty((m, nt * (nbytes // 3 * 4)), dtype=torch.float32,

@@ -21,7 +21,8 @@ from typing import Optional
 import torch
 
 from .. import build
-from .csc_grid import check_operands, plane_group_index, splice_dot_plain
+from .csc_grid import (check_aligned, check_operands, plane_group_index,
+                       splice_dot_plain)
 
 __all__ = ["sme_spmm_planes_decode", "sme_spmm_planes_decode_plain",
            "plane_group_index"]
@@ -58,6 +59,7 @@ def sme_spmm_planes_decode(x: torch.Tensor, planes: torch.Tensor,
                                             nnz, plane_depth)
     if not colscale.is_contiguous():
         raise ValueError("colscale is not contiguous")
+    check_aligned(x=x, planes=planes, sign=sign, rowscale=rowscale)
     m, k_pad = x.shape
     y = torch.empty((m, nt * bn), dtype=torch.float32, device=x.device)
     depth = 0 if plane_depth is None else max(int(plane_depth), 1)

@@ -339,3 +339,13 @@ def test_ops_wrappers_match_reference():
                        out_dtype=torch.bfloat16)
     assert y.shape == (1, 3, 256) and y.dtype == torch.bfloat16
     assert set(ops.pack_operands6(smew, device="cpu")) == set(V2) | {"scale"}
+
+
+def test_check_aligned_names_the_unaligned_operands():
+    """The cluster and tiled kernels copy 16 bytes at a time: their
+    wrappers refuse a tensor that does not start on a 16-byte boundary."""
+    from repro_torch.kernels.sme_spmm.csc_grid import check_aligned
+    base = torch.zeros(64)
+    check_aligned(a=base, b=base[4:])
+    with pytest.raises(ValueError, match=r"\['b'\]"):
+        check_aligned(a=base, b=base[1:])

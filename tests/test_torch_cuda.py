@@ -6,14 +6,17 @@ machine without JAX:
 
 Each kernel against its plain PyTorch version (relative 5e-5 of the
 output's max: both sum in f32, in different orders) and the f64 oracle,
-decode ≡ prefill bitwise, ``plane_depth``, v1 ≡ v2 ≡ v3 bitwise (after
-each format's power-of-two scaling), empty column tiles, the launch
-counters, and the operands each wrapper refuses."""
+decode ≡ prefill bitwise at every decode M bucket and at a 22-group column,
+``plane_depth``, v1 ≡ v2 ≡ v3 bitwise (after each format's power-of-two
+scaling) on both of v2's paths, empty column tiles, the launch geometry of
+the cluster kernels, the launch counters, the operands each wrapper
+refuses, and the malformed lists the device refuses."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.backend import get_backend
+from repro_torch.kernels import build
 from repro_torch.core.sme import sme_compress
 from repro_torch.kernels.sme_spmm.sme_spmm import sme_spmm, sme_spmm_plain
 from repro_torch.kernels.sme_spmm.sme_spmm6 import sme_spmm6, sme_spmm6_plain
@@ -203,3 +206,178 @@ def test_v1_v2_wrappers_reject_what_the_kernels_do_not_take(cuda):
     args = [torch.as_tensor(small.pack_csc()[k], device=cuda) for k in V1]
     with pytest.raises(ValueError, match="128x128"):
         sme_spmm(_x(cuda, 8, 128, 3), *args)
+
+
+#: the oracle bound of DESIGN.md §5
+TOL_ORACLE = 5e-5
+
+
+def _oracle_rel(y, x, dense):
+    ref = x.double().cpu().numpy() @ dense
+    got = y[:, :dense.shape[1]].double().cpu().numpy()
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("m", [8, 16, 24, 32, 64, 72])
+@pytest.mark.parametrize("shape", [(384, 256), (2816, 256)],
+                         ids=["k384", "k2816"])
+def test_decode_kernel_buckets_equal_prefill_kernel(cuda, m, shape):
+    """Every decode M bucket (8/16/32/64; 24 pads its bucket, 72 takes two
+    M tiles) and wo's depth (K = 2816: 22 groups per column, spread over a
+    cluster of 8) equal the prefill kernel bitwise."""
+    rng = np.random.default_rng(11)
+    w = rng.normal(0, 1, shape) / np.sqrt(shape[0])
+    smew = sme_compress(w, squeeze=1)
+    ops = smew.pack_plane_csc()
+    args = [torch.as_tensor(ops[k], device=cuda) for k in OPS]
+    nt = ops["planes"].shape[0]
+    if shape[0] == 2816:
+        assert (ops["last"].sum(1) == 22).all()
+    cs = torch.full((nt, 128), float(smew.scale.reshape(-1)[0]) * 2.0 ** -8,
+                    device=cuda)
+    x = _x(cuda, m, shape[0], m - 3)
+    y = sme_spmm_planes_decode(x, *args[:3], cs, *args[3:])
+    x128 = torch.zeros((-(-m // 128) * 128, shape[0]), device=cuda)
+    x128[:m] = x
+    assert torch.equal(y, sme_spmm_planes(x128, *args)[:m] * cs.reshape(1, -1))
+    assert _rel(y, sme_spmm_planes_decode_plain(x, *args[:3], cs,
+                                                *args[3:])) <= 5e-5
+    assert _oracle_rel(y, x, smew.dequant()) <= TOL_ORACLE
+
+
+@pytest.mark.parametrize("depth", [None, 1, 2, 8])
+def test_decode_kernel_uneven_lists_and_depth(cuda, depth):
+    """Column-tile group counts 2 / 0 / 1: the empty column is exactly 0,
+    full depth equals the prefill kernel bitwise, depth 8 is a no-op and
+    depths 1 and 2 match ``dequant_topk_planes``."""
+    smew = sme_compress(_pruned(), squeeze=1)
+    ops = smew.pack_plane_csc()
+    assert ops["last"].sum(1).tolist() == [2, 0, 1]
+    args = [torch.as_tensor(ops[k], device=cuda) for k in OPS]
+    cs = torch.full((3, 128), float(smew.scale.reshape(-1)[0]) * 2.0 ** -8,
+                    device=cuda)
+    x = _x(cuda, 16, 384, 13)
+    y = sme_spmm_planes_decode(x, *args[:3], cs, *args[3:], plane_depth=depth)
+    assert (y[:, 128:256] == 0).all()
+    full = sme_spmm_planes_decode(x, *args[:3], cs, *args[3:])
+    if depth is None:
+        x128 = torch.zeros((128, 384), device=cuda)
+        x128[:16] = x
+        assert torch.equal(y, sme_spmm_planes(x128, *args)[:16]
+                           * cs.reshape(1, -1))
+    elif depth == 8:
+        assert torch.equal(y, full)
+    else:
+        assert _oracle_rel(y, x, smew.dequant_topk_planes(depth)) <= TOL_ORACLE
+        assert _rel(y, sme_spmm_planes_decode_plain(
+            x, *args[:3], cs, *args[3:], plane_depth=depth)) <= 5e-5
+
+
+@pytest.mark.parametrize("m", [8, 64, 72, 512])
+@pytest.mark.parametrize("pruned", [False, True], ids=["dense", "pruned"])
+def test_v2_paths_equal_v1_and_v3_prefill(cuda, m, pruned):
+    """Both v2 kernels (decode_walk at 2M <= 128, tiled_walk above) equal
+    v1 and the v3 prefill kernel bitwise after scaling."""
+    w = _pruned() if pruned else np.random.default_rng(12).normal(
+        0, 1, (1024, 256)) / 32.0
+    smew, a1, a2, a3 = _tile_csc(cuda, w, squeeze=1)
+    x = _x(cuda, m, w.shape[0], m - 3)
+    x128 = torch.zeros((-(-m // 128) * 128, w.shape[0]), device=cuda)
+    x128[:m] = x
+    scale = float(smew.scale.reshape(-1)[0])
+    y3 = sme_spmm_planes(x128, *a3)[:m] * scale * 2.0 ** -8
+    y1 = sme_spmm(x, *a1) * scale * 2.0 ** -8
+    y2 = sme_spmm6(x, *a2)
+    assert _rel(y2, sme_spmm6_plain(x, *a2)) <= 5e-5
+    y2 = y2 * scale * 2.0 ** -1
+    assert torch.equal(y2, y1) and torch.equal(y2, y3)
+    assert _oracle_rel(y2, x, smew.dequant()) <= TOL_ORACLE
+    if pruned:
+        assert (y2[:, 128:256] == 0).all()
+
+
+def test_cluster_kernels_launch_geometry(cuda):
+    """At qwen1.5-0.5b's q/k/v/o shape (8 row and 8 column tiles, 56-slot
+    v3 lists) the decode kernels launch 8 x 4 clusters of 8 blocks, and v2
+    at M = 512 launches 16 x 8 blocks, all within 227 KB of shared memory."""
+    d = build.geometry("sme_spmm_planes_decode", 8, 1024, 8, 56, 0)
+    assert (d["grid_x"], d["grid_y"], d["cluster"]) == (256, 1, 8)
+    v2 = build.geometry("sme_spmm6", 8, 1024, 8, 8)
+    assert (v2["grid_x"], v2["grid_y"], v2["cluster"]) == (256, 1, 8)
+    p = build.geometry("sme_spmm6", 512, 1024, 8, 8)
+    assert (p["grid_x"], p["grid_y"], p["cluster"]) == (16, 8, 1)
+    wo = build.geometry("sme_spmm_planes_decode", 64, 2816, 8, 176, 0)
+    assert wo["cluster"] == 8
+    for g in (d, v2, p, wo):
+        assert 0 < g["smem_bytes"] <= 232448
+
+
+def test_redesigned_wrappers_reject_unaligned_operands(cuda):
+    _, args, cs = _operands(cuda)
+    _, _, a2, _ = _tile_csc(cuda, _pruned())
+    flat = torch.zeros(8 * 384 + 1, device=cuda)
+    x = flat[1:].view(8, 384)
+    with pytest.raises(ValueError, match="aligned"):
+        sme_spmm_planes_decode(x, *args[:3], cs, *args[3:])
+    with pytest.raises(ValueError, match="aligned"):
+        sme_spmm6(x, *a2)
+
+
+def test_geometry_refuses_what_a_block_cannot_hold(cuda):
+    """A list so long that its group index overflows shared memory: the
+    geometry export refuses it, as the launch would."""
+    with pytest.raises(RuntimeError, match="cannot launch"):
+        build.geometry("sme_spmm_planes_decode", 64, 1024, 8, 20000, 0)
+
+
+#: a malformed list in a child process (a trapped kernel leaves the CUDA
+#: context unusable): ``launched`` once the wrapper returned, ``no error``
+#: only if the device finished without trapping
+_MALFORMED = """
+import sys, torch
+from repro_torch.kernels.sme_spmm.sme_spmm6 import sme_spmm6
+from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import \\
+    sme_spmm_planes_decode
+dev, case = torch.device("cuda", 0), sys.argv[1]
+i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+if case == "v3_deep_group":        # 17 planes in one group, 16 staged
+    L = 17
+    y = sme_spmm_planes_decode(
+        torch.ones((8, 128), device=dev),
+        torch.full((1, L, 16, 128), 1, dtype=torch.uint8, device=dev),
+        torch.zeros((1, 1, 16, 128), dtype=torch.uint8, device=dev),
+        torch.ones((1, 1, 128), device=dev), torch.ones((1, 128), device=dev),
+        i32([[0] * L]), i32([[15 - l % 16 for l in range(L)]]),
+        i32([[0] * (L - 1) + [1]]), i32([L]))
+else:
+    # v2_groups: two slots in the one row tile; v2_past_l: nnz 3 of L = 2
+    m, nnz = (8, 2) if case == "v2_groups" else (512, 3)
+    y = sme_spmm6(torch.ones((m, 128), device=dev),
+                  torch.full((1, 2, 128, 96), 7, dtype=torch.uint8,
+                             device=dev),
+                  torch.ones((1, 2, 128), device=dev), i32([[0, 0]]),
+                  i32([nnz]))
+print("launched", flush=True)
+torch.cuda.synchronize()
+print("no error", flush=True)
+"""
+
+
+@pytest.mark.parametrize("case", ["v3_deep_group", "v2_groups", "v2_past_l"])
+def test_malformed_lists_raise_not_drop_slots(cuda, case):
+    """A list the host did not size the kernel for (a group deeper than the
+    staged planes, more groups than row tiles, nnz past the list length)
+    traps on the device, so the call raises instead of returning a sum with
+    slots left out."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", _MALFORMED, case], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert "launched" in proc.stdout, proc.stderr[-2000:]
+    assert "no error" not in proc.stdout
+    assert proc.returncode != 0

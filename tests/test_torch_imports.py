@@ -1,5 +1,5 @@
-"""The port stands alone: nothing in ``src/repro_torch`` or ``chip_smoke.py``
-imports ``jax`` or the reference package ``repro`` (not even its numpy-only
+"""The port stands alone: nothing in ``src/repro_torch``, ``chip_smoke.py`` or
+``tools/`` imports ``jax`` or the reference package ``repro`` (not even its numpy-only
 modules: ``repro.core`` pulls in JAX on import)."""
 import ast
 import pathlib
@@ -8,7 +8,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imports(path):
