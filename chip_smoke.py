@@ -22,7 +22,7 @@
    also equal the prefill kernel and hold ``plane_depth`` 1, 2 and 8; v1
    must hold settings v2 cannot (squeeze 0, window 4) against the oracle.
    The launch geometry (blocks, cluster size, dynamic shared memory) of
-   the two cluster kernels is printed per shape and M.  Times from CUDA
+   all four kernels is printed per shape and M.  Times from CUDA
    events with the L2 cache flushed before every launch: the kernel's
    launch alone (the unscaled product for v1, v2 and v3-prefill; the log
    line adds the time with the backend's scaling epilogue, two elementwise
@@ -40,7 +40,7 @@
    runs' tokens must be identical; one prefill window's logits through
    v1, v2 and v3 must be bitwise equal (f32 and bf16) and within
    tolerance of the same model run through the plain versions.  A
-   torch.profiler window profiles the v2 path.
+   torch.profiler window profiles each backend's path (v2, v1, v3).
 4. Prints the kernels JSON line (times per model layer: 4 q/k/v/o + 2
    wi/wg + 1 wo calls; decode M = 8 in the top-level keys, every M a
    kernel ran at under ``at_m``; every number measured in this run but
@@ -259,7 +259,7 @@ def kernel_phase(dev, flush):
         w_dense = torch.as_tensor(smew.dequant(), dtype=torch.float32,
                                   device=dev)
         print_geometry(build, name, K, nt, ops["rowid"].shape[1],
-                       a2[0].shape[1])
+                       a1[0].shape[1])
         for kind, m in RUN_M:
             x = rng.standard_normal((m, K)).astype(np.float32)
             xp = torch.as_tensor(x, device=dev)
@@ -378,11 +378,14 @@ def kernel_phase(dev, flush):
 RUN_M = (("decode", 8), ("decode", 64), ("prefill", 512))
 
 
-def print_geometry(build, name, K, nt, L3, L2):
-    """Launch shape of the two cluster kernels at one linear shape."""
+def print_geometry(build, name, K, nt, L3, L1):
+    """Launch shape of the four kernels at one linear shape (L3: the v3
+    list length, L1: the v1 and v2 one)."""
     parts = []
     for kernel, ms, extra in (("sme_spmm_planes_decode", (8, 64), (L3, 0)),
-                              ("sme_spmm6", (8, 64, 512), (L2,))):
+                              ("sme_spmm_planes", (512,), (L3,)),
+                              ("sme_spmm6", (8, 64, 512), (L1,)),
+                              ("sme_spmm", (8, 64, 512), (L1,))):
         for m in ms:
             g = build.geometry(kernel, m, K, nt, *extra)
             parts.append(f"{kernel} M={m}: {g['grid_x']}x{g['grid_y']} "
@@ -616,7 +619,8 @@ def serve_phase(dev, card):
                   f"{dtype} {be} logits rel diff {diff}")
         print(f"serve: {dtype} prefill logits v1 == v2 == v3 bitwise",
               flush=True)
-    profile_window(api, params, prompts[4:], card, "auto")
+    for backend in RUNS:
+        profile_window(api, params, prompts[4:], card, backend)
     return launches
 
 

@@ -28,7 +28,7 @@ __all__ = ["build_all", "load", "geometry", "BUILD_DIR", "NVCC_FLAGS",
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: no --use_fast_math / -ftz=true: flushing subnormals would break the
-#: kernels' bitwise agreement up to powers of two (plane_csc.cuh)
+#: kernels' bitwise agreement up to powers of two (ordered_partials.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -124,8 +124,9 @@ def load(name: str) -> ctypes.CDLL:
 
 def geometry(name: str, *sizes: int) -> Dict[str, int]:
     """Launch shape of kernel ``name`` at ``sizes`` (the arguments of its
-    ``<name>_geometry`` export, which the kernels with a launch of their
-    own shape have): grid, cluster size and dynamic shared memory.  Raises
+    ``<name>_geometry`` export: m, k_pad, nt, L, and depth for
+    ``sme_spmm_planes_decode``): grid, cluster size and dynamic shared
+    memory.  Raises
     where the export refuses the sizes (more shared memory than a block
     has), as the launch would."""
     fn = getattr(load(name), f"{name}_geometry")

@@ -1,13 +1,38 @@
-// Hopper walks of the CSC-of-tiles SME kernels, on the ordered-partials
-// contract: the v3-decode kernel and both paths of the v2 kernel.
+// Device walks of the four CSC-of-tiles SME kernels (v3-decode, v3 prefill,
+// v1 bytecode, v2 minifloat-6), on the ordered-partials contract.
 //
-// The contract of all four kernels (plane_csc.cuh) fixes only two things
-// per output (m, c) of column tile j:
+// All four compute, per output column tile j, the SME product
+//   acc[m, c] = sum over the tile groups g of column j, in list order, of
+//               sum_k x[m, rowtile(g)*128 + k] * W_g[k, c]
+// where W_g is the group's weight tile, signed and scaled by 2^row_exp.
+// They differ only in how a tile is decoded (a decoder below): v3 splices
+// it from its 1-bit plane bitmaps (bits * 2^shift) over the group's slots,
+// v1 reads uint8 codewords, v2 unpacks 6-bit minifloats; one slot is one
+// group in v1 and v2.  Every decoded value is exact in f32 (v2's is v1's
+// times 2^-(n_bits - squeezed)), and the contract fixes only two things per
+// output (m, c):
 //   t_g = one sequential fmaf chain over k = 0..127 from 0 (group g's dot);
 //   acc = ((0 + t_0) + t_1) + ... in list order, each add __fadd_rn.
 // So groups may be computed anywhere, in any order, as long as each t_g is
-// kept whole and the t_g are added in list order.  Both walks here keep
-// that, so they stay bitwise equal to walk_column_strip (v1, v3 prefill).
+// kept whole and the t_g are added in list order, and the four kernels
+// agree bitwise (v2 up to that power of two, which commutes with f32
+// rounding).  Built without fast-math or flush-to-zero, which would break
+// the power-of-two argument; no tensor cores, which would reorder a chain.
+//
+// Layouts (the reference packers', unchanged; bk = bn = 128):
+//   v3: planes   u8  [Nt, L, 16, 128]   rows packed MSB first (np.packbits)
+//       sign     u8  [nr, Nt, 16, 128]  1 = negative
+//       rowscale f32 [nr, Nt, 128]      2^row_exp
+//       rowid/shift/last i32 [Nt, L]
+//   v1: codes    u8  [Nt, L, 128, 128]
+//       sign     u8  [Nt, L, 16, 128]   per slot, rows packed MSB first
+//       rowscale f32 [Nt, L, 128]       per slot
+//       rowid    i32 [Nt, L]
+//   v2: packed   u8  [Nt, L, 128, 96]   4 six-bit codes per 3 bytes, first
+//                                       code in the low bits
+//       rowscale f32 [Nt, L, 128]       per slot
+//       rowid    i32 [Nt, L]
+//   nnz i32 [Nt]; slots l >= nnz[j] are padding.
 //
 // decode_walk (decode-sized M: at most 8 rows per warp, 64 per block; a
 // larger M takes more row tiles): a thread-block cluster of `cs` blocks per
@@ -28,14 +53,18 @@
 // Both walks stage a group's payload and its x slice with cp.async into a
 // ring of two stages: group i + 1 (of the block) is in flight while group
 // i is decoded and dotted (decode_walk keeps one stage when each rank has
-// one group).  Decoders (PlaneStrip for v3, Minifloat6Strip
-// for v2) issue a group's payload copies and decode a stage into the
-// signed, row-scaled f32 strip [128][BN] (row stride BN + 4: the padding
-// spreads the decode's row-wise stores over the banks).
+// one group).  A decoder whose kPayloadStages is 1 keeps one payload buffer
+// in tiled_walk: group i + 1's payload is issued once group i is decoded,
+// and lands during group i's dot, so two blocks fit an SM.  Decoders
+// (PlaneStrip for v3, BytecodeStrip for v1, Minifloat6Strip for v2) issue a
+// group's payload copies and decode it into the signed, row-scaled f32
+// strip [128][BN] (row stride BN + 4: the padding spreads the decode's
+// row-wise stores over the banks).
 #pragma once
 
 #include <cooperative_groups.h>
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -114,14 +143,21 @@ __device__ __forceinline__ void issue_x(float* xs, const float* x, int m,
 
 // v3: a group is the run of plane bitmaps of one (row, col) tile, most
 // significant first, ending at a `last` slot; at most `depth` of them are
-// spliced.  Stage: `cap` plane strips [16][32] B, the tile's sign strip
-// [16][32] B, its 2^row_exp [128] f32.  Decode: thread (r, h) ORs bit
-// 7 - r % 8 of the 16 bytes of packed row r / 8, columns 16h.., into two
-// 16-bit lanes per word (bits << shift, shift < 16: exact integer codes),
-// then writes code * sign * 2^row_exp, the order finish_group uses.
+// spliced.  Stage: `cap` plane strips [16][BN] B, the tile's sign strip
+// [16][BN] B, its 2^row_exp [128] f32.  Decode: thread (r, h) ORs bit
+// 7 - r % 8 of its BN / 2 bytes of packed row r / 8, 16 columns per part,
+// into two 16-bit lanes per word (bits << shift, shift < 16: exact integer
+// codes), then writes code * sign * 2^row_exp.  PlaneStrip<32> serves
+// decode_walk, PlaneStrip<64> tiled_walk.
+template <int BN>
 struct PlaneStrip {
-  static constexpr int kBN = kStrip;
-  static constexpr int kWS = kBN + 4;
+  static constexpr int kBN = BN;
+  static constexpr int kWS = BN + 4;
+  static constexpr int kPayloadStages = 1;
+  static constexpr int kPlaneB = 16 * BN;       // one plane's strip
+  static constexpr int kLogC = BN == 64 ? 2 : 1;  // 16-byte pieces per row
+  static constexpr int kLogBN = kLogC + 4;
+  static_assert(BN == 32 || BN == 64, "32- or 64-column strips");
   const uint8_t* planes;
   const uint8_t* sign;
   const float* rowscale;
@@ -138,7 +174,7 @@ struct PlaneStrip {
     return ((size_t)(3 * L + 1 + kWarps) * 4 + 15) / 16 * 16;
   }
   __host__ __device__ size_t payload_bytes() const {
-    return (size_t)cap * 512 + 512 + 512;
+    return (size_t)cap * kPlaneB + kPlaneB + 512;
   }
 
   // Scan column j's list into the shared group index; returns G.  A list
@@ -195,19 +231,20 @@ struct PlaneStrip {
     const int s0 = gstart[g], cnt = planes_of(g);
     const size_t tile = (size_t)grow[g] * nt + j;
     const uint8_t* pl = planes + ((size_t)j * L + s0) * (16 * kTile) + col0;
-    uint8_t* sgn = st + cap * 512;
-    for (int q = threadIdx.x; q < cnt * 32 + 64; q += kThreads) {
-      if (q < cnt * 32) {
-        const int p = q >> 5, pr = (q >> 1) & 15, h = q & 1;
-        cp_async16(st + p * 512 + pr * 32 + h * 16,
+    uint8_t* sgn = st + cap * kPlaneB;
+    constexpr int kC = 1 << kLogC;
+    for (int q = threadIdx.x; q < cnt * BN + BN + 32; q += kThreads) {
+      if (q < cnt * BN) {
+        const int p = q >> kLogBN, pr = (q >> kLogC) & 15, h = q & (kC - 1);
+        cp_async16(st + p * kPlaneB + pr * BN + h * 16,
                    pl + (size_t)p * (16 * kTile) + pr * kTile + h * 16);
-      } else if (q < cnt * 32 + 32) {
-        const int pr = (q - cnt * 32) >> 1, h = q & 1;
-        cp_async16(sgn + pr * 32 + h * 16,
+      } else if (q < cnt * BN + BN) {
+        const int pr = (q - cnt * BN) >> kLogC, h = q & (kC - 1);
+        cp_async16(sgn + pr * BN + h * 16,
                    sign + (tile * 16 + pr) * kTile + col0 + h * 16);
       } else {
-        const int c = q - cnt * 32 - 32;
-        cp_async16(sgn + 512 + c * 16, rowscale + tile * kTile + 4 * c);
+        const int c = q - cnt * BN - BN;
+        cp_async16(sgn + kPlaneB + c * 16, rowscale + tile * kTile + 4 * c);
       }
     }
   }
@@ -216,34 +253,145 @@ struct PlaneStrip {
     const int r = threadIdx.x & 127, h = threadIdx.x >> 7;
     const int s0 = gstart[g], cnt = planes_of(g);
     const int bs = 7 - (r & 7);
-    const int off = (r >> 3) * 32 + h * 16;
-    uint32_t ev[4] = {0u, 0u, 0u, 0u}, od[4] = {0u, 0u, 0u, 0u};
-    for (int p = 0; p < cnt; ++p) {
-      const uint4 v = *reinterpret_cast<const uint4*>(st + p * 512 + off);
-      const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-      const int sh = gshift[s0 + p];
+#pragma unroll
+    for (int part = 0; part < BN / 32; ++part) {
+      const int off = (r >> 3) * BN + h * (BN / 2) + 16 * part;
+      uint32_t ev[4] = {0u, 0u, 0u, 0u}, od[4] = {0u, 0u, 0u, 0u};
+      for (int p = 0; p < cnt; ++p) {
+        const uint4 v = *reinterpret_cast<const uint4*>(st + p * kPlaneB + off);
+        const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+        const int sh = gshift[s0 + p];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t t = (u[q] >> bs) & 0x01010101u;   // byte b -> bit 8b
+          ev[q] |= (t & 0x00010001u) << sh;                // columns 4q, 4q+2
+          od[q] |= ((t >> 8) & 0x00010001u) << sh;         // columns 4q+1, 4q+3
+        }
+      }
+      const uint4 sv =
+          *reinterpret_cast<const uint4*>(st + cap * kPlaneB + off);
+      const uint32_t su[4] = {sv.x, sv.y, sv.z, sv.w};
+      const float rs =
+          reinterpret_cast<const float*>(st + cap * kPlaneB + kPlaneB)[r];
+      float out[16];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const uint32_t t = (u[q] >> bs) & 0x01010101u;   // byte b -> bit 8b
-        ev[q] |= (t & 0x00010001u) << sh;                // columns 4q, 4q+2
-        od[q] |= ((t >> 8) & 0x00010001u) << sh;         // columns 4q+1, 4q+3
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const uint32_t lanes = (b & 1) ? od[q] : ev[q];
+          const float cell = (float)((lanes >> (16 * (b >> 1))) & 0xffffu);
+          const float s = ((su[q] >> (8 * b + bs)) & 1u) ? -1.0f : 1.0f;
+          out[4 * q + b] = __fmul_rn(__fmul_rn(cell, s), rs);
+        }
+      }
+      store16(ws + r * kWS + h * (BN / 2) + 16 * part, out);
+    }
+  }
+};
+
+// The v3 decoder of one call: `depth` <= 0 is full precision.  Groups hold
+// at most 16 planes (codes have at most 16 bits), so `cap` = min(16, L,
+// depth) planes are staged.
+template <int BN>
+inline PlaneStrip<BN> plane_strip(const uint8_t* planes, const uint8_t* sign,
+                                  const float* rowscale, const int* rowid,
+                                  const int* shift, const int* last,
+                                  const int* nnz, int nt, int L, int depth) {
+  const int d = depth > 0 ? depth : INT_MAX;
+  int cap = kMaxPlanes < L ? kMaxPlanes : L;
+  cap = cap < d ? cap : d;
+  return {planes, sign,   rowscale, rowid, shift,  last,   nnz,
+          nt,     L,      d,        cap,   nullptr, nullptr, nullptr};
+}
+
+// v1 and v2: one slot is one group.  prepare copies column j's row tiles
+// to shared memory (loaded beside nnz, not after it) and returns G; a list
+// past L traps (the call raises).
+struct SlotList {
+  const int* rowid;
+  const int* nnz;
+  int L;
+  int* srow;     // shared: row tile of slot l
+
+  __host__ __device__ static size_t meta_bytes(int L) {
+    return ((size_t)L * 4 + 15) / 16 * 16;
+  }
+  __device__ int prepare(int j, int* meta) {
+    srow = meta;
+    for (int l = threadIdx.x; l < L; l += kThreads)
+      srow[l] = rowid[(size_t)j * L + l];
+    const int n = nnz[j];
+    if (n < 0 || n > L) __trap();
+    __syncthreads();
+    return n;
+  }
+  __device__ int row_tile(int, int g) const { return srow[g]; }
+};
+
+// v1: each slot's tile [128][128] B of uint8 codewords, its sign bitmap
+// [16][128] B (rows packed MSB first) and 2^row_exp [128] f32.  Stage: the
+// BN-column codeword strip [128][BN] B, the sign strip [16][BN] B, then
+// 2^row_exp, all in 16-byte copies.  Decode: thread (r, h) reads its BN / 2
+// codes of row r and their sign bytes as 32-bit words, 16 columns per part,
+// and writes code * sign * 2^row_exp (both factors exact: any order).
+template <int BN>
+struct BytecodeStrip : SlotList {
+  static constexpr int kBN = BN;
+  static constexpr int kWS = BN + 4;
+  static constexpr int kPayloadStages = 1;
+  static constexpr int kC = BN / 16;             // 16-byte pieces per row
+  const uint8_t* codes;
+  const uint8_t* sign;
+  const float* rowscale;
+
+  __host__ __device__ size_t payload_bytes() const {
+    return (size_t)(kTile + 16) * BN + 512;
+  }
+
+  __device__ void issue(int j, int col0, int g, uint8_t* st) const {
+    const size_t slot = (size_t)j * L + g;
+    const uint8_t* src = codes + slot * (kTile * kTile) + col0;
+    const uint8_t* sgn = sign + slot * (16 * kTile) + col0;
+    // rows 0..127 are codeword rows, 128..143 the packed sign rows
+    for (int q = threadIdx.x; q < (kTile + 16) * kC + 32; q += kThreads) {
+      if (q < (kTile + 16) * kC) {
+        const int r = q / kC, c = q % kC;
+        cp_async16(st + r * BN + 16 * c,
+                   (r < kTile ? src + r * kTile : sgn + (r - kTile) * kTile) +
+                       16 * c);
+      } else {
+        const int c = q - (kTile + 16) * kC;
+        cp_async16(st + (kTile + 16) * BN + 16 * c,
+                   rowscale + slot * kTile + 4 * c);
       }
     }
-    const uint4 sv = *reinterpret_cast<const uint4*>(st + cap * 512 + off);
-    const uint32_t su[4] = {sv.x, sv.y, sv.z, sv.w};
-    const float rs = reinterpret_cast<const float*>(st + cap * 512 + 512)[r];
-    float out[16];
+  }
+
+  __device__ void decode(const uint8_t* st, int, float* ws) const {
+    const int r = threadIdx.x & 127, h = threadIdx.x >> 7;
+    const int bs = 7 - (r & 7);
+    const float rs =
+        reinterpret_cast<const float*>(st + (kTile + 16) * BN)[r];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int part = 0; part < BN / 32; ++part) {
+      const int col = h * (BN / 2) + 16 * part;
+      const uint4 v = *reinterpret_cast<const uint4*>(st + r * BN + col);
+      const uint4 sv = *reinterpret_cast<const uint4*>(
+          st + (kTile + (r >> 3)) * BN + col);
+      const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+      const uint32_t su[4] = {sv.x, sv.y, sv.z, sv.w};
+      float out[16];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const uint32_t lanes = (b & 1) ? od[q] : ev[q];
-        const float cell = (float)((lanes >> (16 * (b >> 1))) & 0xffffu);
-        const float s = ((su[q] >> (8 * b + bs)) & 1u) ? -1.0f : 1.0f;
-        out[4 * q + b] = __fmul_rn(__fmul_rn(cell, s), rs);
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const float code = (float)((u[q] >> (8 * b)) & 0xffu);
+          const float s = ((su[q] >> (8 * b + bs)) & 1u) ? -1.0f : 1.0f;
+          out[4 * q + b] = __fmul_rn(__fmul_rn(code, s), rs);
+        }
       }
+      store16(ws + r * kWS + col, out);
     }
-    store16(ws + r * kWS + h * 16, out);
   }
 };
 
@@ -264,35 +412,17 @@ __device__ __forceinline__ float decode6(uint32_t c, float rs) {
 // (r, h) reads its BN / 2 codes of row r as 32-bit words, 16 codes per 3
 // words, and funnel-shifts each out.
 template <int BN>
-struct Minifloat6Strip {
+struct Minifloat6Strip : SlotList {
   static constexpr int kBN = BN;
   static constexpr int kWS = BN + 4;
+  static constexpr int kPayloadStages = 2;
   static constexpr int kRowB = BN / 4 * 3;
   const uint8_t* packed;
   const float* rowscale;
-  const int* rowid;
-  const int* nnz;
-  int L;
-  int* srow;     // shared: row tile of slot l
 
-  __host__ __device__ static size_t meta_bytes(int L) {
-    return ((size_t)L * 4 + 15) / 16 * 16;
-  }
   __host__ __device__ size_t payload_bytes() const {
     return (size_t)kTile * kRowB + 512;
   }
-  // Copy column j's row tiles to shared memory (loaded beside nnz, not
-  // after it); returns G.  A list past L traps (the call raises).
-  __device__ int prepare(int j, int* meta) {
-    srow = meta;
-    for (int l = threadIdx.x; l < L; l += kThreads)
-      srow[l] = rowid[(size_t)j * L + l];
-    const int n = nnz[j];
-    if (n < 0 || n > L) __trap();
-    __syncthreads();
-    return n;
-  }
-  __device__ int row_tile(int, int g) const { return srow[g]; }
 
   __device__ void issue(int j, int col0, int g, uint8_t* st) const {
     const size_t slot = (size_t)j * L + g;
@@ -369,6 +499,7 @@ decode_walk(D d, const float* __restrict__ x, int m, int k_pad,
             const float* __restrict__ colscale, int nt, int stage_bytes,
             int per_rank, float* __restrict__ y) {
   constexpr int MB = 8 * MR;
+  static_assert(D::kBN == kStrip, "decode_walk decodes 32-column strips");
   extern __shared__ __align__(16) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
@@ -523,38 +654,47 @@ inline cudaError_t launch_decode(const D& d, int m, int k_pad, int nt, int L,
 
 // ---- tiled_walk -----------------------------------------------------------
 
+constexpr int kXBytes = kBM * kTile * 4;   // one stage's x slice
+
 template <class D>
 inline size_t tiled_stage_bytes(const D& d) {
-  return d.payload_bytes() + (size_t)kBM * kTile * 4;
+  return d.payload_bytes() + (size_t)kXBytes;
 }
 
 template <class D>
 inline size_t tiled_smem_bytes(const D& d) {
-  return 2 * tiled_stage_bytes(d) + (size_t)kTile * D::kWS * 4 +
-         D::meta_bytes(d.L);
+  return D::kPayloadStages * d.payload_bytes() + 2 * (size_t)kXBytes +
+         (size_t)kTile * D::kWS * 4 + D::meta_bytes(d.L);
 }
 
+// Shared memory: kPayloadStages == 2: [payload 0 | x 0][payload 1 | x 1];
+// == 1: [payload][x 0][x 1]; then the strip ws and the decoder's metadata.
 template <class D>
 __global__ void __launch_bounds__(kThreads, 2)
 tiled_walk(D d, const float* __restrict__ x, int m, int k_pad, int nt,
            int stage_bytes, float* __restrict__ y) {
   static_assert(D::kBN == kBN, "tiled_walk decodes 64-column halves");
+  constexpr int P = D::kPayloadStages;
+  static_assert(P == 1 || P == 2, "one payload buffer or a ring of two");
   extern __shared__ __align__(16) uint8_t smem[];
   const int j = blockIdx.x / (kTile / kBN);
   const int col0 = (blockIdx.x % (kTile / kBN)) * kBN;
   const int m0 = blockIdx.y * kBM;
-  float* ws = reinterpret_cast<float*>(smem + 2 * stage_bytes);
   const int xoff = (int)d.payload_bytes();
+  float* ws = reinterpret_cast<float*>(
+      smem + (P == 2 ? 2 * stage_bytes : xoff + 2 * kXBytes));
+  const int xstep = P == 2 ? stage_bytes : kXBytes;
   const int G = d.prepare(j, reinterpret_cast<int*>(ws + kTile * D::kWS));
+  // x of group g (and with P == 2 its payload) into stage g & 1
   auto issue = [&](int g) {
     if (g < G) {
-      uint8_t* st = smem + (g & 1) * stage_bytes;
-      d.issue(j, col0, g, st);
-      issue_x<true>(reinterpret_cast<float*>(st + xoff), x, m, m0, kBM, k_pad,
-                    d.row_tile(j, g));
+      if (P == 2) d.issue(j, col0, g, smem + (g & 1) * stage_bytes);
+      issue_x<true>(reinterpret_cast<float*>(smem + xoff + (g & 1) * xstep),
+                    x, m, m0, kBM, k_pad, d.row_tile(j, g));
     }
     cp_async_commit();
   };
+  if (P == 1 && G > 0) d.issue(j, col0, 0, smem);
   issue(0);
   issue(1);
 
@@ -570,10 +710,15 @@ tiled_walk(D d, const float* __restrict__ x, int m, int k_pad, int nt,
   for (int g = 0; g < G; ++g) {
     cp_async_wait<1>();
     __syncthreads();
-    const uint8_t* st = smem + (g & 1) * stage_bytes;
+    const uint8_t* st = smem + (P == 2 ? (g & 1) * stage_bytes : 0);
     d.decode(st, g, ws);
     __syncthreads();
-    const float* xs = reinterpret_cast<const float*>(st + xoff) +
+    if (P == 1) {   // the one payload buffer is free: group g + 1's lands
+      if (g + 1 < G) d.issue(j, col0, g + 1, smem);   // during this dot
+      cp_async_commit();
+    }
+    const float* xs = reinterpret_cast<const float*>(
+                          smem + xoff + (g & 1) * xstep) +
                       4 * tm * kTile;
     const float* wn = ws + 4 * tn;
     float t[4][4];
@@ -640,6 +785,52 @@ inline cudaError_t launch_tiled(const D& d, int m, int k_pad, int nt,
   kernel<<<tiled_grid(m, nt), kThreads, smem, stream>>>(
       d, x, m, k_pad, nt, (int)tiled_stage_bytes(d), y);
   return cudaGetLastError();
+}
+
+// ---- entry points ---------------------------------------------------------
+
+// v1 and v2 serve every M from one entry point: decode_walk with the
+// 32-column strip where 2M <= 128, tiled_walk with the 64-column one above.
+inline bool decode_sized(int m) { return 2 * m <= kTile; }
+
+template <class D32, class D64>
+inline cudaError_t launch_by_m(const D32& d32, const D64& d64, int m,
+                               int k_pad, int nt, int L, const float* x,
+                               float* y, cudaStream_t stream) {
+  if (decode_sized(m))
+    return launch_decode(d32, m, k_pad, nt, L, x, nullptr, y, stream);
+  return launch_tiled(d64, m, k_pad, nt, x, y, stream);
+}
+
+// Launch shape, as the `<kernel>_geometry` exports report it: out = {grid
+// x, grid y, cluster size, dynamic shared memory bytes}.  Returns
+// cudaErrorInvalidValue where a block cannot hold that much shared memory
+// (the launch would refuse it), else 0.
+inline int report_geometry(dim3 grid, int cs, size_t smem, int* out) {
+  out[0] = (int)grid.x;
+  out[1] = (int)grid.y;
+  out[2] = cs;
+  out[3] = (int)smem;
+  return smem > (size_t)kMaxSmem ? (int)cudaErrorInvalidValue : 0;
+}
+
+template <class D>
+inline int decode_geometry(const D& d, int m, int k_pad, int nt, int L,
+                           int* out) {
+  const DecodeShape s = decode_shape(d, m, k_pad, nt, L);
+  return report_geometry(s.grid, s.cs, s.smem, out);
+}
+
+template <class D>
+inline int tiled_geometry(const D& d, int m, int nt, int* out) {
+  return report_geometry(tiled_grid(m, nt), 1, tiled_smem_bytes(d), out);
+}
+
+template <class D32, class D64>
+inline int geometry_by_m(const D32& d32, const D64& d64, int m, int k_pad,
+                         int nt, int L, int* out) {
+  return decode_sized(m) ? decode_geometry(d32, m, k_pad, nt, L, out)
+                         : tiled_geometry(d64, m, nt, out);
 }
 
 }  // namespace ordered_partials

@@ -31,14 +31,12 @@
 
 namespace {
 
-bool decode_sized(int m) { return 2 * m <= ordered_partials::kTile; }
-
 template <int BN>
 ordered_partials::Minifloat6Strip<BN> v2_strip(const uint8_t* packed,
                                                const float* rowscale,
                                                const int* rowid,
                                                const int* nnz, int L) {
-  return {packed, rowscale, rowid, nnz, L, nullptr};
+  return {{rowid, nnz, L, nullptr}, packed, rowscale};
 }
 
 }  // namespace
@@ -50,37 +48,16 @@ extern "C" int sme_spmm6(const float* x, int m, int k_pad,
                          float* y, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (decode_sized(m))
-    return (int)ordered_partials::launch_decode(
-        v2_strip<32>(packed, rowscale, rowid, nnz, L), m, k_pad, nt, L, x,
-        nullptr, y, (cudaStream_t)stream);
-  return (int)ordered_partials::launch_tiled(
-      v2_strip<64>(packed, rowscale, rowid, nnz, L), m, k_pad, nt, x, y,
+  return (int)ordered_partials::launch_by_m(
+      v2_strip<32>(packed, rowscale, rowid, nnz, L),
+      v2_strip<64>(packed, rowscale, rowid, nnz, L), m, k_pad, nt, L, x, y,
       (cudaStream_t)stream);
 }
 
-// Launch shape for these sizes: out = {grid x, grid y, cluster size,
-// dynamic shared memory bytes}.  Returns cudaErrorInvalidValue where the
-// shape needs more shared memory than a block has (the launch would
-// refuse it), else 0.
+// Launch shape for these sizes (ordered_partials::report_geometry).
 extern "C" int sme_spmm6_geometry(int m, int k_pad, int nt, int L, int* out) {
-  size_t smem;
-  if (decode_sized(m)) {
-    const auto s = ordered_partials::decode_shape(
-        v2_strip<32>(nullptr, nullptr, nullptr, nullptr, L), m, k_pad, nt, L);
-    out[0] = (int)s.grid.x;
-    out[1] = (int)s.grid.y;
-    out[2] = s.cs;
-    smem = s.smem;
-  } else {
-    const dim3 grid = ordered_partials::tiled_grid(m, nt);
-    out[0] = (int)grid.x;
-    out[1] = (int)grid.y;
-    out[2] = 1;
-    smem = ordered_partials::tiled_smem_bytes(
-        v2_strip<64>(nullptr, nullptr, nullptr, nullptr, L));
-  }
-  out[3] = (int)smem;
-  return smem > (size_t)ordered_partials::kMaxSmem ? (int)cudaErrorInvalidValue
-                                                   : 0;
+  return ordered_partials::geometry_by_m(
+      v2_strip<32>(nullptr, nullptr, nullptr, nullptr, L),
+      v2_strip<64>(nullptr, nullptr, nullptr, nullptr, L), m, k_pad, nt, L,
+      out);
 }

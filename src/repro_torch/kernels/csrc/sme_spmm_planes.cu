@@ -10,32 +10,22 @@
 // 2*M*K*N; in f32 without tensor cores (67 TFLOP/s) the FLOPs set the
 // bound from M of about 100 rows up.
 //
-// Design: the decode kernel's walk (plane_csc.cuh) with the grid also over
-// 64-row M tiles: block (column tile x 32-column strip, M tile).  Every
-// block re-splices its strip's weight tiles, which the FLOPs of the dot
-// amortise at 64 rows.  Same device helpers, same per-output summation
-// order, so it agrees bitwise with the decode kernel.  f32 fmaf on the CUDA
-// cores, no tensor cores: TF32 would break the 5e-5 bound.
-#include <climits>
+// Design: tiled_walk with PlaneStrip<64> (ordered_partials.cuh), as v1 and
+// v2 run above decode sizes: one block per (column tile, 64-column half,
+// 64-row M tile), 128 blocks for a 1024x1024 layer at M = 512.  The block
+// scans the column's plane list for its tile groups (as the decode
+// kernel), copies a group's plane strips, sign strip and 2^row_exp into one
+// payload buffer and its x slice into a two-stage ring with cp.async,
+// splices the planes once as integers (exact) and reuses the tile half for
+// all 64 rows, each thread accumulating a 4x4 grid of outputs.  Up to 16
+// planes per group are staged (codes have at most 16 bits; a deeper group
+// traps): about 116 KB of shared memory at 56-slot lists, one block per SM.
+// One fmaf chain per group, groups added in list order: bitwise the decode
+// kernel's, v1's and v2's.  No tensor cores: TF32 would break the 5e-5
+// bound.
+#include "ordered_partials.cuh"
 
-#include "plane_csc.cuh"
-
-namespace {
-
-__global__ void __launch_bounds__(plane_csc::kThreads)
-sme_spmm_planes_kernel(const float* x, int m, int k_pad, const uint8_t* planes,
-                       const uint8_t* sign, const float* rowscale,
-                       const int* rowid, const int* shift, const int* last,
-                       const int* nnz, int nt, int L, float* y) {
-  plane_csc::PlaneTiles tiles{planes, sign, rowscale, rowid, shift, last,
-                              nt, INT_MAX};
-  plane_csc::walk_column_strip(x, m, k_pad, tiles, nullptr, rowid, nnz, nt, L,
-                               y);
-}
-
-}  // namespace
-
-// Returns cudaGetLastError().
+// Returns the CUDA error of the launch.
 extern "C" int sme_spmm_planes(
     const float* x, int m, int k_pad, const uint8_t* planes,
     const uint8_t* sign, const float* rowscale, const int* rowid,
@@ -43,8 +33,18 @@ extern "C" int sme_spmm_planes(
     float* y, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  sme_spmm_planes_kernel<<<plane_csc::grid_for(m, nt), plane_csc::kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      x, m, k_pad, planes, sign, rowscale, rowid, shift, last, nnz, nt, L, y);
-  return (int)cudaGetLastError();
+  return (int)ordered_partials::launch_tiled(
+      ordered_partials::plane_strip<64>(planes, sign, rowscale, rowid, shift,
+                                        last, nnz, nt, L, 0),
+      m, k_pad, nt, x, y, (cudaStream_t)stream);
+}
+
+// Launch shape for these sizes (ordered_partials::report_geometry).
+extern "C" int sme_spmm_planes_geometry(int m, int k_pad, int nt, int L,
+                                        int* out) {
+  (void)k_pad;
+  return ordered_partials::tiled_geometry(
+      ordered_partials::plane_strip<64>(nullptr, nullptr, nullptr, nullptr,
+                                        nullptr, nullptr, nullptr, nt, L, 0),
+      m, nt, out);
 }

@@ -26,27 +26,7 @@
 // partials stay in shared memory; after cluster.sync() they are added in
 // list order through distributed shared memory.  No tensor cores and no
 // split of a partial's chain: the result is bitwise the prefill kernel's.
-#include <climits>
-
 #include "ordered_partials.cuh"
-
-namespace {
-
-ordered_partials::PlaneStrip plane_strip(const uint8_t* planes,
-                                         const uint8_t* sign,
-                                         const float* rowscale,
-                                         const int* rowid, const int* shift,
-                                         const int* last, const int* nnz,
-                                         int nt, int L, int depth) {
-  const int d = depth > 0 ? depth : INT_MAX;
-  int cap = ordered_partials::kMaxPlanes < L ? ordered_partials::kMaxPlanes
-                                             : L;
-  cap = cap < d ? cap : d;
-  return {planes, sign,   rowscale, rowid, shift,  last,   nnz,
-          nt,     L,      d,        cap,   nullptr, nullptr, nullptr};
-}
-
-}  // namespace
 
 // depth <= 0 means full precision.  Returns the CUDA error of the launch.
 extern "C" int sme_spmm_planes_decode(
@@ -57,26 +37,17 @@ extern "C" int sme_spmm_planes_decode(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return (int)ordered_partials::launch_decode(
-      plane_strip(planes, sign, rowscale, rowid, shift, last, nnz, nt, L,
-                  depth),
+      ordered_partials::plane_strip<32>(planes, sign, rowscale, rowid, shift,
+                                        last, nnz, nt, L, depth),
       m, k_pad, nt, L, x, colscale, y, (cudaStream_t)stream);
 }
 
-// Launch shape for these sizes: out = {grid x, grid y, cluster size,
-// dynamic shared memory bytes}.  Returns cudaErrorInvalidValue where the
-// shape needs more shared memory than a block has (the launch would
-// refuse it), else 0.
+// Launch shape for these sizes (ordered_partials::report_geometry).
 extern "C" int sme_spmm_planes_decode_geometry(int m, int k_pad, int nt,
                                                int L, int depth, int* out) {
-  const auto s = ordered_partials::decode_shape(
-      plane_strip(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  nullptr, nt, L, depth),
-      m, k_pad, nt, L);
-  out[0] = (int)s.grid.x;
-  out[1] = (int)s.grid.y;
-  out[2] = s.cs;
-  out[3] = (int)s.smem;
-  return s.smem > (size_t)ordered_partials::kMaxSmem
-             ? (int)cudaErrorInvalidValue
-             : 0;
+  return ordered_partials::decode_geometry(
+      ordered_partials::plane_strip<32>(nullptr, nullptr, nullptr, nullptr,
+                                        nullptr, nullptr, nullptr, nt, L,
+                                        depth),
+      m, k_pad, nt, L, out);
 }

@@ -6,9 +6,8 @@ up to ``nnz[j]``).
 
 Checked against ``repro/kernels/sme_spmm/csc_grid.py`` (``unpack_row_bits``
 and the ``csc_step`` walk) and ``sme_spmm_planes_decode.py``
-(``plane_group_index``).  The CUDA kernels' device walks are in
-``kernels/csrc/plane_csc.cuh`` (v1, v3 prefill) and
-``kernels/csrc/ordered_partials.cuh`` (v3 decode, v2).
+(``plane_group_index``).  The CUDA kernels' device walks and tile decoders
+are in ``kernels/csrc/ordered_partials.cuh``.
 """
 from __future__ import annotations
 

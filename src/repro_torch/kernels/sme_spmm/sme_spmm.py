@@ -8,9 +8,10 @@ and what the design does about it.
 ``y = x @ W_codes``, **unscaled**: per occupied tile ``w = code * (1 -
 2*signbit) * 2^row_exp``; the caller applies ``(y * scale) * 2^-n_bits``.
 The signs and ``rowscale`` are per list slot (``SMEWeight.pack_csc``), not
-dense per tile as in v3.  The kernel walks each column's tile list in row
-order with the v3 kernels' device helpers, so its output equals the v3
-prefill kernel's bitwise.
+dense per tile as in v3.  One entry point serves decode-sized M (a cluster
+per column strip splits the tiles over its blocks) and larger M (one block
+per 64x64 output tile); both add one f32 chain per tile in list order, so
+the output equals v2's and the v3 kernels' bitwise.
 
 The wrapper launches the kernel for CUDA tensors (or raises) and runs the
 plain version :func:`sme_spmm_plain` only for CPU tensors.
@@ -21,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from .csc_grid import check_v1_operands, csc_dot_plain, unpack_row_bits
+from .csc_grid import (check_aligned, check_v1_operands, csc_dot_plain,
+                       unpack_row_bits)
 
 __all__ = ["sme_spmm", "sme_spmm_plain"]
 
@@ -45,6 +47,7 @@ def sme_spmm(x: torch.Tensor, codes: torch.Tensor, sign: torch.Tensor,
     check_v1_operands(x, codes, sign, rowscale, rowid, nnz)
     if x.device.type == "cpu":
         return sme_spmm_plain(x, codes, sign, rowscale, rowid, nnz)
+    check_aligned(x=x, codes=codes, sign=sign, rowscale=rowscale)
     nt, L, _, bn = codes.shape
     m, k_pad = x.shape
     y = torch.empty((m, nt * bn), dtype=torch.float32, device=x.device)

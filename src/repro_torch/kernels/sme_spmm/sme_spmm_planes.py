@@ -6,9 +6,9 @@ its source note gives the bound on the card and what the design does about
 it.
 
 ``y = x @ W_codes``, **unscaled**: the caller applies
-``(y * scale) * 2^-n_bits``.  The kernel walks the same per-column plane
-lists in the same order with the same device helpers as the decode kernel,
-so the two agree bitwise.
+``(y * scale) * 2^-n_bits``.  One block per 64x64 output tile walks a
+column's plane list in order with the decode kernel's splice, one f32
+chain per tile group, so the two agree bitwise.
 
 The wrapper launches the kernel for CUDA tensors (or raises) and runs the
 plain version :func:`sme_spmm_planes_plain` only for CPU tensors.
@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from .csc_grid import check_operands, splice_dot_plain
+from .csc_grid import check_aligned, check_operands, splice_dot_plain
 
 __all__ = ["sme_spmm_planes", "sme_spmm_planes_plain"]
 
@@ -40,6 +40,7 @@ def sme_spmm_planes(x: torch.Tensor, planes: torch.Tensor, sign: torch.Tensor,
     if x.device.type == "cpu":
         return sme_spmm_planes_plain(x, planes, sign, rowscale, rowid, shift,
                                      last, nnz)
+    check_aligned(x=x, planes=planes, sign=sign, rowscale=rowscale)
     nt, L, _, bn = planes.shape
     m, k_pad = x.shape
     y = torch.empty((m, nt * bn), dtype=torch.float32, device=x.device)

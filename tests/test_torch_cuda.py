@@ -8,9 +8,9 @@ Each kernel against its plain PyTorch version (relative 5e-5 of the
 output's max: both sum in f32, in different orders) and the f64 oracle,
 decode ≡ prefill bitwise at every decode M bucket and at a 22-group column,
 ``plane_depth``, v1 ≡ v2 ≡ v3 bitwise (after each format's power-of-two
-scaling) on both of v2's paths, empty column tiles, the launch geometry of
-the cluster kernels, the launch counters, the operands each wrapper
-refuses, and the malformed lists the device refuses."""
+scaling) on both of v1's and v2's paths, empty column tiles, the launch
+geometry of the four kernels, the launch counters, the operands each
+wrapper refuses, and the malformed lists the device refuses."""
 import numpy as np
 import pytest
 import torch
@@ -224,12 +224,14 @@ def _oracle_rel(y, x, dense):
 def test_decode_kernel_buckets_equal_prefill_kernel(cuda, m, shape):
     """Every decode M bucket (8/16/32/64; 24 pads its bucket, 72 takes two
     M tiles) and wo's depth (K = 2816: 22 groups per column, spread over a
-    cluster of 8) equal the prefill kernel bitwise."""
+    cluster of 8) of the v3-decode kernel and of v1 (decode_walk up to
+    M = 64, tiled_walk at 72) equal the prefill kernel bitwise."""
     rng = np.random.default_rng(11)
     w = rng.normal(0, 1, shape) / np.sqrt(shape[0])
     smew = sme_compress(w, squeeze=1)
     ops = smew.pack_plane_csc()
     args = [torch.as_tensor(ops[k], device=cuda) for k in OPS]
+    a1 = [torch.as_tensor(smew.pack_csc()[k], device=cuda) for k in V1]
     nt = ops["planes"].shape[0]
     if shape[0] == 2816:
         assert (ops["last"].sum(1) == 22).all()
@@ -239,7 +241,9 @@ def test_decode_kernel_buckets_equal_prefill_kernel(cuda, m, shape):
     y = sme_spmm_planes_decode(x, *args[:3], cs, *args[3:])
     x128 = torch.zeros((-(-m // 128) * 128, shape[0]), device=cuda)
     x128[:m] = x
-    assert torch.equal(y, sme_spmm_planes(x128, *args)[:m] * cs.reshape(1, -1))
+    y_pre = sme_spmm_planes(x128, *args)[:m]
+    assert torch.equal(y, y_pre * cs.reshape(1, -1))
+    assert torch.equal(sme_spmm(x, *a1), y_pre)
     assert _rel(y, sme_spmm_planes_decode_plain(x, *args[:3], cs,
                                                 *args[3:])) <= 5e-5
     assert _oracle_rel(y, x, smew.dequant()) <= TOL_ORACLE
@@ -273,11 +277,12 @@ def test_decode_kernel_uneven_lists_and_depth(cuda, depth):
             x, *args[:3], cs, *args[3:], plane_depth=depth)) <= 5e-5
 
 
-@pytest.mark.parametrize("m", [8, 64, 72, 512])
+@pytest.mark.parametrize("m", [8, 16, 24, 32, 64, 72, 512])
 @pytest.mark.parametrize("pruned", [False, True], ids=["dense", "pruned"])
 def test_v2_paths_equal_v1_and_v3_prefill(cuda, m, pruned):
-    """Both v2 kernels (decode_walk at 2M <= 128, tiled_walk above) equal
-    v1 and the v3 prefill kernel bitwise after scaling."""
+    """Both walks of v2 and of v1 (decode_walk at 2M <= 128, at every M
+    bucket; tiled_walk above) equal each other and the v3 prefill kernel
+    bitwise after scaling."""
     w = _pruned() if pruned else np.random.default_rng(12).normal(
         0, 1, (1024, 256)) / 32.0
     smew, a1, a2, a3 = _tile_csc(cuda, w, squeeze=1)
@@ -286,7 +291,9 @@ def test_v2_paths_equal_v1_and_v3_prefill(cuda, m, pruned):
     x128[:m] = x
     scale = float(smew.scale.reshape(-1)[0])
     y3 = sme_spmm_planes(x128, *a3)[:m] * scale * 2.0 ** -8
-    y1 = sme_spmm(x, *a1) * scale * 2.0 ** -8
+    y1 = sme_spmm(x, *a1)
+    assert _rel(y1, sme_spmm_plain(x, *a1)) <= 5e-5
+    y1 = y1 * scale * 2.0 ** -8
     y2 = sme_spmm6(x, *a2)
     assert _rel(y2, sme_spmm6_plain(x, *a2)) <= 5e-5
     y2 = y2 * scale * 2.0 ** -1
@@ -298,36 +305,55 @@ def test_v2_paths_equal_v1_and_v3_prefill(cuda, m, pruned):
 
 def test_cluster_kernels_launch_geometry(cuda):
     """At qwen1.5-0.5b's q/k/v/o shape (8 row and 8 column tiles, 56-slot
-    v3 lists) the decode kernels launch 8 x 4 clusters of 8 blocks, and v2
-    at M = 512 launches 16 x 8 blocks, all within 227 KB of shared memory."""
+    v3 lists) the decode-sized launches (v3-decode, v1 and v2 at M = 8) are
+    8 x 4 clusters of 8 blocks, and the M = 512 ones (v1, v2, v3-prefill)
+    16 x 8 blocks, all within 227 KB of shared memory; v1's and v2's tiled
+    blocks fit two to an SM (228 KB, 1 KB reserved per block)."""
     d = build.geometry("sme_spmm_planes_decode", 8, 1024, 8, 56, 0)
     assert (d["grid_x"], d["grid_y"], d["cluster"]) == (256, 1, 8)
-    v2 = build.geometry("sme_spmm6", 8, 1024, 8, 8)
-    assert (v2["grid_x"], v2["grid_y"], v2["cluster"]) == (256, 1, 8)
-    p = build.geometry("sme_spmm6", 512, 1024, 8, 8)
-    assert (p["grid_x"], p["grid_y"], p["cluster"]) == (16, 8, 1)
+    dec = [build.geometry(k, 8, 1024, 8, 8) for k in ("sme_spmm6", "sme_spmm")]
+    for g in dec:
+        assert (g["grid_x"], g["grid_y"], g["cluster"]) == (256, 1, 8)
+    tiled = [build.geometry(k, 512, 1024, 8, 8)
+             for k in ("sme_spmm6", "sme_spmm")]
+    tiled.append(build.geometry("sme_spmm_planes", 512, 1024, 8, 56))
+    for g in tiled:
+        assert (g["grid_x"], g["grid_y"], g["cluster"]) == (16, 8, 1)
+    for g in tiled[:2]:
+        assert 2 * (g["smem_bytes"] + 1024) <= 233472
     wo = build.geometry("sme_spmm_planes_decode", 64, 2816, 8, 176, 0)
     assert wo["cluster"] == 8
-    for g in (d, v2, p, wo):
+    for g in [d, wo, *dec, *tiled]:
         assert 0 < g["smem_bytes"] <= 232448
 
 
 def test_redesigned_wrappers_reject_unaligned_operands(cuda):
     _, args, cs = _operands(cuda)
-    _, _, a2, _ = _tile_csc(cuda, _pruned())
-    flat = torch.zeros(8 * 384 + 1, device=cuda)
-    x = flat[1:].view(8, 384)
+    _, a1, a2, _ = _tile_csc(cuda, _pruned())
+    flat = torch.zeros(128 * 384 + 1, device=cuda)
+    x = flat[1:8 * 384 + 1].view(8, 384)
     with pytest.raises(ValueError, match="aligned"):
         sme_spmm_planes_decode(x, *args[:3], cs, *args[3:])
     with pytest.raises(ValueError, match="aligned"):
         sme_spmm6(x, *a2)
+    with pytest.raises(ValueError, match="aligned"):
+        sme_spmm(x, *a1)
+    with pytest.raises(ValueError, match="aligned"):
+        sme_spmm_planes(flat[1:].view(128, 384), *args)
 
 
 def test_geometry_refuses_what_a_block_cannot_hold(cuda):
     """A list so long that its group index overflows shared memory: the
-    geometry export refuses it, as the launch would."""
-    with pytest.raises(RuntimeError, match="cannot launch"):
-        build.geometry("sme_spmm_planes_decode", 64, 1024, 8, 20000, 0)
+    geometry export refuses it, as the launch would, for every kernel and
+    both walks of v1 and v2."""
+    for args in (("sme_spmm_planes_decode", 64, 1024, 8, 20000, 0),
+                 ("sme_spmm_planes", 512, 1024, 8, 20000),
+                 ("sme_spmm", 8, 1024, 8, 60000),
+                 ("sme_spmm", 512, 1024, 8, 60000),
+                 ("sme_spmm6", 8, 1024, 8, 60000),
+                 ("sme_spmm6", 512, 1024, 8, 60000)):
+        with pytest.raises(RuntimeError, match="cannot launch"):
+            build.geometry(*args)
 
 
 #: a malformed list in a child process (a trapped kernel leaves the CUDA
@@ -335,20 +361,32 @@ def test_geometry_refuses_what_a_block_cannot_hold(cuda):
 #: only if the device finished without trapping
 _MALFORMED = """
 import sys, torch
+from repro_torch.kernels.sme_spmm.sme_spmm import sme_spmm
 from repro_torch.kernels.sme_spmm.sme_spmm6 import sme_spmm6
+from repro_torch.kernels.sme_spmm.sme_spmm_planes import sme_spmm_planes
 from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import \\
     sme_spmm_planes_decode
 dev, case = torch.device("cuda", 0), sys.argv[1]
 i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
-if case == "v3_deep_group":        # 17 planes in one group, 16 staged
+if case.startswith("v3"):          # 17 planes in one group, 16 staged
     L = 17
-    y = sme_spmm_planes_decode(
-        torch.ones((8, 128), device=dev),
-        torch.full((1, L, 16, 128), 1, dtype=torch.uint8, device=dev),
-        torch.zeros((1, 1, 16, 128), dtype=torch.uint8, device=dev),
-        torch.ones((1, 1, 128), device=dev), torch.ones((1, 128), device=dev),
-        i32([[0] * L]), i32([[15 - l % 16 for l in range(L)]]),
-        i32([[0] * (L - 1) + [1]]), i32([L]))
+    v3 = (torch.full((1, L, 16, 128), 1, dtype=torch.uint8, device=dev),
+          torch.zeros((1, 1, 16, 128), dtype=torch.uint8, device=dev),
+          torch.ones((1, 1, 128), device=dev))
+    index = (i32([[0] * L]), i32([[15 - l % 16 for l in range(L)]]),
+             i32([[0] * (L - 1) + [1]]), i32([L]))
+    if case == "v3_deep_group":
+        y = sme_spmm_planes_decode(torch.ones((8, 128), device=dev), *v3,
+                                   torch.ones((1, 128), device=dev), *index)
+    else:                          # v3_prefill_deep_group
+        y = sme_spmm_planes(torch.ones((128, 128), device=dev), *v3, *index)
+elif case.startswith("v1"):        # nnz 3 of L = 2, through both walks
+    y = sme_spmm(torch.ones((8 if case == "v1_past_l" else 512, 128),
+                            device=dev),
+                 torch.full((1, 2, 128, 128), 7, dtype=torch.uint8,
+                            device=dev),
+                 torch.zeros((1, 2, 16, 128), dtype=torch.uint8, device=dev),
+                 torch.ones((1, 2, 128), device=dev), i32([[0, 0]]), i32([3]))
 else:
     # v2_groups: two slots in the one row tile; v2_past_l: nnz 3 of L = 2
     m, nnz = (8, 2) if case == "v2_groups" else (512, 3)
@@ -363,7 +401,9 @@ print("no error", flush=True)
 """
 
 
-@pytest.mark.parametrize("case", ["v3_deep_group", "v2_groups", "v2_past_l"])
+@pytest.mark.parametrize("case", ["v3_deep_group", "v3_prefill_deep_group",
+                                  "v2_groups", "v2_past_l", "v1_past_l",
+                                  "v1_past_l_tiled"])
 def test_malformed_lists_raise_not_drop_slots(cuda, case):
     """A list the host did not size the kernel for (a group deeper than the
     staged planes, more groups than row tiles, nnz past the list length)
