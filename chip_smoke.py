@@ -33,19 +33,38 @@
 3. Serving: full-width qwen1.5-0.5b (24 layers, random weights from a
    numpy seed, every attention/MLP weight packed once to v1, v2 and v3)
    serves the same 8 requests three times through ``ServeEngine(slots=4,
-   s_max=256)``: with ``backend="auto"`` (which must resolve to v2, as the
-   reference's auto does), ``"v1"`` and ``"v3"``.  Each run's launch
-   counters, set to 0 just before it, must cover every linear of every
-   prefill and decode step with its own kernels and no other; the three
-   runs' tokens must be identical; one prefill window's logits through
+   s_max=256)`` with every prompt prefilled in one piece (``chunk_len =
+   s_max``, no speculation, no prefix cache: comparable with the one-shot
+   engine of earlier revisions): with ``backend="auto"`` (which must
+   resolve to v2, as the reference's auto does), ``"v1"`` and ``"v3"``.
+   Each run's launch counters, set to 0 just before it, must cover every
+   linear of every prefill and decode step with its own kernels and no
+   other; the three runs' tokens must be identical; one prefill window's logits through
    v1, v2 and v3 must be bitwise equal (f32 and bf16) and within
    tolerance of the same model run through the plain versions.  A
    torch.profiler window profiles each backend's path (v2, v1, v3).
-4. Prints the kernels JSON line (times per model layer: 4 q/k/v/o + 2
+4. Engine: the same packed model through the continuous engine (4
+   slots, s_max 256, ``chunk_len`` 32, ``page_tokens`` 16, prefix cache
+   on, ``spec_len`` 4, a draft depth chosen from the weights' plane
+   occupancy below the deepest tile group): 8 requests of 16 new tokens
+   (3 prompts of 40-120 tokens, 2 pairs sharing a 64-token prefix, 1 at
+   temperature 0.8) driven through ``submit``/``pump``/``step``/``poll``,
+   four times: v3 with spec, chunking and the prefix cache; spec off;
+   prefix cache off; ``auto`` (v2).  Each run must complete every
+   request, stream token events equal to ``out_tokens``, launch only its
+   backend's kernels, 168 per model pass, and add up its spec counters;
+   v3's draft passes must launch the decode kernel (168 per draft step);
+   the greedy tokens of the four runs must be identical.  Prints ms per
+   engine step by kind (chunked, spec, decode), draft and verify ms per
+   round, acceptance, tokens/s, TTFT per request, prefix hits and
+   snapshots, and the decode kernel's ms per layer at the draft depth.
+5. Prints the kernels JSON line (times per model layer: 4 q/k/v/o + 2
    wi/wg + 1 wo calls; decode M = 8 in the top-level keys, every M a
-   kernel ran at under ``at_m``; every number measured in this run but
-   ``bound_ms``), the card line and, last, ``{"ok": true, "device":
-   {...}}``.  Any failed check raises first.
+   kernel ran at under ``at_m``; v3-decode adds ``draft_depth``, the
+   draft passes' ``draft_launches`` and ``draft_ms`` / ``draft_full_ms``
+   per layer on the model's own operands; every number measured in this
+   run but ``bound_ms``), the card line and, last, ``{"ok": true,
+   "device": {...}}``.  Any failed check raises first.
 """
 from __future__ import annotations
 
@@ -511,6 +530,10 @@ def build_model_params(dev, cfg):
     return params, time.perf_counter() - t0
 
 
+#: the serving phase's engine: every prompt prefilled in one piece (chunk
+#: length s_max), no speculation, no prefix cache, so its readings compare
+#: with the one-shot engine of earlier revisions
+ONE_SHOT = dict(slots=4, s_max=256, chunk_len=256, prefix_cache=False)
 #: serving runs: backend asked -> (what it must resolve to, its kernels)
 RUNS = {"auto": ("v2", ("sme_spmm6",)), "v1": ("v1", ("sme_spmm",)),
         "v3": ("v3", ("sme_spmm_planes", "sme_spmm_planes_decode"))}
@@ -523,8 +546,8 @@ def serve_run(api, params, prompts, backend, card):
     cfg = api.cfg
     reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
             for i, p in enumerate(prompts)]
-    eng = ServeEngine(api, params, slots=4, s_max=256, backend=backend,
-                      device=api.device)
+    eng = ServeEngine(api, params, backend=backend, device=api.device,
+                      **ONE_SHOT)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -621,7 +644,7 @@ def serve_phase(dev, card):
               flush=True)
     for backend in RUNS:
         profile_window(api, params, prompts[4:], card, backend)
-    return launches
+    return launches, params
 
 
 def profile_window(api, params, prompts, card, backend):
@@ -629,8 +652,8 @@ def profile_window(api, params, prompts, card, backend):
     and 5 decode steps of 4 requests (after the counted runs)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Request, ServeEngine
-    eng = ServeEngine(api, params, slots=4, s_max=256, backend=backend,
-                      device=api.device)
+    eng = ServeEngine(api, params, backend=backend, device=api.device,
+                      **ONE_SHOT)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
@@ -655,6 +678,269 @@ def profile_window(api, params, prompts, card, backend):
                 if e.device_type.name == "CPU" and e.key.startswith("aten::"))
     print(f"profile: {n_ops} aten op calls on the host (nested included)",
           flush=True)
+
+
+#: the engine phase: the reference's continuous engine settings
+ENGINE = dict(slots=4, s_max=256, chunk_len=32, page_tokens=16, spec_len=4)
+#: share of the weights' magnitude mass the draft depth keeps (the rule of
+#: the reference compiler's ``draft_depth_from_occupancy``)
+DRAFT_COVERAGE = 0.90
+#: engine steps after which the second half of the workload is submitted:
+#: by then the first pair members have scored their 64-token prefix
+SECOND_WAVE_AT = 2
+
+
+def _v3_params(tree):
+    """Every packed linear (dict with v3 operands) of a param tree."""
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            if "sme_v3_planes" in t:
+                out.append(t)
+                return
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+    walk(tree)
+    return out
+
+
+def choose_spec_depth(params, coverage=DRAFT_COVERAGE):
+    """One draft depth for the whole model from its plane occupancy: the
+    smallest k whose top k planes per tile group keep ``coverage`` of the
+    magnitude mass (set bits x 2^shift, what truncation drops), capped
+    below the deepest group so the draft always truncates.  Returns (k,
+    deepest, kept mass share, kept plane share)."""
+    dev = params["blocks"][0]["mlp"]["wi"]["w"]["sme_v3_planes"].device
+    lut = torch.tensor([bin(i).count("1") for i in range(256)],
+                       dtype=torch.float64, device=dev)
+    mass = torch.zeros(64, dtype=torch.float64, device=dev)
+    count = torch.zeros(64, dtype=torch.float64, device=dev)
+    for p in _v3_params(params["blocks"]):
+        planes, shift = p["sme_v3_planes"], p["sme_v3_shift"]
+        last, nnz = p["sme_v3_last"], p["sme_v3_nnz"]
+        nt, L = shift.shape
+        slot = torch.arange(L, device=dev).expand(nt, L)
+        start = torch.ones_like(last, dtype=torch.bool)
+        start[:, 1:] = last[:, :-1] == 1
+        rank = slot - torch.cummax(torch.where(start, slot, 0), dim=1).values
+        valid = slot < nnz[:, None].long()
+        pop = lut[planes.long()].sum(dim=(-1, -2))
+        m = pop * torch.exp2(shift.double())
+        mass += torch.bincount(rank[valid], weights=m[valid], minlength=64)
+        count += torch.bincount(rank[valid], minlength=64).double()
+    deepest = int(torch.nonzero(count).max()) + 1
+    share = (mass.cumsum(0) / mass.sum()).cpu().numpy()
+    kept = (count.cumsum(0) / count.sum()).cpu().numpy()
+    k = next((k for k in range(1, deepest) if share[k - 1] >= coverage),
+             deepest - 1)
+    return k, deepest, float(share[k - 1]), float(kept[k - 1])
+
+
+def engine_workload(vocab):
+    """8 requests of 16 new tokens: 3 with 40-120-token prompts, 2 pairs
+    sharing a 64-token prefix (72-88 tokens each), 1 sampled at
+    temperature 0.8.  The first wave holds one member of each pair."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED + 2)
+    longs = [rng.integers(0, vocab, int(n)) for n in rng.integers(40, 121, 3)]
+    pairs = []
+    for _ in range(2):
+        prefix = rng.integers(0, vocab, 64)
+        pairs.append([np.concatenate([prefix, rng.integers(
+            0, vocab, int(rng.integers(8, 25)))]) for _ in range(2)])
+    hot = rng.integers(0, vocab, 24)
+    first = [pairs[0][0], longs[0], pairs[1][0], longs[1]]
+    second = [pairs[0][1], pairs[1][1], longs[2], hot]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(first + second)]
+    reqs[-1].temperature = 0.8
+    return reqs[:4], reqs[4:]
+
+
+def engine_run(api, params, backend, spec_depth, prefix_cache):
+    """Drive the workload once through submit/pump/step/poll.  Returns the
+    requests, the engine, per-request token events and TTFT, wall seconds,
+    model passes (prefill + decode_step calls, counted on the API) and the
+    v3 decode kernel's launches inside draft passes."""
+    from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import \
+        sme_spmm_planes_decode as dec
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(api, params, backend=backend, device=api.device,
+                      spec_depth=spec_depth, prefix_cache=prefix_cache,
+                      **ENGINE)
+    passes, draft_launches = [0], [0]
+
+    def counted(fn):
+        def call(*a, **kw):
+            passes[0] += 1
+            return fn(*a, **kw)
+        return call
+    api.prefill, api.decode_step = counted(api.prefill), \
+        counted(api.decode_step)
+    draft = eng._draft
+
+    def counted_draft(rows):
+        n0 = dec.launches
+        out = draft(rows)
+        draft_launches[0] += dec.launches - n0
+        return out
+    eng._draft = counted_draft
+    first, second = engine_workload(api.cfg.vocab)
+    events, t_sub, ttft = {}, {}, {}
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for r in first:
+        eng.submit(r)
+        t_sub[r.rid] = time.perf_counter()
+    steps = 0
+    while not all(r.done for r in first + second):
+        check(steps < 400, f"engine[{backend}]: not done in 400 steps")
+        if steps == SECOND_WAVE_AT:
+            for r in second:
+                eng.submit(r)
+                t_sub[r.rid] = time.perf_counter()
+        eng.pump()
+        eng.step()
+        steps += 1
+        now = time.perf_counter()
+        for ev in eng.poll():
+            if ev["kind"] == "token":
+                events.setdefault(ev["rid"], []).append(ev["token"])
+                ttft.setdefault(ev["rid"], now - t_sub[ev["rid"]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers().items()}
+    del api.prefill, api.decode_step
+    return dict(reqs=first + second, eng=eng, events=events, ttft=ttft,
+                wall=wall, steps=steps, passes=passes[0],
+                launches=launches, draft_launches=draft_launches[0])
+
+
+def draft_layer_ms(params, depth, flush):
+    """Device ms of one model layer's 7 decode-kernel launches at M = 8
+    (the engine's 4 slots, padded), full precision and at ``depth``, on
+    layer 0's packed operands."""
+    from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import \
+        sme_spmm_planes_decode as dec
+    ops = ("planes", "sign", "rowscale", "rowid", "shift", "last", "nnz")
+    calls = []
+    for p in _v3_params(params["blocks"][0]):
+        a = {o: p[f"sme_v3_{o}"] for o in ops}
+        nt, _, bk8, bn = a["planes"].shape
+        nr = -(-p["sme_sign"].shape[-2] // (bk8 * 8))
+        x = torch.randn((8, nr * bk8 * 8), device=a["planes"].device)
+        cs = torch.full((nt, bn), 1e-3, device=x.device)
+        calls.append((x, [a["planes"], a["sign"], a["rowscale"], cs,
+                          a["rowid"], a["shift"], a["last"], a["nnz"]]))
+
+    def layer(d):
+        for x, args in calls:
+            dec(x, *args, plane_depth=d)
+    return time_ms(lambda: layer(None), flush), \
+        time_ms(lambda: layer(depth), flush)
+
+
+def engine_phase(dev, card, params):
+    """The continuous engine on the serving phase's packed model: v3 with
+    chunked prefill, the prefix cache and self-speculative decode, then the
+    same workload with spec off, with the prefix cache off, and under auto
+    (v2).  Returns the v3-decode row's draft keys for the JSON line."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    api = build_model(ARCHS["qwen1.5-0.5b"], device=dev)
+    depth, deepest, share, kept = choose_spec_depth(params)
+    check(1 <= depth < deepest, f"draft depth {depth} of {deepest}")
+    print(f"engine: draft depth {depth} of the deepest group's {deepest} "
+          f"planes: keeps {100 * share:.2f}% of the weights' magnitude mass "
+          f"and {100 * kept:.2f}% of the plane entries ({ENGINE}, prefix "
+          f"cache on, spec_len {ENGINE['spec_len']})", flush=True)
+    runs = {}
+    for name, backend, spec, prefix in (
+            ("v3 spec+chunk+prefix", "v3", depth, True),
+            ("v3 spec off", "v3", None, True),
+            ("v3 prefix off", "v3", depth, False),
+            ("auto (v2) spec+chunk+prefix", "auto", depth, True)):
+        r = runs[name] = engine_run(api, params, backend, spec, prefix)
+        eng, reqs, m = r["eng"], r["reqs"], r["eng"]._m
+        stats = eng.stats
+        check(all(q.outcome == "completed" and len(q.out_tokens) == 16
+                  for q in reqs), f"engine[{name}]: incomplete requests")
+        check(all(r["events"].get(q.rid) == q.out_tokens for q in reqs),
+              f"engine[{name}]: poll's token events != out_tokens")
+        mine = ("sme_spmm6",) if backend == "auto" else \
+            ("sme_spmm_planes", "sme_spmm_planes_decode")
+        got = sum(r["launches"][k] for k in mine)
+        check(all(r["launches"][k] == 0 for k in r["launches"]
+                  if k not in mine), f"engine[{name}]: other kernels launched")
+        check(got == api.cfg.n_layers * 7 * r["passes"],
+              f"engine[{name}]: {got} launches of {mine} != 168 x "
+              f"{r['passes']} model passes")
+        check(all(r["launches"][k] > 0 for k in mine),
+              f"engine[{name}]: a kernel of the path never launched: "
+              f"{r['launches']}")
+        drafted = m["spec_draft_tokens"].value
+        check(m["spec_accepted"].value + m["spec_rolled_back"].value
+              == drafted, f"engine[{name}]: spec counters do not add up")
+        if spec is not None:
+            check(m["spec_rounds"].value > 0, f"engine[{name}]: no spec round")
+            if backend == "v3":
+                check(r["draft_launches"] == api.cfg.n_layers * 7 * ENGINE[
+                    "spec_len"] * m["spec_rounds"].value,
+                      f"engine[{name}]: draft passes launched "
+                      f"{r['draft_launches']} decode kernels")
+        if prefix:
+            check(m["prefix_hits"].value >= 1, f"engine[{name}]: no hit")
+        n_tok = sum(len(q.out_tokens) for q in reqs)
+        split = ", ".join(f"{k} {n} x {ms:.1f} ms"
+                          for k, (n, ms) in eng.step_ms().items())
+        ds, vs = m["spec_draft_s"], m["spec_verify_s"]
+        pf_ms = 1e3 * stats["prefill_s"] / max(stats["prefills"], 1)
+        print(f"engine[{name}]: {r['steps']} steps ({split}); prefills "
+              f"{stats['prefills']} x {pf_ms:.1f} ms; "
+              f"{r['passes']} model passes; {n_tok} tokens in "
+              f"{r['wall']:.2f} s = {n_tok / r['wall']:.2f} tokens/s | "
+              f"{card}", flush=True)
+        print(f"engine[{name}]: spec rounds {int(m['spec_rounds'].value)}, "
+              f"draft {1e3 * ds.sum / max(ds.count, 1):.1f} ms and verify "
+              f"{1e3 * vs.sum / max(vs.count, 1):.1f} ms per round, "
+              f"accepted {int(m['spec_accepted'].value)} of "
+              f"{int(drafted)} drafted "
+              f"({100 * m['spec_accepted'].value / max(drafted, 1):.1f}%), "
+              f"rolled back {int(m['spec_rolled_back'].value)}; prefix hits "
+              f"{int(m['prefix_hits'].value)}, misses "
+              f"{int(m['prefix_misses'].value)}, snapshots "
+              f"{int(m['prefix_snapshots'].value)}; draft-pass decode "
+              f"launches {r['draft_launches']}; launches {r['launches']}",
+              flush=True)
+        print(f"engine[{name}]: TTFT ms per request " + ", ".join(
+            f"{q.rid}:{1e3 * r['ttft'][q.rid]:.0f}" for q in reqs),
+              flush=True)
+    greedy = {name: [q.out_tokens for q in r["reqs"] if q.temperature == 0]
+              for name, r in runs.items()}
+    base = greedy["v3 spec+chunk+prefix"]
+    check(all(g == base for g in greedy.values()),
+          "engine: greedy tokens differ between spec on/off, prefix cache "
+          "on/off and v3/v2")
+    print("engine: greedy tokens identical across the four runs; "
+          "distinct tokens per request: " + ", ".join(
+              f"{q.rid}:{len(set(q.out_tokens))}"
+              for q in runs["v3 spec+chunk+prefix"]["reqs"]), flush=True)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    full_ms, draft_ms = draft_layer_ms(params, depth, flush)
+    del flush
+    print(f"engine: decode kernel per model layer at M = 8: full "
+          f"{full_ms:.4f} ms, draft (depth {depth}) {draft_ms:.4f} ms "
+          f"({draft_ms / full_ms:.3f}x) | {card}", flush=True)
+    print(f"engine: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return {"draft_depth": depth,
+            "draft_launches": runs["v3 spec+chunk+prefix"]["draft_launches"],
+            "draft_ms": draft_ms, "draft_full_ms": full_ms}
 
 
 def main() -> int:
@@ -683,7 +969,8 @@ def main() -> int:
     agg, tile_agg = kernel_phase(dev, flush)
     del flush                    # not part of the serving peak memory
     card_tests()
-    launches = serve_phase(dev, card)
+    launches, params = serve_phase(dev, card)
+    draft = engine_phase(dev, card, params)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
     rows = []
@@ -701,6 +988,8 @@ def main() -> int:
         at = {m: {k: a[k] for k in keys} for m, a in at.items()}
         row.update(at["512" if name == "sme_spmm_planes" else "8"])
         row["at_m"] = at
+        if name == "sme_spmm_planes_decode":
+            row.update(draft)
         rows.append(row)
     # times are per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls
     print(json.dumps({"kernels": rows}))

@@ -6,7 +6,9 @@ with ``sme_*`` / ``sme_v3_*`` leaves, and returns the port's params:
 the stacked ``blocks["slot0"]`` arrays split into one dict per layer,
 every leaf a torch tensor on ``device``.  Packed leaves are carried byte
 for byte (their padded plane-list length included), so both packages then
-compute the same function.
+compute the same function; a compiler's per-layer draft depth
+(``sme_draft_planes``, read under ``use_spec_depth("plan")``) comes across
+as each layer's scalar.
 """
 from __future__ import annotations
 

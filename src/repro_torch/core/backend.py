@@ -25,9 +25,16 @@ independent, so the results equal the reference's 128-row padding).
 input by ``sme_perm`` for reordered weights, and loops over stacked lead
 dims.  Operands are packed offline (``integrate.convert_params_to_sme``);
 a kernel backend asked to serve a param without them raises.
+
+``plane_depth`` (the self-speculative draft, DESIGN.md §11) resolves
+through :func:`resolve_spec_depth` (explicit argument > the
+:func:`use_spec_depth` context > ``None``).  Only v3 truncates: its draft
+runs the decode kernel on each tile group's top planes.  v1, v2 and
+``torch`` have no per-plane payload, so their draft is the exact product.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -38,7 +45,8 @@ from .minifloat import encode6, pack6
 from .sme import csc_tile_order
 
 __all__ = ["SMEBackend", "SpmmV2Backend", "get_backend", "resolve_backend",
-           "resolved_backends", "sme_apply", "AUTO_ORDER"]
+           "resolved_backends", "sme_apply", "AUTO_ORDER", "use_spec_depth",
+           "resolve_spec_depth"]
 
 _META = ("sme_nbits", "sme_squeezed", "sme_window")
 #: M tile of the prefill kernel's padding contract (the reference's bm)
@@ -68,8 +76,10 @@ class SMEBackend:
         return True
 
     def matmul2d(self, x2d: torch.Tensor, ops: Dict[str, torch.Tensor],
-                 param: dict) -> torch.Tensor:
-        """[M, K] @ packed -> [M, N] float32."""
+                 param: dict, plane_depth=None) -> torch.Tensor:
+        """[M, K] @ packed -> [M, N] float32.  ``plane_depth`` asks for
+        the truncated draft product; backends without per-plane payload
+        ignore it (their draft is exact)."""
         raise NotImplementedError(f"backend {self.name!r} has no operands")
 
     def key(self, op: str) -> str:
@@ -132,7 +142,7 @@ class SpmmV1Backend(SMEBackend):
     def pack_weight(self, smew, pad_to=None):
         return smew.pack_csc(pad_to=pad_to)
 
-    def matmul2d(self, x2d, ops, param):
+    def matmul2d(self, x2d, ops, param, plane_depth=None):
         from ..kernels.sme_spmm.sme_spmm import sme_spmm
         return _tile_csc_call(
             sme_spmm, x2d, [ops[o] for o in self.OPERANDS],
@@ -185,7 +195,7 @@ class SpmmV2Backend(SMEBackend):
         return {"packed": packed, "rowscale": rowscale, "rowid": rowid,
                 "nnz": nnz}
 
-    def matmul2d(self, x2d, ops, param):
+    def matmul2d(self, x2d, ops, param, plane_depth=None):
         from ..kernels.sme_spmm.sme_spmm6 import sme_spmm6
         # the kernel decodes with squeezed = 0
         return _tile_csc_call(
@@ -207,7 +217,8 @@ def _v3_call(x2d, ops, scale, qscale, *, n: int) -> torch.Tensor:
     return y[:m, :n] * scale * qscale
 
 
-def _v3_decode_impl(x2d, ops, scale, qscale, *, n: int) -> torch.Tensor:
+def _v3_decode_impl(x2d, ops, scale, qscale, *, n: int,
+                    plane_depth: Optional[int] = None) -> torch.Tensor:
     from ..kernels.sme_spmm.sme_spmm_planes_decode import \
         sme_spmm_planes_decode
     m, k = x2d.shape
@@ -221,7 +232,7 @@ def _v3_decode_impl(x2d, ops, scale, qscale, *, n: int) -> torch.Tensor:
     y = sme_spmm_planes_decode(xp, ops["planes"], ops["sign"],
                                ops["rowscale"], colscale.reshape(nt, bn),
                                ops["rowid"], ops["shift"], ops["last"],
-                               ops["nnz"])
+                               ops["nnz"], plane_depth=plane_depth)
     return y[:m, :n]
 
 
@@ -238,12 +249,18 @@ class SpmmV3Backend(SMEBackend):
     def pack_weight(self, smew, pad_to=None):
         return smew.pack_plane_csc(pad_to=pad_to)
 
-    def matmul2d(self, x2d, ops, param):
+    def matmul2d(self, x2d, ops, param, plane_depth=None):
         n = param["sme_scale"].shape[-1]
         scale = param["sme_scale"].reshape(1, -1).float()
         qscale = _qscale(param, x2d)
-        if _use_decode_kernel(x2d.shape[0], BM):
-            return _v3_decode_impl(x2d, ops, scale, qscale, n=n)
+        m = x2d.shape[0]
+        # truncation lives in the decode kernel's tile-group walk, so a
+        # draft takes it whenever the batch fits one M tile; past that the
+        # draft is the exact product (a correct draft, not a shortcut)
+        if _use_decode_kernel(m, BM) or (plane_depth is not None
+                                         and m <= BM):
+            return _v3_decode_impl(x2d, ops, scale, qscale, n=n,
+                                   plane_depth=plane_depth)
         return _v3_call(x2d, ops, scale, qscale, n=n)
 
 
@@ -296,13 +313,60 @@ def resolved_backends(params, name: Optional[str] = None) -> Tuple[str, ...]:
     return tuple(sorted(found))
 
 
+#: scoped draft plane-depth (use_spec_depth); None = full precision
+_spec_stack: list = [None]
+
+
+@contextlib.contextmanager
+def use_spec_depth(depth):
+    """Scoped draft plane-depth for every ``sme_apply`` underneath: the
+    draft pass runs its whole forward inside ``with use_spec_depth(...)``.
+    Takes an int (uniform depth), ``"plan"`` (each layer's
+    ``sme_draft_planes``, full precision where absent) or ``None`` (no-op,
+    so call sites thread an optional knob without branching)."""
+    if depth is None:
+        yield
+        return
+    _spec_stack.append(depth)
+    try:
+        yield
+    finally:
+        _spec_stack.pop()
+
+
+def resolve_spec_depth(param: Optional[dict] = None, plane_depth=None):
+    """Draft plane-depth of one dispatch: explicit argument >
+    :func:`use_spec_depth` context > ``None`` (full precision).  ``"plan"``
+    reads the param's ``sme_draft_planes`` (absent or not positive: full
+    precision); any other string raises.  Returns ``None``, an int, or a
+    stacked integer array (one depth per lead index)."""
+    depth = plane_depth if plane_depth is not None else _spec_stack[-1]
+    if depth is None:
+        return None
+    if isinstance(depth, str):
+        if depth != "plan":
+            raise ValueError(f"plane_depth must be an int, 'plan', or None; "
+                             f"got {depth!r}")
+        if param is None or "sme_draft_planes" not in param:
+            return None
+        depth = param["sme_draft_planes"]
+    arr = np.asarray(depth.cpu() if torch.is_tensor(depth) else depth)
+    if arr.size == 0 or int(arr.max()) <= 0:
+        return None
+    return int(arr) if arr.ndim == 0 else arr
+
+
 def sme_apply(x: torch.Tensor, param: dict, backend: Optional[str] = None,
-              *, out_dtype=None) -> torch.Tensor:
+              *, out_dtype=None, plane_depth=None) -> torch.Tensor:
     """y = x @ W_eff for an SME-packed param dict; x: [..., K] -> [..., N].
 
     A param with lead dims ``E`` (stacked weights) takes x [*E, ..., K] and
-    runs one kernel call per slice."""
+    runs one kernel call per slice.  ``plane_depth`` (default through
+    :func:`resolve_spec_depth`) asks for the truncated top-planes draft
+    product; it is resolved for v3 only, and a stacked depth is sliced per
+    lead index."""
     be = resolve_backend(param, backend)
+    pd = resolve_spec_depth(param, plane_depth) if be.name == "v3" else None
     out_dtype = out_dtype or x.dtype
     lead = tuple(param["sme_codes"].shape[:-4])
     k, n = param["sme_sign"].shape[-2], param["sme_scale"].shape[-1]
@@ -318,7 +382,7 @@ def sme_apply(x: torch.Tensor, param: dict, backend: Optional[str] = None,
         # to match (x[..., p] @ W[p, :] == x @ W)
         x = x[..., param["sme_perm"].long()]
     if not lead:
-        y = be.matmul2d(x.reshape(-1, k), ops, param)
+        y = be.matmul2d(x.reshape(-1, k), ops, param, plane_depth=pd)
         return y.reshape(*x.shape[:-1], n).to(out_dtype)
     nl = len(lead)
     if tuple(x.shape[:nl]) != lead:
@@ -331,6 +395,9 @@ def sme_apply(x: torch.Tensor, param: dict, backend: Optional[str] = None,
                   for mk in _META if mk in param}
         param_i = {"sme_scale": param["sme_scale"][idx],
                    "sme_sign": param["sme_sign"][idx], **meta_i}
-        ys.append(be.matmul2d(x[idx].reshape(-1, k), ops_i, param_i))
+        pd_i = pd[idx] if getattr(pd, "ndim", 0) == nl else pd
+        pd_i = None if pd_i is None or int(pd_i) <= 0 else int(pd_i)
+        ys.append(be.matmul2d(x[idx].reshape(-1, k), ops_i, param_i,
+                              plane_depth=pd_i))
     return torch.stack(ys).reshape(lead + tuple(x.shape[nl:-1]) + (n,)
                                    ).to(out_dtype)

@@ -1,6 +1,7 @@
 """Serving driver of the port: random-weight requests through ServeEngine.
 
-Checked against ``repro/launch/serve.py`` (a subset of its flags).  Weights
+Checked against ``repro/launch/serve.py`` (its flags but ``--mesh``,
+``--bm``, ``--artifact``, ``--host-devices`` and ``--metrics-port``).  Weights
 come from a numpy generator seeded by ``--seed`` (the reference init's
 distributions); ``--sme`` packs every eligible weight at ``--squeeze`` and
 emits the kernel operands ``--backend`` serves from: ``v1``/``v2``/``v3``
@@ -11,13 +12,25 @@ chip; ``torch`` none.  Runs on the card unless ``--device cpu``.  Full
 width by default; ``--small`` is the 2-layer, 128-wide config the CPU
 tests use.
 
+The engine is the continuous scheduler: ``--chunk-len`` prompt tokens per
+step per prefilling row, ``--prefix-cache`` (pages of ``--page-tokens``),
+``--spec-depth K|auto`` self-speculative decode with ``--spec-len`` draft
+tokens per round (v3 drafts through the decode kernel's ``plane_depth``),
+``--stream`` drives ``submit``/``pump``/``step``/``poll`` instead of
+``run()``.  ``--metrics-out`` writes the metrics snapshot, ``--trace-out``
+the request trace (``*.json``: Chrome/Perfetto; else JSONL).
+
     PYTHONPATH=src python -m repro_torch.launch.serve --sme
     PYTHONPATH=src python -m repro_torch.launch.serve --small --device cpu \\
         --sme --backend v2 --requests 3 --max-new 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --small --device cpu \\
+        --sme --backend v3 --spec-depth 2 --chunk-len 8 --page-tokens 8 \\
+        --prefix-cache
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -51,7 +64,44 @@ def main(argv=None):
                     help="bits squeezed out of every SME codeword")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spec-depth",
+                    default=os.environ.get("SME_SPEC_DEPTH") or None,
+                    metavar="K|auto",
+                    help="self-speculative decode: draft greedy tokens over "
+                         "the K most significant planes per tile group "
+                         "(auto: each layer's sme_draft_planes), verify at "
+                         "full precision; default SME_SPEC_DEPTH, unset = "
+                         "off")
+    ap.add_argument("--spec-len", type=int,
+                    default=int(os.environ.get("SME_SPEC_LEN") or 0),
+                    help="tokens drafted per round (4 when --spec-depth is "
+                         "set; SME_SPEC_LEN)")
+    ap.add_argument("--chunk-len", type=int, default=None,
+                    help="prompt tokens a prefilling row scores per engine "
+                         "step (default SME_CHUNK_LEN or 32)")
+    ap.add_argument("--page-tokens", type=int, default=None,
+                    help="prefix-cache page size in tokens (default "
+                         "SME_PAGE_TOKENS or 16)")
+    ap.add_argument("--prefix-cache", action="store_true", default=None,
+                    help="snapshot chunk-aligned prompt prefixes and reuse "
+                         "them for token-id-exact matches (default "
+                         "SME_PREFIX_CACHE)")
+    ap.add_argument("--stream", action="store_true",
+                    help="drive submit/pump/step/poll instead of run()")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics snapshot (JSON) here on exit")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the request trace here on exit: *.json = "
+                         "Chrome/Perfetto trace_event, else JSONL")
+    ap.add_argument("--trace-capacity", type=int, default=4096,
+                    help="trace ring capacity (oldest spans evict)")
     args = ap.parse_args(argv)
+    spec_depth = args.spec_depth
+    if spec_depth is not None and spec_depth != "auto":
+        if not str(spec_depth).isdigit() or int(spec_depth) < 1:
+            ap.error(f"--spec-depth must be a positive int or 'auto', got "
+                     f"{spec_depth!r}")
+        spec_depth = int(spec_depth)
 
     cfg = ARCHS[args.arch]
     if args.small:
@@ -76,17 +126,55 @@ def main(argv=None):
           + (f", SME backend {args.backend}" if args.sme else ", dense"))
     eng = ServeEngine(api, params, slots=args.slots, s_max=args.s_max,
                       backend=args.backend if args.sme else None,
-                      device=args.device)
+                      device=args.device, seed=args.seed,
+                      trace_capacity=args.trace_capacity,
+                      spec_depth=spec_depth, spec_len=args.spec_len,
+                      chunk_len=args.chunk_len, page_tokens=args.page_tokens,
+                      prefix_cache=args.prefix_cache)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=5 + i % 4),
                     max_new_tokens=args.max_new)
             for i in range(args.requests)]
-    stats = eng.run(reqs, max_steps=500)
+    t0 = time.perf_counter()
+    if args.stream:
+        # requests arrive two at a time between engine steps; poll()
+        # drains token/finish/reject events as they happen
+        pending, n_events = list(reqs), 0
+        for steps in range(500):
+            for r in pending[:2]:
+                eng.submit(r)
+            pending = pending[2:]
+            eng.pump()
+            eng.step()
+            for ev in eng.poll():
+                n_events += 1
+                if ev["kind"] != "token":
+                    print(f"  [{steps:3d}] req {ev['rid']}: {ev['kind']}")
+            if not pending and all(r.done or r.outcome for r in reqs):
+                break
+        done = sum(r.outcome == "completed" for r in reqs)
+        stats = {**eng.stats, "completed": done,
+                 "wall_s": time.perf_counter() - t0}
+        print(f"stream: {done}/{len(reqs)} completed, {stats['tokens']} "
+              f"tokens, {n_events} events in {steps + 1} steps")
+    else:
+        stats = eng.run(reqs, max_steps=500)
     print(f"stats: {stats}")
     for r in reqs[:4]:
         print(f"req {r.rid}: prompt={list(map(int, r.prompt))} -> "
               f"{r.out_tokens}")
     print(f"throughput: {stats['tokens'] / stats['wall_s']:.1f} tok/s on "
           f"{api.device}")
+    if args.metrics_out:
+        from repro_torch.obs import write_snapshot
+        write_snapshot(args.metrics_out)
+        print(f"metrics snapshot: {args.metrics_out}")
+    if args.trace_out:
+        from repro_torch.obs import export_jsonl, export_trace_event
+        export = export_trace_event if args.trace_out.endswith(".json") \
+            else export_jsonl
+        export(eng.tracer.buffer, args.trace_out)
+        print(f"trace ({len(eng.tracer.buffer)} spans, "
+              f"{eng.tracer.buffer.dropped} dropped): {args.trace_out}")
     return stats
 
 

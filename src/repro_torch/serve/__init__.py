@@ -1,4 +1,4 @@
-"""Batched greedy serving of the port."""
-from .engine import Request, ServeEngine
+"""Continuous batching serving of the port."""
+from .engine import PromptTooLong, Request, ServeEngine
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = ["PromptTooLong", "Request", "ServeEngine"]

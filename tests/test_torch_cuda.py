@@ -421,3 +421,85 @@ def test_malformed_lists_raise_not_drop_slots(cuda, case):
     assert "launched" in proc.stdout, proc.stderr[-2000:]
     assert "no error" not in proc.stdout
     assert proc.returncode != 0
+
+
+def _small_model(dev, backend="v3"):
+    """The launcher's --small config in f32, random weights from a numpy
+    seed (embedding scaled to 0.05), every linear packed for ``backend``."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, scale_down
+    from repro_torch.core.integrate import convert_params_to_sme
+    from repro_torch.launch.serve import SMALL
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import lm_init
+    cfg = dataclasses.replace(scale_down(ARCHS["qwen1.5-0.5b"], **SMALL),
+                              dtype="float32")
+    params = lm_init(cfg, np.random.default_rng(0))
+    params["embed"]["w"] = params["embed"]["w"] * np.float32(0.05)
+    return build_model(cfg, device=dev), convert_params_to_sme(
+        params, squeeze=1, backend=backend, device=dev)
+
+
+def test_decode_chunk_equals_sequential_steps_on_the_card(cuda):
+    """decode_chunk over v3 operands (the decode kernel at M = 3) is the
+    sequential loop of decode steps, bitwise: logits, liveness, caches."""
+    import copy
+    api, params = _small_model(cuda)
+    rng = np.random.default_rng(1)
+    plen = np.array([9, 5, 12])
+    logits, caches = api.prefill(params, rng.integers(0, 256, (3, 16)),
+                                 s_max=32, plen=plen, backend="v3")
+    toks = rng.integers(0, 256, (3, 4))
+    toks[:, 0] = logits.argmax(-1).cpu().numpy()
+    nvalid, gated = np.array([4, 2, 4]), np.array([True, False, False])
+    clog, clive, cc = api.decode_chunk(params, toks, copy.deepcopy(caches),
+                                       plen, nvalid, None, gated,
+                                       backend="v3")
+    sc, live, pos = copy.deepcopy(caches), nvalid > 0, plen.copy()
+    for s in range(4):
+        lg, sc = api.decode_step(params, toks[:, s:s + 1], sc,
+                                 np.where(live, pos, 0), live, backend="v3")
+        assert clive[s].cpu().tolist() == live.tolist()
+        mask = torch.as_tensor(live, device=cuda)
+        assert torch.equal(clog[s][mask], lg[mask])
+        greedy = lg.argmax(-1).cpu().numpy()
+        pos = np.where(live, pos + 1, pos)
+        live = live & (s + 1 < nvalid) & (~gated | (greedy == toks[:, (s + 1)
+                                                                   % 4]))
+    for a, b in zip(cc, sc):
+        for name in a:
+            assert torch.equal(a[name], b[name])
+
+
+def test_spec_round_drafts_through_the_decode_kernel(cuda, monkeypatch):
+    """With spec on, the engine's draft steps launch the v3 decode kernel
+    with ``plane_depth`` set, and the tokens equal those without spec."""
+    from repro_torch.kernels.sme_spmm import sme_spmm_planes_decode as mod
+    from repro_torch.serve import Request, ServeEngine
+    api, params = _small_model(cuda)
+
+    def served(**kw):
+        rng = np.random.default_rng(2)
+        reqs = [Request(rid=i, prompt=rng.integers(0, 256, n),
+                        max_new_tokens=6) for i, n in enumerate((5, 19, 7))]
+        eng = ServeEngine(api, params, slots=3, s_max=48, backend="v3",
+                          device=cuda, chunk_len=8, **kw)
+        eng.run(reqs, max_steps=100)
+        assert all(r.done for r in reqs)
+        return [r.out_tokens for r in reqs], eng
+    base, _ = served()
+    depths, real = [], mod.sme_spmm_planes_decode
+
+    def spy(*a, plane_depth=None):
+        depths.append(plane_depth)
+        return real(*a, plane_depth=plane_depth)
+    spy.launches = 0
+    monkeypatch.setattr(mod, "sme_spmm_planes_decode", spy)
+    spec, eng = served(spec_depth=2, spec_len=3)
+    assert spec == base
+    rounds = int(eng._m["spec_rounds"].value)
+    assert rounds > 0 and eng._m["spec_rolled_back"].value > 0
+    # every linear of every draft step: 7 per layer, 3 steps per round
+    assert depths.count(2) == rounds * 3 * 7 * api.cfg.n_layers
+    # the wrapper counts its launches on the module's name: the spy here
+    assert spy.launches == len(depths)

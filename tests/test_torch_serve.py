@@ -70,8 +70,11 @@ def setup():
 
 
 def _serve(setup, prompts, slots, backend="v3"):
+    # chunk_len >= every prompt: the one-shot prefill the reference loop
+    # runs (the engine's default, 32, would chunk the 33-token prompt)
     eng = ServeEngine(setup["api"], setup["params"], slots=slots,
-                      s_max=S_MAX, backend=backend, device="cpu")
+                      s_max=S_MAX, backend=backend, device="cpu",
+                      chunk_len=S_MAX)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW)
             for i, p in enumerate(prompts)]
     stats = eng.run(reqs, max_steps=50)
