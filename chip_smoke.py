@@ -58,13 +58,32 @@
    engine step by kind (chunked, spec, decode), draft and verify ms per
    round, acceptance, tokens/s, TTFT per request, prefix hits and
    snapshots, and the decode kernel's ms per layer at the draft depth.
-5. Prints the kernels JSON line (times per model layer: 4 q/k/v/o + 2
-   wi/wg + 1 wo calls; decode M = 8 in the top-level keys, every M a
-   kernel ran at under ``at_m``; v3-decode adds ``draft_depth``, the
-   draft passes' ``draft_launches`` and ``draft_ms`` / ``draft_full_ms``
-   per layer on the model's own operands; every number measured in this
-   run but ``bound_ms``), the card line and, last, ``{"ok": true,
-   "device": {...}}``.  Any failed check raises first.
+5. Compile: the offline compiler on the same full-width weights, dense,
+   in the reference's layout (24 layers stacked per leaf): ``plan_model``
+   at budget 0.06 and ``compile_model`` into a ``.smez`` in a temporary
+   directory under ``auto`` (the plan's per-leaf settings, backends,
+   crossbar reduction, seconds and megabytes are printed), booted by
+   ``ServeEngine.from_artifact`` (its seconds beside the serving phase's
+   inline packing) and serving the serving phase's 8 requests: only the
+   plan's kernels, 168 launches per pass; one prefill window's logits
+   within tolerance of the ``torch`` backend (f32) and of the plain
+   versions (bf16); where every leaf is planned (8, 3, 1) the tokens must
+   equal the serving phase's auto run bitwise.  Then the same under
+   ``v3`` and the engine workload twice, with ``spec_depth="auto"`` and
+   without: every draft pass launches the decode kernel 168 times, every
+   draft dispatch resolves its layer's plan depth (never full
+   precision), and the greedy tokens of the two runs are identical.
+   Last, malformed operand lists (``rowid`` past the row tiles, ``nnz``
+   past the list) must raise ``ValueError`` on the host, and a launch on
+   good operands must still succeed.
+6. Prints the compile readings as JSON, the kernels JSON line (times per
+   model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode M = 8 in the
+   top-level keys, every M a kernel ran at under ``at_m``; v3-decode adds
+   ``draft_depth``, the draft passes' ``draft_launches`` and ``draft_ms``
+   / ``draft_full_ms`` per layer on the model's own operands;
+   ``artifact_launches`` counts the compile phase's runs; every number
+   measured in this run but ``bound_ms``), the card line and, last,
+   ``{"ok": true, "device": {...}}``.  Any failed check raises first.
 """
 from __future__ import annotations
 
@@ -539,11 +558,15 @@ RUNS = {"auto": ("v2", ("sme_spmm6",)), "v1": ("v1", ("sme_spmm",)),
         "v3": ("v3", ("sme_spmm_planes", "sme_spmm_planes_decode"))}
 
 
-def serve_run(api, params, prompts, backend, card):
+def serve_run(api, params, prompts, backend, card, route=None, label=None):
     """Serve the 8 requests once under ``backend``; returns (tokens,
-    launches per kernel, stats).  Counts are set to 0 just before."""
+    launches per kernel).  Counts are set to 0 just before.  ``route``:
+    (what the weights must resolve to, the kernels they launch), by
+    default :data:`RUNS`' entry for ``backend``."""
     from repro_torch.serve import Request, ServeEngine
     cfg = api.cfg
+    want, mine = route or RUNS[backend]
+    label = label or backend
     reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
             for i, p in enumerate(prompts)]
     eng = ServeEngine(api, params, backend=backend, device=api.device,
@@ -555,26 +578,29 @@ def serve_run(api, params, prompts, backend, card):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    want, mine = RUNS[backend]
     per_pass = cfg.n_layers * 7
     passes = stats["prefills"] + stats["decode_steps"]
-    print(f"serve[{backend}]: {stats}", flush=True)
-    print(f"serve[{backend}]: launches {launches}, per model pass {per_pass}")
+    print(f"serve[{label}]: {stats}", flush=True)
+    print(f"serve[{label}]: launches {launches}, per model pass {per_pass}")
     check(stats["backend"] == want,
-          f"backend {backend!r} resolved to {stats['backend']}, not {want}")
+          f"{label}: backend {backend!r} resolved to {stats['backend']}, "
+          f"not {want}")
     check(stats["completed"] == 8, f"completed {stats['completed']} of 8")
     check(all(len(r.out_tokens) == 16 for r in reqs), "short outputs")
     check(all(launches[k] == 0 for k in launches if k not in mine),
-          f"{backend}: kernels of another backend launched: {launches}")
+          f"{label}: kernels of another backend launched: {launches}")
     check(sum(launches[k] for k in mine) == per_pass * passes,
-          f"{backend}: {sum(launches[k] for k in mine)} launches of "
+          f"{label}: {sum(launches[k] for k in mine)} launches of "
           f"{mine} != {per_pass} x {passes} model passes")
-    if backend == "v3":
+    check(all(launches[k] > 0 for k in mine),
+          f"{label}: a kernel of the path never launched: {launches}")
+    if "sme_spmm_planes_decode" in mine:
+        n3 = len(_v3_params(params["blocks"]))     # v3 linears per pass
         check(launches["sme_spmm_planes_decode"]
-              >= per_pass * stats["decode_steps"],
+              >= n3 * stats["decode_steps"],
               "v3 decode kernel does not cover every decode step")
     n_tok = sum(len(r.out_tokens) for r in reqs)
-    print(f"serve[{backend}]: {n_tok / stats['wall_s']:.1f} tokens/s end to "
+    print(f"serve[{label}]: {n_tok / stats['wall_s']:.1f} tokens/s end to "
           f"end, {stats['decode_s'] / stats['decode_steps'] * 1e3:.2f} ms per "
           f"decode step (4 slots), "
           f"{stats['prefill_s'] / stats['prefills'] * 1e3:.1f} ms per "
@@ -614,11 +640,7 @@ def serve_phase(dev, card):
     # one prefill window (the engine's first: 4 rows, bucket 128): v1, v2
     # and v3 bitwise equal, and each within tolerance of the plain
     # versions, in f32 (the algorithm) and bf16 (as served)
-    window = prompts[:4]
-    toks = np.zeros((4, 128), np.int64)
-    for i, p in enumerate(window):
-        toks[i, :len(p)] = p
-    plen = [len(p) for p in window]
+    toks, plen = prefill_window(prompts)
     for dtype in ("float32", "bfloat16"):
         api_d = build_model(dataclasses.replace(cfg, dtype=dtype), device=dev)
         lk = {be: api_d.prefill(params, toks, s_max=256, plen=plen,
@@ -644,7 +666,17 @@ def serve_phase(dev, card):
               flush=True)
     for backend in RUNS:
         profile_window(api, params, prompts[4:], card, backend)
-    return launches, params
+    return launches, params, dict(pack_s=pack_s, prompts=prompts,
+                                  auto_tokens=tokens["auto"])
+
+
+def prefill_window(prompts):
+    """The engine's first prefill window of ``prompts``: 4 rows right-padded
+    to the bucket of 128, and their lengths."""
+    toks = np.zeros((4, 128), np.int64)
+    for i, p in enumerate(prompts[:4]):
+        toks[i, :len(p)] = p
+    return toks, [len(p) for p in prompts[:4]]
 
 
 def profile_window(api, params, prompts, card, backend):
@@ -823,8 +855,9 @@ def engine_run(api, params, backend, spec_depth, prefix_cache):
 
 def draft_layer_ms(params, depth, flush):
     """Device ms of one model layer's 7 decode-kernel launches at M = 8
-    (the engine's 4 slots, padded), full precision and at ``depth``, on
-    layer 0's packed operands."""
+    (the engine's 4 slots, padded), full precision and at ``depth`` (an
+    int, or ``"plan"``: each linear's ``sme_draft_planes``), on layer 0's
+    packed operands."""
     from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import \
         sme_spmm_planes_decode as dec
     ops = ("planes", "sign", "rowscale", "rowid", "shift", "last", "nnz")
@@ -835,14 +868,15 @@ def draft_layer_ms(params, depth, flush):
         nr = -(-p["sme_sign"].shape[-2] // (bk8 * 8))
         x = torch.randn((8, nr * bk8 * 8), device=a["planes"].device)
         cs = torch.full((nt, bn), 1e-3, device=x.device)
+        d = int(p["sme_draft_planes"]) if depth == "plan" else depth
         calls.append((x, [a["planes"], a["sign"], a["rowscale"], cs,
-                          a["rowid"], a["shift"], a["last"], a["nnz"]]))
+                          a["rowid"], a["shift"], a["last"], a["nnz"]], d))
 
-    def layer(d):
-        for x, args in calls:
-            dec(x, *args, plane_depth=d)
-    return time_ms(lambda: layer(None), flush), \
-        time_ms(lambda: layer(depth), flush)
+    def layer(truncate):
+        for x, args, d in calls:
+            dec(x, *args, plane_depth=d if truncate else None)
+    return time_ms(lambda: layer(False), flush), \
+        time_ms(lambda: layer(True), flush)
 
 
 def engine_phase(dev, card, params):
@@ -943,6 +977,320 @@ def engine_phase(dev, card, params):
             "draft_ms": draft_ms, "draft_full_ms": full_ms}
 
 
+#: the compile phase: the reference compiler CLI's default error budget
+BUDGET = 0.06
+#: plan backend -> the kernels its weights launch
+KERNELS_OF = {"v1": ("sme_spmm",), "v2": ("sme_spmm6",),
+              "v3": ("sme_spmm_planes", "sme_spmm_planes_decode")}
+
+
+def dense_reference_tree(cfg):
+    """``build_model_params``' weights before packing (the same numpy seed
+    and draws), in the reference's layout: every layer's leaf stacked."""
+    from repro_torch.convert import to_reference
+    from repro_torch.models.transformer import init_layer
+    rng = np.random.default_rng(SEED)
+    embed = rng.standard_normal((cfg.vocab, cfg.d_model), dtype=np.float32)
+    return to_reference({
+        "embed": {"w": embed * np.float32(EMBED_STD)},
+        "final_norm": {"w": np.ones(cfg.d_model, np.float32)},
+        "blocks": [init_layer(cfg, rng) for _ in range(cfg.n_layers)]})
+
+
+def compile_artifact(tree, backend, out, cfg, card):
+    """Plan and pack ``tree`` under ``backend`` into ``out``; print the
+    per-leaf plan, its summary and the seconds and megabytes.  Returns
+    the plan and the readings."""
+    from repro_torch.compiler import compile_model, plan_model
+    t0 = time.perf_counter()
+    plan = plan_model(tree, error_budget=BUDGET, backend=backend)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compile_model(tree, plan=plan, out=out, extra={
+        "arch": "qwen1.5-0.5b", "config": cfg.name,
+        "dims": {"d_model": cfg.d_model, "d_ff": cfg.d_ff,
+                 "vocab": cfg.vocab, "n_layers": cfg.n_layers,
+                 "head_dim": cfg.hd}, "serve_backend": "auto"})
+    pack_s = time.perf_counter() - t0
+    files = [f for f in out.rglob("*") if f.is_file()]
+    mb = sum(f.stat().st_size for f in files) / 1e6
+    for key, lp in sorted(plan.layers.items()):
+        print(f"compile[{backend}]: {key} {lp.shape} x {lp.n_slices}: "
+              f"(n_bits, window, squeeze, squeeze_max) = ({lp.n_bits}, "
+              f"{lp.window}, {lp.squeeze}, {lp.squeeze_max}) -> {lp.backend}, "
+              f"{lp.bytes_per_weight:.4f} B/weight, rel err "
+              f"{lp.error_bound:.4f}, crossbars {lp.crossbars} of "
+              f"{lp.crossbars_dense} ({lp.crossbar_reduction:.2f}x), draft "
+              f"depth {lp.draft_planes}", flush=True)
+    print(f"compile[{backend}]: summary {plan.summary()}", flush=True)
+    print(f"compile[{backend}]: plan {plan_s:.1f}s, pack and save "
+          f"{pack_s:.1f}s, {mb:.1f} MB on disk in {len(files)} files "
+          f"(budget {BUDGET}) | {card}", flush=True)
+    return plan, dict(plan_s=plan_s, pack_s=pack_s, mb=mb)
+
+
+@contextlib.contextmanager
+def spec_depth_spy():
+    """Record ``(id(param), resolved depth)`` of every v3 dispatch made
+    under a draft's ``use_spec_depth`` (sme_apply resolves through the
+    module's name)."""
+    import repro_torch.core.backend as B
+    real, seen = B.resolve_spec_depth, []
+
+    def spy(param=None, plane_depth=None):
+        got = real(param, plane_depth)
+        if B._spec_stack[-1] is not None:
+            seen.append((id(param), got))
+        return got
+    B.resolve_spec_depth = spy
+    try:
+        yield seen
+    finally:
+        B.resolve_spec_depth = real
+
+
+def boot(api, path, card, inline_s):
+    """``ServeEngine.from_artifact`` onto the card, timed to the last leaf
+    on the device."""
+    from repro_torch.serve import ServeEngine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServeEngine.from_artifact(api, path, **ONE_SHOT)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    print(f"compile: booted {path.name} in {boot_s:.2f}s (from_artifact: "
+          f"map, check every operand list, copy to the card), against "
+          f"{inline_s:.1f}s for the inline convert_params_to_sme of the "
+          f"serving phase | {card}", flush=True)
+    return eng, boot_s
+
+
+def measured_replan(dev, tree, plan_bytes, tmp, card):
+    """The planner on the card's own times: each backend's decode kernel
+    at M = 1 (padded to the kernels' 8 rows; the launch alone, L2
+    flushed, as in the kernel phase) at the three linear shapes, recorded
+    in an autotune cache, then ``plan_model`` under ``auto`` once more
+    with it.  Prints each leaf's choice by bytes against its choice by
+    measured time."""
+    from repro_torch.compiler import plan_model
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.sme import sme_compress
+    from repro_torch.hardware.autotune import (AutotuneCache, TuneKey,
+                                               device_kind)
+    kernels = wrappers()
+    cache = AutotuneCache(str(tmp / "autotune.json"))
+    rng = np.random.default_rng(SEED + 3)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def on(d, keys):
+        return [torch.as_tensor(d[k], device=dev) for k in keys]
+    for _, K, N, _ in SHAPES:
+        smew = sme_compress(rng.standard_normal((K, N)) / np.sqrt(K))
+        v3 = on(smew.pack_plane_csc(), ("planes", "sign", "rowscale",
+                                        "rowid", "shift", "last", "nnz"))
+        cs = torch.ones((v3[0].shape[0], 128), device=dev)
+        calls = {
+            "v1": (kernels["sme_spmm"], on(smew.pack_csc(), (
+                "codes", "sign", "rowscale", "rowid", "nnz"))),
+            "v2": (kernels["sme_spmm6"], on(get_backend("v2").pack_weight(
+                smew), ("packed", "rowscale", "rowid", "nnz"))),
+            "v3": (kernels["sme_spmm_planes_decode"], v3[:3] + [cs] + v3[3:])}
+        x = torch.zeros((8, K), device=dev)
+        x[0] = torch.randn(K, device=dev)
+        us = {}
+        for be, (fn, args) in calls.items():
+            us[be] = 1e3 * time_ms(lambda: fn(x, *args), flush)
+            cache.record(TuneKey(be, 1, K, N, 128, device_kind()), us[be])
+        print(f"compile: M = 1 decode kernels at {K}x{N} ({device_kind()}): "
+              + ", ".join(f"{be} {t:.1f} us" for be, t in us.items())
+              + f" | {card}", flush=True)
+    del flush
+    cache.save()
+    t0 = time.perf_counter()
+    measured = plan_model(tree, error_budget=BUDGET, backend="auto",
+                          autotune=cache)
+    plan_s = time.perf_counter() - t0
+    moved = 0
+    for key, lp in sorted(plan_bytes.layers.items()):
+        mp = measured.layers[key]
+        moved += lp.backend != mp.backend
+        print(f"compile: {key}: by bytes ({lp.n_bits}, {lp.window}, "
+              f"{lp.squeeze}) {lp.backend}, by measured time ({mp.n_bits}, "
+              f"{mp.window}, {mp.squeeze}) {mp.backend}", flush=True)
+    print(f"compile: the measured plan ({plan_s:.1f}s) moved {moved} of "
+          f"{len(plan_bytes.layers)} leaves to another backend; summary "
+          f"{measured.summary()}", flush=True)
+    return {key: lp.backend for key, lp in sorted(measured.layers.items())}
+
+
+def compile_phase(dev, card, served):
+    """The offline compiler on full-width qwen1.5-0.5b (the serving phase's
+    weights, dense): plan, pack and persist a ``.smez`` under ``auto``,
+    boot it with ``from_artifact`` and serve the serving phase's 8
+    requests through the plan's kernels; then the same under ``v3`` and
+    the engine workload with ``spec_depth="auto"`` (each layer's plan
+    depth) and without; then malformed operand lists refused on the host
+    with the context left usable.  Returns the readings and the launches
+    per kernel of the artifact runs."""
+    import shutil
+    import tempfile
+    import repro_torch.core.backend as B
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    cfg = ARCHS["qwen1.5-0.5b"]
+    api = build_model(cfg, device=dev)
+    tree = dense_reference_tree(cfg)
+    out, launches = {}, {name: 0 for name in KERNELS}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="smez-"))
+    try:
+        # -- auto: the plan's backends, one-shot serving
+        path = tmp / "auto.smez"
+        plan, out["auto"] = compile_artifact(tree, "auto", path, cfg, card)
+        eng, out["auto"]["boot_s"] = boot(api, path, card, served["pack_s"])
+        params = eng.params
+        del eng
+        bes = sorted({lp.backend for lp in plan.layers.values()})
+        mine = tuple(k for be in bes for k in KERNELS_OF[be])
+        tokens, counts = serve_run(api, params, served["prompts"], "auto",
+                                   card, route=("+".join(bes), mine),
+                                   label="artifact auto")
+        for k in launches:
+            launches[k] += counts[k]
+        toks, plen = prefill_window(served["prompts"])
+        for dtype, plain in (("float32", "torch"), ("bfloat16", "plain")):
+            api_d = build_model(dataclasses.replace(cfg, dtype=dtype),
+                                device=dev)
+            lk = api_d.prefill(params, toks, s_max=256, plen=plen)[0]
+            if plain == "torch":
+                lp = api_d.prefill(params, toks, s_max=256, plen=plen,
+                                   backend="torch")[0]
+            else:
+                with plain_kernels():
+                    lp = api_d.prefill(params, toks, s_max=256, plen=plen)[0]
+            check(bool(torch.isfinite(lk).all())
+                  and lk.shape == (4, cfg.vocab), f"{dtype} logits")
+            diff = float((lk - lp).abs().max() / lp.abs().max())
+            print(f"compile: {dtype} prefill logits of the auto artifact, "
+                  f"kernels vs {plain}: max rel diff {diff:.2e} (tolerance "
+                  f"{TOL_LOGITS[dtype]:.0e})", flush=True)
+            check(diff <= TOL_LOGITS[dtype], f"{dtype} artifact logits {diff}")
+        uniform = all((lp.n_bits, lp.window, lp.squeeze, lp.squeeze_max,
+                       lp.reorder) == (8, 3, 1, 0, False)
+                      for lp in plan.layers.values())
+        same = tokens == served["auto_tokens"]
+        print(f"compile: every leaf planned (8, 3, 1): {uniform}; tokens "
+              f"equal the serving phase's auto run bitwise: {same}",
+              flush=True)
+        if uniform:
+            check(same, "a (8, 3, 1) plan served other tokens than the "
+                        "inline (8, 3, 1) weights")
+        del params
+        shutil.rmtree(path)
+        torch.cuda.empty_cache()
+
+        plan_auto = plan
+
+        # -- v3: the engine with spec at each layer's plan depth, and without
+        path = tmp / "v3.smez"
+        plan, out["v3"] = compile_artifact(tree, "v3", path, cfg, card)
+        eng, out["v3"]["boot_s"] = boot(api, path, card, served["pack_s"])
+        params = eng.params
+        del eng
+        layers = [p for blk in params["blocks"] for p in _v3_params(blk)]
+        check(len(layers) == 7 * cfg.n_layers, "v3 artifact: packed linears")
+        expect = {id(p): int(p["sme_draft_planes"]) for p in layers}
+        depths = {k: lp.draft_planes for k, lp in sorted(plan.layers.items())}
+        print(f"compile: v3 draft depths per leaf {depths}", flush=True)
+        runs = {}
+        for name, spec in (("spec auto", "auto"), ("spec off", None)):
+            with spec_depth_spy() as seen:
+                r = runs[name] = engine_run(api, params, "v3", spec, True)
+            m = r["eng"]._m
+            per_pass = 7 * cfg.n_layers
+            check(all(q.outcome == "completed" for q in r["reqs"]),
+                  f"artifact v3 {name}: incomplete requests")
+            check(sum(r["launches"][k] for k in KERNELS_OF["v3"])
+                  == per_pass * r["passes"]
+                  and all(r["launches"][k] == 0 for k in r["launches"]
+                          if k not in KERNELS_OF["v3"]),
+                  f"artifact v3 {name}: launches {r['launches']} for "
+                  f"{r['passes']} passes")
+            for k in launches:
+                launches[k] += r["launches"][k]
+            rounds = int(m["spec_rounds"].value)
+            drafted = m["spec_draft_tokens"].value
+            if spec is not None:
+                check(rounds > 0, "artifact v3: no spec round")
+                check(r["draft_launches"]
+                      == per_pass * ENGINE["spec_len"] * rounds,
+                      f"artifact v3: draft passes launched "
+                      f"{r['draft_launches']} decode kernels over {rounds} "
+                      f"rounds")
+                check(len(seen) == r["draft_launches"]
+                      and all(d is not None and d == expect[i]
+                              for i, d in seen),
+                      "artifact v3: a draft dispatch did not resolve its "
+                      "layer's plan depth")
+            n_tok = sum(len(q.out_tokens) for q in r["reqs"])
+            print(f"compile: engine[v3 artifact, {name}]: {r['steps']} "
+                  f"steps, {r['passes']} passes, {n_tok} tokens in "
+                  f"{r['wall']:.2f}s = {n_tok / r['wall']:.2f} tokens/s; "
+                  f"spec rounds {rounds}, accepted "
+                  f"{int(m['spec_accepted'].value)} of {int(drafted)}; "
+                  f"draft-pass decode launches {r['draft_launches']}, "
+                  f"dispatches at plan depth {len(seen)}; launches "
+                  f"{r['launches']} | {card}", flush=True)
+        greedy = [[q.out_tokens for q in r["reqs"] if q.temperature == 0]
+                  for r in runs.values()]
+        check(greedy[0] == greedy[1],
+              "artifact v3: greedy tokens differ with and without spec")
+        print("compile: v3 artifact greedy tokens identical with spec at "
+              "the plan depths and without", flush=True)
+        out["v3"]["draft_launches"] = runs["spec auto"]["draft_launches"]
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+        full_ms, plan_ms = draft_layer_ms(params, "plan", flush)
+        del flush
+        out["v3"].update(layer_full_ms=full_ms, layer_draft_ms=plan_ms)
+        print(f"compile: v3 artifact decode kernel per model layer at M = 8: "
+              f"full {full_ms:.4f} ms, at the plan depths {plan_ms:.4f} ms "
+              f"({plan_ms / full_ms:.3f}x) | {card}", flush=True)
+
+        # -- malformed lists are refused on the host; the card goes on
+        p = params["blocks"][0]["mlp"]["wi"]["w"]
+        nr, L = p["sme_codes"].shape[0], p["sme_v3_rowid"].shape[1]
+        for key, value, what in (("sme_v3_rowid", nr, "rowid"),
+                                 ("sme_v3_nnz", L + 1, "nnz")):
+            bad = dict(p)
+            bad[key] = p[key].clone()
+            bad[key].view(-1)[0] = value
+            try:
+                B.validate_operands(bad, "v3")
+            except ValueError as err:
+                print(f"compile: malformed {what} refused: {err}", flush=True)
+            else:
+                raise AssertionError(f"malformed {what} was not refused")
+        x = torch.randn((4, p["sme_sign"].shape[-2]), device=dev)
+        y = B.sme_apply(x, p, "v3")
+        torch.cuda.synchronize()
+        with plain_kernels():
+            yp = B.sme_apply(x, p, "v3")
+        err = float((y - yp).abs().max())
+        check(bool(torch.isfinite(y).all())
+              and err <= TOL_PLAIN * float(yp.abs().max()),
+              f"launch after a refused list: |kernel - plain| {err}")
+        print(f"compile: a launch on good operands after the refusals: "
+              f"|kernel - plain| {err:.2e}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+        out["measured_plan"] = measured_replan(dev, tree, plan_auto, tmp,
+                                               card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"compile: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -969,8 +1317,11 @@ def main() -> int:
     agg, tile_agg = kernel_phase(dev, flush)
     del flush                    # not part of the serving peak memory
     card_tests()
-    launches, params = serve_phase(dev, card)
+    launches, params, served = serve_phase(dev, card)
     draft = engine_phase(dev, card, params)
+    del params
+    torch.cuda.empty_cache()
+    compiled, artifact_launches = compile_phase(dev, card, served)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
     rows = []
@@ -990,8 +1341,11 @@ def main() -> int:
         row["at_m"] = at
         if name == "sme_spmm_planes_decode":
             row.update(draft)
+        # the compile phase's runs from the two artifacts
+        row["artifact_launches"] = artifact_launches[name]
         rows.append(row)
     # times are per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls
+    print(json.dumps({"compile": compiled}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,21 @@ independent, so the results equal the reference's 128-row padding).
 
 ``sme_apply`` resolves a backend (:func:`resolve_backend`), gathers the
 input by ``sme_perm`` for reordered weights, and loops over stacked lead
-dims.  Operands are packed offline (``integrate.convert_params_to_sme``);
-a kernel backend asked to serve a param without them raises.
+dims.  Operands are packed offline (``integrate.convert_params_to_sme``,
+or the compiler's ``.smez`` artifact) or once at boot
+(:func:`ensure_operands`); a kernel backend named explicitly for a param
+without them raises.  ``auto`` on the card, for a param without any
+operands, resolves to v2 (v1 where minifloat-6 cannot hold the settings),
+as the reference's ``auto`` does on its chip, and packs them once into a
+cache keyed by a weakref on the param's ``sme_codes`` (the reference's
+``_cached_operands``); on the CPU it resolves to ``torch``.
+
+:func:`validate_operands` checks an operand list on the host for
+everything the kernels would trap on or misread (``nnz`` past the list,
+``rowid`` past the row tiles, more tile groups per column than a launch
+holds, a v3 group deeper than the 16 planes a launch stages, groups left
+open); :func:`ensure_operands` and ``compiler.load_artifact`` call it, so
+a malformed list raises ``ValueError`` before any launch.
 
 ``plane_depth`` (the self-speculative draft, DESIGN.md §11) resolves
 through :func:`resolve_spec_depth` (explicit argument > the
@@ -35,6 +48,7 @@ runs the decode kernel on each tile group's top planes.  v1, v2 and
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -42,13 +56,18 @@ import torch
 
 from .integrate import sme_dequant
 from .minifloat import encode6, pack6
-from .sme import csc_tile_order
+from .sme import SMEWeight, csc_tile_order
 
 __all__ = ["SMEBackend", "SpmmV2Backend", "get_backend", "resolve_backend",
            "resolved_backends", "sme_apply", "AUTO_ORDER", "use_spec_depth",
-           "resolve_spec_depth"]
+           "resolve_spec_depth", "smeweight_from_param",
+           "pack_param_operands", "ensure_operands", "validate_operands"]
 
 _META = ("sme_nbits", "sme_squeezed", "sme_window")
+_META_DEFAULTS = {"sme_nbits": 8, "sme_squeezed": 1, "sme_window": 3}
+#: planes of one tile group the v3 kernels stage (``kMaxPlanes`` of
+#: ``kernels/csrc/ordered_partials.cuh``: codes have at most 16 bits)
+MAX_GROUP_PLANES = 16
 #: M tile of the prefill kernel's padding contract (the reference's bm)
 BM = 128
 
@@ -284,13 +303,18 @@ def get_backend(name: str) -> SMEBackend:
 def resolve_backend(param: Optional[dict] = None,
                     name: Optional[str] = None) -> SMEBackend:
     """An explicit name, else (``None`` or ``"auto"``) the first backend of
-    :data:`AUTO_ORDER` whose operands ``param`` carries, else ``torch``."""
+    :data:`AUTO_ORDER` whose operands ``param`` carries; for a param
+    without any, on the card v2 (v1 where minifloat-6 cannot hold the
+    settings; :func:`sme_apply` packs them once), elsewhere ``torch``."""
     if name not in (None, "auto"):
         return get_backend(name)
     if param is not None:
         for cand in AUTO_ORDER:
             if _REGISTRY[cand].has_operands(param):
                 return _REGISTRY[cand]
+        codes = param.get("sme_codes")
+        if torch.is_tensor(codes) and codes.device.type == "cuda":
+            return _auto_kernel(param)
     return _REGISTRY["torch"]
 
 
@@ -311,6 +335,192 @@ def resolved_backends(params, name: Optional[str] = None) -> Tuple[str, ...]:
                 walk(v)
     walk(params)
     return tuple(sorted(found))
+
+
+# ----------------------------------------------------- packing and checking
+def _np(a) -> np.ndarray:
+    """A host numpy view of a tensor or array leaf."""
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def _meta_int(param: dict, key: str) -> int:
+    """A meta value of a packed param (stacked meta: its first slice)."""
+    return int(_np(param.get(key, _META_DEFAULTS[key])).reshape(-1)[0])
+
+
+def _v2_eligible(param: dict) -> bool:
+    return SpmmV2Backend.supports_settings(
+        _meta_int(param, "sme_nbits"), _meta_int(param, "sme_window"),
+        _meta_int(param, "sme_squeezed"))
+
+
+def smeweight_from_param(param: dict, index: Tuple[int, ...] = ()
+                         ) -> SMEWeight:
+    """An :class:`SMEWeight` view of one 2-D slice of a packed param
+    (``index`` selects into stacked lead dims), rebuilt on the host."""
+    codes = _np(param["sme_codes"])[index]
+    sign = _np(param["sme_sign"])[index]
+    scale = _np(param["sme_scale"])[index]
+    return SMEWeight(
+        shape=(sign.shape[-2], scale.shape[-1]),
+        n_bits=_meta_int(param, "sme_nbits"),
+        window=_meta_int(param, "sme_window"),
+        squeezed=_meta_int(param, "sme_squeezed"),
+        tile=(codes.shape[-2], codes.shape[-1]), method="sme",
+        tiled_codes=codes, row_exp=_np(param["sme_rowexp"])[index],
+        sign_packed=sign, scale=scale.astype(np.float64),
+        occupancy=codes.any(axis=(-1, -2)),
+        tile_sq=(_np(param["sme_tilesq"])[index] if "sme_tilesq" in param
+                 else None))
+
+
+def pack_param_operands(param: dict, backend: SMEBackend) -> dict:
+    """``backend``'s operands of a packed param, packed on the host from
+    its codes (stacked slices share one list length) and returned where
+    the param's ``sme_codes`` lives (a tensor's device, else numpy)."""
+    host = {k: _np(v) for k, v in param.items()
+            if not k.startswith(("sme_v1_", "sme_v2_", "sme_v3_"))}
+    lead = tuple(host["sme_codes"].shape[:-4])
+    smews = [smeweight_from_param(host, i) for i in np.ndindex(*lead)]
+    pad_to = max(backend.pad_hint(s) for s in smews)
+    per = [backend.pack_weight(s, pad_to=pad_to) for s in smews]
+    ops = {k: np.stack([p[k] for p in per]).reshape(lead + per[0][k].shape)
+           for k in per[0]}
+    anchor = param["sme_codes"]
+    if torch.is_tensor(anchor):
+        return {k: torch.as_tensor(v, device=anchor.device)
+                for k, v in ops.items()}
+    return ops
+
+
+def ensure_operands(params, backend_name: str):
+    """``params`` with ``backend_name``'s operands on every packed weight:
+    packed once here where missing (an artifact compiled without them),
+    and every list checked by :func:`validate_operands`.  ``"auto"`` takes
+    per weight the first operand set of :data:`AUTO_ORDER` it carries,
+    else v2 (v1 where minifloat-6 cannot hold its settings): what auto
+    serves on the card."""
+    if backend_name != "auto" and not get_backend(backend_name).OPERANDS:
+        return params
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            if "sme_codes" in tree:
+                be = get_backend(backend_name) if backend_name != "auto" \
+                    else next((_REGISTRY[c] for c in AUTO_ORDER
+                               if _REGISTRY[c].has_operands(tree)),
+                              _REGISTRY["v2" if _v2_eligible(tree)
+                                        else "v1"])
+                out = tree
+                if not be.has_operands(tree):
+                    out = dict(tree)
+                    out.update((be.key(op), arr) for op, arr in
+                               pack_param_operands(tree, be).items())
+                validate_operands(out, be.name, "/".join(path))
+                return out
+            return {k: walk(v, path + [str(k)]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(s, path + [str(i)])
+                              for i, s in enumerate(tree))
+        return tree
+
+    return walk(params, [])
+
+
+def validate_operands(param: dict, backend: str, where: str = "") -> None:
+    """Raise ``ValueError`` unless ``param``'s ``backend`` operand lists
+    are ones the kernels take: ``0 <= nnz <= L``; every listed ``rowid``
+    a row tile of the weight; at most ``min(row tiles, L)`` tile groups
+    per column (what ``decode_walk``'s cluster is sized for; ``tiled_walk``
+    holds ``L``); and for v3, ``last`` flags of 0/1 that close every
+    group, one row tile per group, shifts below 16 and at most 16 planes
+    per group (what a launch stages).  Checks every stacked slice, on the
+    host, reading only the index arrays."""
+    be = get_backend(backend)
+    if not be.OPERANDS:
+        return
+    what = f"{backend} operands" + (f" of {where}" if where else "")
+    if not be.has_operands(param):
+        raise ValueError(f"{what}: missing")
+    nr = int(param["sme_codes"].shape[-4])
+    rowid = _np(param[be.key("rowid")]).astype(np.int64)
+    nnz = _np(param[be.key("nnz")]).astype(np.int64)
+    L = rowid.shape[-1]
+    if nnz.shape != rowid.shape[:-1]:
+        raise ValueError(f"{what}: nnz {nnz.shape} does not match rowid "
+                         f"{rowid.shape}")
+    if nnz.size and (nnz.min() < 0 or nnz.max() > L):
+        raise ValueError(f"{what}: nnz in [{nnz.min()}, {nnz.max()}] "
+                         f"outside [0, L={L}]")
+    valid = np.arange(L) < nnz[..., None]
+    if ((rowid < 0) | (rowid >= nr))[valid].any():
+        raise ValueError(f"{what}: rowid outside the {nr} row tiles")
+    if be.name != "v3":
+        groups = nnz
+    else:
+        last = _np(param[be.key("last")]).astype(np.int64)
+        shift = _np(param[be.key("shift")]).astype(np.int64)
+        if ((last != 0) & (last != 1))[valid].any():
+            raise ValueError(f"{what}: last flags other than 0 and 1")
+        if ((shift < 0) | (shift >= MAX_GROUP_PLANES))[valid].any():
+            raise ValueError(f"{what}: shift outside [0, "
+                             f"{MAX_GROUP_PLANES})")
+        nxt = np.zeros_like(valid)
+        nxt[..., :-1] = valid[..., 1:]
+        if (valid & ~nxt & (last != 1)).any():
+            raise ValueError(f"{what}: a column's final group is not "
+                             f"closed (last != 1 on its last slot)")
+        if (nxt[..., :-1] & (last[..., :-1] == 0)
+                & (rowid[..., 1:] != rowid[..., :-1])).any():
+            raise ValueError(f"{what}: a group spans two row tiles (rowid "
+                             f"changes without last == 1)")
+        start = valid.copy()
+        start[..., 1:] &= last[..., :-1] == 1
+        groups = start.sum(axis=-1)
+        # slots per group: bincount of (column, group number) over valid
+        col = np.arange(valid[..., 0].size).reshape(valid.shape[:-1])
+        gid = (col[..., None] * (L + 1) + np.cumsum(start, axis=-1))[valid]
+        depth = int(np.bincount(gid).max()) if gid.size else 0
+        if depth > MAX_GROUP_PLANES:
+            raise ValueError(f"{what}: a tile group of {depth} planes, more "
+                             f"than the {MAX_GROUP_PLANES} a launch stages")
+    cap = max(min(nr, L), 1)
+    if groups.size and int(groups.max()) > cap:
+        raise ValueError(f"{what}: {int(groups.max())} tile groups in a "
+                         f"column, more than the {cap} a launch holds "
+                         f"(min(row tiles, L))")
+
+
+#: weight identity -> (weakref to its ``sme_codes``, backend name,
+#: operands): auto's call-time packing on the card, once per weight.  The
+#: weakref validates an id() hit and its callback evicts the entry when
+#: the weight dies, so operands never outlive their weight.
+_OPERAND_CACHE: Dict[int, tuple] = {}
+
+
+def _auto_kernel(param: dict) -> SMEBackend:
+    """auto's kernel for a param on the card without operands: the one
+    already packed for it, else v2 where minifloat-6 holds the settings,
+    else v1."""
+    hit = _OPERAND_CACHE.get(id(param["sme_codes"]))
+    if hit is not None and hit[0]() is param["sme_codes"]:
+        return _REGISTRY[hit[1]]
+    return _REGISTRY["v2" if _v2_eligible(param) else "v1"]
+
+
+def _cached_operands(param: dict, be: SMEBackend) -> dict:
+    anchor = param["sme_codes"]
+    key = id(anchor)
+    hit = _OPERAND_CACHE.get(key)
+    if hit is not None and hit[0]() is anchor and hit[1] == be.name:
+        return hit[2]
+    ops = pack_param_operands(param, be)
+    try:
+        ref = weakref.ref(anchor, lambda _, k=key: _OPERAND_CACHE.pop(k, None))
+    except TypeError:
+        return ops              # not weakref-able: do not risk pinning it
+    _OPERAND_CACHE[key] = (ref, be.name, ops)
+    return ops
 
 
 #: scoped draft plane-depth (use_spec_depth); None = full precision
@@ -373,10 +583,14 @@ def sme_apply(x: torch.Tensor, param: dict, backend: Optional[str] = None,
     if not be.OPERANDS:
         w = sme_dequant(param, dtype=x.dtype)
         return torch.matmul(x, w).to(out_dtype)
-    if not be.has_operands(param):
+    if be.has_operands(param):
+        ops = {op: param[be.key(op)] for op in be.OPERANDS}
+    elif backend in (None, "auto"):
+        ops = _cached_operands(param, be)     # auto on the card: pack once
+    else:
         raise ValueError(f"param has no {be.name} operands: convert it with "
-                         f"convert_params_to_sme(..., backend={be.name!r})")
-    ops = {op: param[be.key(op)] for op in be.OPERANDS}
+                         f"convert_params_to_sme(..., backend={be.name!r}) "
+                         f"or ensure_operands(params, {be.name!r})")
     if "sme_perm" in param:
         # reordered weight: operands hold W[perm, :], so gather the input
         # to match (x[..., p] @ W[p, :] == x @ W)

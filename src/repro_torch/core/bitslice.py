@@ -1,8 +1,8 @@
 """Tiling of codeword matrices and per-(plane, tile) occupancy (paper
 §III-B), numpy only.
 
-A copy of the parts of ``repro/core/bitslice.py`` that ``sme_compress``
-and the plane-CSC packer need.  Tile ``(i, j)`` of bit-plane ``q`` is the
+A copy of the parts of ``repro/core/bitslice.py`` that ``sme_compress``,
+the plane-CSC packer and the compiler need.  Tile ``(i, j)`` of bit-plane ``q`` is the
 unit of storage and skipping: an all-zero (plane, tile) is neither stored
 nor moved.
 """
@@ -12,8 +12,16 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["pad_to_tiles", "tile_codes", "untile_codes",
-           "tiled_plane_occupancy"]
+__all__ = ["bit_planes", "pad_to_tiles", "tile_codes", "untile_codes",
+           "tiled_plane_occupancy", "nonempty_rows_per_tile"]
+
+
+def bit_planes(codes: np.ndarray, n_bits: int) -> np.ndarray:
+    """codes[...] -> planes[Nq, ...] 0/1 uint8; plane p (0-indexed) is
+    weight bit p+1 (MSB first)."""
+    shifts = np.arange(n_bits - 1, -1, -1, dtype=codes.dtype)
+    shifts = shifts.reshape((n_bits,) + (1,) * codes.ndim)
+    return ((codes[None, ...] >> shifts) & 1).astype(np.uint8)
 
 
 def pad_to_tiles(m: np.ndarray, tile: Tuple[int, int]) -> np.ndarray:
@@ -46,3 +54,11 @@ def tiled_plane_occupancy(tiled_codes: np.ndarray, n_bits: int) -> np.ndarray:
     ``q`` (0-indexed, MSB first) is byte bit ``Nq - 1 - q``."""
     return np.stack([((tiled_codes >> (n_bits - 1 - q)) & 1).any(axis=(-1, -2))
                      for q in range(n_bits)])
+
+
+def nonempty_rows_per_tile(codes: np.ndarray, n_bits: int, plane: int = 1,
+                           tile=(128, 128)) -> np.ndarray:
+    """Count of non-empty crossbar rows per tile of bit-plane ``plane``
+    (1-indexed; plane=1 is paper Fig. 5's MSB crossbars): int [nr, nc]."""
+    t = tile_codes(bit_planes(codes, n_bits)[plane - 1], tile)
+    return t.any(axis=-1).sum(axis=-1)

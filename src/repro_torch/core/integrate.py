@@ -4,12 +4,14 @@ them for the operand-free backend.
 Checked against ``repro/core/integrate.py``: ``pack_sme_param`` and
 ``convert_params_to_sme`` emit the same packed dict (same keys, dtypes and
 bytes; ``sme_<name>_*`` operands of each backend ``backend`` names), with
-the same eligibility rule; ``sme_dequant`` is the counterpart of
-``sme_dequant_jnp``: the dense weight of the ``torch`` backend and the CPU
-oracle of the kernels; ``sme_storage_summary`` counts bytes as the
-reference does.  Packing is numpy on the host and compresses each weight
-once, whatever the number of operand sets; the converted tree holds torch
-tensors on the requested device.
+the same eligibility rule and the same execution of a compiler plan
+(per-layer settings, 2-D row reordering, ``sme_draft_planes``), so a
+``.smez`` of either package holds the same bytes; ``sme_dequant`` is the
+counterpart of ``sme_dequant_jnp``: the dense weight of the ``torch``
+backend and the CPU oracle of the kernels; ``sme_storage_summary`` counts
+bytes as the reference does.  Packing is numpy on the host and compresses
+each weight once, whatever the number of operand sets; the converted tree
+holds torch tensors on the requested device.
 """
 from __future__ import annotations
 
@@ -58,14 +60,14 @@ def _backend_names(backend) -> tuple:
 
 
 def pack_sme_param(w2d: np.ndarray, n_bits=8, window=3, squeeze=1,
-                   backend=None, row_perm=None, squeeze_max=None) -> dict:
-    """Compress one 2-D weight (128x128 tiles) to the packed dict (numpy),
-    with the kernel operands of each backend ``backend`` names under
-    ``sme_<name>_*``."""
+                   tile=(128, 128), backend=None, row_perm=None,
+                   squeeze_max=None) -> dict:
+    """Compress one 2-D weight to the packed dict (numpy), with the kernel
+    operands of each backend ``backend`` names under ``sme_<name>_*``."""
     from .backend import get_backend
     names = _backend_names(backend)
     smew = sme_compress(np.asarray(w2d, np.float64), n_bits=n_bits,
-                        window=window, squeeze=squeeze,
+                        window=window, squeeze=squeeze, tile=tuple(tile),
                         row_perm=row_perm, squeeze_max=squeeze_max)
     out = _raw_param(smew, row_perm)
     for name in names:
@@ -107,15 +109,35 @@ def to_torch(tree, device=None):
 
 
 def convert_params_to_sme(params, n_bits=8, window=3, squeeze=1,
-                          backend=None, squeeze_max=None, device=None):
+                          tile=(128, 128), predicate=None, backend=None,
+                          plan=None, squeeze_max=None, device=None):
     """A new param tree (torch tensors on ``device``) with every eligible
     weight SME-packed, with the operands of each backend ``backend`` names
     (``"all"``: v1, v2 and v3, from one compression per weight).  Stacked
     ``[..., K, N]`` weights pack per slice and share each backend's
     largest list length (``pad_hint``), so their operands stack
-    rectangularly."""
+    rectangularly.  ``predicate(path, leaf)`` replaces the eligibility
+    rule.
+
+    ``plan`` (a :class:`repro_torch.compiler.plan.CompilePlan`) overrides
+    the global setting per layer, as the reference does: each planned
+    weight takes its ``LayerPlan``'s ``(n_bits, window, squeeze,
+    squeeze_max, backend)`` and, where the plan marks it, the row
+    reordering at the plan's level (2-D weights only: stacked slices share
+    one input gather); a layer with ``draft_planes > 0`` carries them as
+    an ``sme_draft_planes`` i32 leaf of shape == lead, read under
+    ``use_spec_depth("plan")``."""
+    return to_torch(_convert(params, n_bits, window, squeeze, tile,
+                             predicate, backend, plan, squeeze_max), device)
+
+
+def _convert(params, n_bits=8, window=3, squeeze=1, tile=(128, 128),
+             predicate=None, backend=None, plan=None, squeeze_max=None):
+    """:func:`convert_params_to_sme` on the host: the packed tree as
+    numpy arrays (what ``compiler.compile_model`` persists)."""
     from .backend import get_backend
-    backends = [get_backend(name) for name in _backend_names(backend)]
+    predicate = predicate or _eligible
+    tile = tuple(tile)
 
     def walk(tree, path):
         if isinstance(tree, dict):
@@ -124,24 +146,40 @@ def convert_params_to_sme(params, n_bits=8, window=3, squeeze=1,
             return type(tree)(walk(s, path + [str(i)])
                               for i, s in enumerate(tree))
         leaf = np.asarray(tree.cpu() if torch.is_tensor(tree) else tree)
-        if not _eligible(path, leaf):
+        if not predicate(path, leaf):
             return leaf
+        lp = plan.for_path(path) if plan is not None else None
+        nb, win, sq = (lp.n_bits, lp.window, lp.squeeze) if lp \
+            else (n_bits, window, squeeze)
+        sq_max = (lp.squeeze_max or None) if lp else squeeze_max
+        names = _backend_names(lp.backend if lp else backend)
         lead = leaf.shape[:-2]
         k, n = leaf.shape[-2:]
-        smews = [sme_compress(np.asarray(w, np.float64), n_bits=n_bits,
-                              window=window, squeeze=squeeze,
-                              squeeze_max=squeeze_max)
-                 for w in leaf.reshape((-1, k, n))]
-        per = [_raw_param(s) for s in smews]
-        for be in backends:
+        flat = leaf.reshape((-1, k, n))
+        perm = None
+        if lp is not None and lp.reorder and not lead:
+            from ..compiler.reorder import plan_row_permutation
+            perm = plan_row_permutation(flat[0], n_bits=nb, window=win,
+                                        tile=tile,
+                                        level=lp.reorder_level or "tile")
+        smews = [sme_compress(np.asarray(w, np.float64), n_bits=nb,
+                              window=win, squeeze=sq, tile=tile,
+                              row_perm=perm, squeeze_max=sq_max)
+                 for w in flat]
+        per = [_raw_param(s, perm) for s in smews]
+        for be in map(get_backend, names):
             pad_to = max(be.pad_hint(s) for s in smews)
             for p, s in zip(per, smews):
                 p.update({be.key(op): a for op, a in
                           be.pack_weight(s, pad_to=pad_to).items()})
-        return {key: np.stack([p[key] for p in per]).reshape(
+        out = {key: np.stack([p[key] for p in per]).reshape(
             lead + per[0][key].shape) for key in per[0]}
+        if lp is not None and lp.draft_planes > 0:
+            out["sme_draft_planes"] = np.full(lead, lp.draft_planes,
+                                              np.int32)
+        return out
 
-    return to_torch(walk(params, []), device)
+    return walk(params, [])
 
 
 def sme_dequant(p: dict, dtype=torch.float32) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Bit-wise squeeze-out (paper §III-C), numpy only.
 
-A copy of ``squeeze_out`` from ``repro/core/squeeze.py``.  Per 128x128
+A copy of ``squeeze_out`` and ``squeeze_error_bound`` from
+``repro/core/squeeze.py``.  Per 128x128
 tile, rows whose current MSB plane is non-empty shift right by one bit and
 double their input instead (``I * W == (I * 2) * (W / 2)``); after ``x``
 rounds the first ``x`` planes of every tile are empty.  ``x_max > x``
@@ -16,7 +17,7 @@ import numpy as np
 
 from .bitslice import tile_codes
 
-__all__ = ["SqueezeResult", "squeeze_out"]
+__all__ = ["SqueezeResult", "squeeze_out", "squeeze_error_bound"]
 
 
 @dataclasses.dataclass
@@ -62,3 +63,9 @@ def squeeze_out(codes: np.ndarray, n_bits: int, x: int,
     return SqueezeResult(tiled_codes=tiled, row_exp=row_exp, n_bits=n_bits,
                          squeezed=x, shape=codes.shape, tile=tile,
                          tile_sq=tile_sq if x_max > x else None)
+
+
+def squeeze_error_bound(n_bits: int, x: int) -> float:
+    """Worst-case per-weight magnitude error of x-bit squeeze (value
+    domain): the dropped LSBs, ``(2^x - 1) * 2^-Nq``."""
+    return (2.0 ** x - 1.0) * 2.0 ** -n_bits

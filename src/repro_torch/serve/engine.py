@@ -1,8 +1,9 @@
 """Continuous batching over an open request stream.
 
 Checked against ``repro/serve/engine.py`` (DESIGN.md §6, §11, §12) without
-its mesh, artifact boot, ``bm`` override and encoder-decoder/frontend
-branches: the port serves the dense decoder-only family on one device.
+its mesh, ``bm`` override and encoder-decoder/frontend branches: the port
+serves the dense decoder-only family on one device, from a param tree or
+from a compiled ``.smez`` artifact (:meth:`ServeEngine.from_artifact`).
 
 * ``slots`` sequences decode together, each with its own cache row; a
   request joins by writing its prefill cache into a free row and leaves by
@@ -148,6 +149,8 @@ class ServeEngine:
         self.last_token = np.zeros((slots, 1), np.int64)
         self._backend_name = "+".join(resolved_backends(params, backend)) \
             or "dense"
+        #: the compiler plan of an artifact boot (:meth:`from_artifact`)
+        self.plan = None
 
         # -- continuous scheduler ---------------------------------------
         if chunk_len is None:
@@ -318,6 +321,40 @@ class ServeEngine:
                 for layer in self.caches]
             self._prefix = PrefixIndex(PageAllocator(n_pages),
                                        int(prefix_entries), page_tokens)
+
+    @classmethod
+    def from_artifact(cls, api, path, *, verify: bool = False, **kw):
+        """Boot from a compiled ``.smez`` artifact (reference
+        ``ServeEngine.from_artifact``, without a mesh or ``bm``).
+
+        ``compiler.load_artifact`` maps the payloads and checks every
+        kernel operand list on the host; ``convert.from_reference`` splits
+        the stacked layers and copies each leaf from the mapping to the
+        engine's device, one leaf at a time (no second copy of the tree on
+        the host).  ``backend`` defaults to the manifest's
+        ``extra.serve_backend``.  A kernel backend the artifact holds no
+        operands for is packed here, once, as is what ``auto`` takes on
+        the card (v2, v1 where minifloat-6 cannot hold a layer's
+        settings); each list is checked (``core.backend.ensure_operands``).
+        The plan is kept as :attr:`plan`."""
+        from ..compiler.artifact import load_artifact
+        from ..convert import from_reference
+        from ..core.backend import ensure_operands
+        tree, plan, manifest = load_artifact(path, verify=verify)
+        kw.setdefault("backend",
+                      manifest.get("extra", {}).get("serve_backend"))
+        kw.setdefault("device", api.device)
+        device = resolve_device(kw["device"])
+        params = from_reference(tree, device=device)
+        del tree
+        backend = kw["backend"]
+        if backend in ("v1", "v2", "v3"):
+            params = ensure_operands(params, backend)
+        elif backend in (None, "auto") and device.type == "cuda":
+            params = ensure_operands(params, "auto")
+        eng = cls(api, params, **kw)
+        eng.plan = plan
+        return eng
 
     # ------------------------------------------------------------ telemetry
     @property

@@ -503,3 +503,128 @@ def test_spec_round_drafts_through_the_decode_kernel(cuda, monkeypatch):
     assert depths.count(2) == rounds * 3 * 7 * api.cfg.n_layers
     # the wrapper counts its launches on the module's name: the spy here
     assert spy.launches == len(depths)
+
+
+def _count_dense(monkeypatch):
+    """Make the ``torch`` backend's dequant raise: a kernel path must never
+    reach it."""
+    from repro_torch.core import backend as B
+
+    def refuse(*a, **kw):
+        raise AssertionError("the dense torch path ran on the card")
+    monkeypatch.setattr(B, "sme_dequant", refuse)
+
+
+def _served(api, eng_or_params, backend=None, **kw):
+    from repro_torch.serve import Request, ServeEngine
+    eng = eng_or_params if isinstance(eng_or_params, ServeEngine) else \
+        ServeEngine(api, eng_or_params, slots=3, s_max=48, backend=backend,
+                    device=api.device, chunk_len=48, **kw)
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(0, 256, n), max_new_tokens=4)
+            for i, n in enumerate((5, 19, 7))]
+    eng.run(reqs, max_steps=100)
+    assert all(r.done for r in reqs)
+    return [r.out_tokens for r in reqs], eng
+
+
+@pytest.mark.parametrize("backend", ["auto", "v3", None])
+def test_from_artifact_on_the_card_serves_kernels_only(cuda, tmp_path,
+                                                       monkeypatch, backend):
+    """A compiled artifact boots onto the card and every linear runs a
+    kernel: the plan's (auto, v3), or v2 packed at boot for an artifact
+    compiled without operands and served under auto; its prefill logits
+    agree with the same artifact's on the CPU."""
+    import dataclasses
+    from repro_torch.compiler import compile_model
+    from repro_torch.configs import ARCHS, scale_down
+    from repro_torch.convert import to_reference
+    from repro_torch.launch.serve import SMALL
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(scale_down(ARCHS["qwen1.5-0.5b"], **SMALL),
+                              dtype="float32")
+    dense = lm_init(cfg, np.random.default_rng(0))
+    dense["embed"]["w"] = dense["embed"]["w"] * np.float32(0.05)
+    path = tmp_path / "m.smez"
+    compile_model(to_reference(dense), out=path, backend=backend,
+                  extra={"serve_backend": "auto"})
+    toks = np.random.default_rng(3).integers(0, 256, (2, 16))
+    cpu_api = build_model(cfg, device="cpu")
+    cpu = ServeEngine.from_artifact(cpu_api, path, slots=3, s_max=48,
+                                    device="cpu")
+    want = cpu_api.prefill(cpu.params, toks, s_max=48)[0]
+    _count_dense(monkeypatch)
+    api = build_model(cfg, device=cuda)
+    eng = ServeEngine.from_artifact(api, path, slots=3, s_max=48,
+                                    chunk_len=48)
+    assert set(eng.stats["backend"].split("+")) <= {"v1", "v2", "v3"}
+    counts = (sme_spmm6, sme_spmm, sme_spmm_planes, sme_spmm_planes_decode)
+    before = sum(k.launches for k in counts)
+    got = api.prefill(eng.params, toks, s_max=48)[0]
+    assert _rel(got.cpu(), want) < 1e-4
+    _served(api, eng)
+    assert sum(k.launches for k in counts) > before
+
+
+def test_auto_without_operands_packs_v2_once_never_torch(cuda, monkeypatch):
+    """``auto`` on the card for weights packed without operands resolves to
+    v2 and packs each weight's operands once (the call-time cache), never
+    the dense ``torch`` path."""
+    from repro_torch.core import backend as B
+    api, params = _small_model(cuda, backend=None)
+    assert B.resolved_backends(params, "auto") == ("v2",)
+    packs, real = [], B.pack_param_operands
+
+    def spy(param, backend):
+        packs.append(backend.name)
+        return real(param, backend)
+    monkeypatch.setattr(B, "pack_param_operands", spy)
+    _count_dense(monkeypatch)
+    l0 = sme_spmm6.launches
+    first, eng = _served(api, params, backend="auto")
+    assert eng.stats["backend"] == "v2"
+    assert packs == ["v2"] * 7 * api.cfg.n_layers
+    again, _ = _served(api, params, backend="auto")
+    assert len(packs) == 7 * api.cfg.n_layers          # cached: no repack
+    assert again == first and sme_spmm6.launches > l0
+    _, packed = _small_model(cuda, backend="v2")
+    assert _served(api, packed, backend="v2")[0] == first
+
+
+def test_rejected_malformed_list_leaves_the_context_usable(cuda):
+    """``validate_operands`` refuses, on the host, the lists the kernels
+    would trap on (rowid past the row tiles, nnz past L, a v3 group deeper
+    than 16 planes); the card launches good operands afterwards."""
+    import copy
+    from repro_torch.core import backend as B
+    from repro_torch.core.integrate import pack_sme_param, to_torch
+    w = np.random.default_rng(5).normal(0, 0.05, (384, 256))
+    good = to_torch(pack_sme_param(w, backend="all"), cuda)
+    for name, key, value in (("v3", "sme_v3_rowid", 3),
+                             ("v1", "sme_v1_nnz", 99),
+                             ("v2", "sme_v2_nnz", -1)):
+        bad = copy.copy(good)
+        bad[key] = good[key].clone()
+        bad[key].view(-1)[0] = value
+        with pytest.raises(ValueError):
+            B.validate_operands(bad, name)
+        with pytest.raises(ValueError):
+            B.ensure_operands({"w": bad}, name)
+    deep = copy.copy(good)
+    n = int(good["sme_v3_nnz"][0])
+    assert n > 16
+    deep["sme_v3_rowid"] = good["sme_v3_rowid"].clone()
+    deep["sme_v3_last"] = good["sme_v3_last"].clone()
+    deep["sme_v3_rowid"][0, :n] = 0
+    deep["sme_v3_last"][0, :n] = 0
+    deep["sme_v3_last"][0, n - 1] = 1
+    with pytest.raises(ValueError, match="planes"):
+        B.validate_operands(deep, "v3")
+    x = torch.as_tensor(np.random.default_rng(6).normal(0, 1, (4, 384)),
+                        dtype=torch.float32, device=cuda)
+    ys = [B.sme_apply(x, good, be) for be in ("v1", "v2", "v3")]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[0], ys[2])
+    assert _oracle_rel(ys[0], x, sme_compress(w).dequant()) <= TOL_ORACLE
