@@ -28,10 +28,14 @@
    line adds the time with the backend's scaling epilogue, two elementwise
    launches), beside the plain version's, ``torch.matmul`` on the
    dequantized weight and the bound.
-   Then the card tests (``pytest -m gpu tests/test_torch_cuda.py``, in a
-   child process on the same build) must all pass.
-3. Serving: full-width qwen1.5-0.5b (24 layers, random weights from a
-   numpy seed, every attention/MLP weight packed once to v1, v2 and v3)
+   Before them the card tests (``pytest -m gpu tests/test_torch_cuda.py``,
+   in a child process on the same build) must all pass, while a pool of
+   :data:`PACK_WORKERS` host processes draws and packs gemma3-12b's
+   weights (phase 6); the script waits for the pool before any timed
+   phase.
+3. Serving: qwen1.5-0.5b at full width, its depth cut to 8 of 24 layers
+   (:data:`QWEN_LAYERS`; random weights from a numpy seed, every
+   attention/MLP weight packed once to v1, v2 and v3)
    serves the same 8 requests three times through ``ServeEngine(slots=4,
    s_max=256)`` with every prompt prefilled in one piece (``chunk_len =
    s_max``, no speculation, no prefix cache: comparable with the one-shot
@@ -52,38 +56,65 @@
    four times: v3 with spec, chunking and the prefix cache; spec off;
    prefix cache off; ``auto`` (v2).  Each run must complete every
    request, stream token events equal to ``out_tokens``, launch only its
-   backend's kernels, 168 per model pass, and add up its spec counters;
-   v3's draft passes must launch the decode kernel (168 per draft step);
+   backend's kernels, 56 per model pass (7 per layer), and add up its
+   spec counters; v3's draft passes must launch the decode kernel (56 per
+   draft step);
    the greedy tokens of the four runs must be identical.  Prints ms per
    engine step by kind (chunked, spec, decode), draft and verify ms per
    round, acceptance, tokens/s, TTFT per request, prefix hits and
    snapshots, and the decode kernel's ms per layer at the draft depth.
 5. Compile: the offline compiler on the same full-width weights, dense,
-   in the reference's layout (24 layers stacked per leaf): ``plan_model``
+   in the reference's layout (8 layers stacked per leaf): ``plan_model``
    at budget 0.06 and ``compile_model`` into a ``.smez`` in a temporary
    directory under ``auto`` (the plan's per-leaf settings, backends,
    crossbar reduction, seconds and megabytes are printed), booted by
    ``ServeEngine.from_artifact`` (its seconds beside the serving phase's
    inline packing) and serving the serving phase's 8 requests: only the
-   plan's kernels, 168 launches per pass; one prefill window's logits
+   plan's kernels, 56 launches per pass; one prefill window's logits
    within tolerance of the ``torch`` backend (f32) and of the plain
    versions (bf16); where every leaf is planned (8, 3, 1) the tokens must
    equal the serving phase's auto run bitwise.  Then the same under
    ``v3`` and the engine workload twice, with ``spec_depth="auto"`` and
-   without: every draft pass launches the decode kernel 168 times, every
+   without: every draft pass launches the decode kernel 56 times, every
    draft dispatch resolves its layer's plan depth (never full
    precision), and the greedy tokens of the two runs are identical.
    Last, malformed operand lists (``rowid`` past the row tiles, ``nnz``
    past the list) must raise ``ValueError`` on the host, and a launch on
    good operands must still succeed.
-6. Prints the compile readings as JSON, the kernels JSON line (times per
-   model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode M = 8 in the
-   top-level keys, every M a kernel ran at under ``at_m``; v3-decode adds
-   ``draft_depth``, the draft passes' ``draft_launches`` and ``draft_ms``
-   / ``draft_full_ms`` per layer on the model's own operands;
-   ``artifact_launches`` counts the compile phase's runs; every number
-   measured in this run but ``bound_ms``), the card line and, last,
-   ``{"ok": true, "device": {...}}``.  Any failed check raises first.
+6. gemma3-12b (``gemma_phase``): full width (d_model 3840, 16 heads of
+   240, GQA kv 8, d_ff 15360, vocab 262144, W = 1024, GELU, untied head),
+   depth cut from 48 layers to one superblock (5 local layers, 1 global;
+   :data:`GEMMA_LAYERS`), every linear and the head packed once to v1, v2
+   and v3 by the pool (the head in 16 column slabs that join bitwise into
+   one compression, checked at a small size).  Kernel rows: each kernel at
+   layer 0's q, k, wi, wo and the head (3840x3840, 3840x1920,
+   3840x15360, 15360x3840, 3840x262144), at M = 8 and 64 (v3-decode, v1,
+   v2) and 512 (v3-prefill, v1, v2), against its plain version (in blocks
+   of 512 rows and 256 column tiles), the f64 oracle on the first 1024
+   columns and the v3 prefill kernel bitwise, timed with ``torch.matmul``
+   in f32 and bf16.  One-shot serving (4 slots, s_max 2048, ``chunk_len``
+   2048) of 4 prompts of 1,100-1,500 tokens, 16 new tokens each, under
+   ``auto`` (must resolve to v2) and ``v3``: only the backend's kernels,
+   37 per pass (6 per layer and the head), equal tokens; one prefill
+   window's f32 logits v2 == v3 bitwise and within tolerance of the
+   ``torch`` backend and the plain versions; a profiled window.  Then the
+   engine (v3, ``chunk_len`` 32, ``page_tokens`` 16, prefix cache on,
+   ``spec_len`` 4) on the same prompts, two of them sharing a 1,088-token
+   prefix (the second admitted once the first has scored it, so it hits a
+   snapshot whose rings wrapped past W), with spec and without: prefix
+   hits and side-slab snapshots counted, greedy tokens equal to each other
+   and to the one-shot run's.
+7. Prints the compile and gemma readings as JSON, the kernels JSON line
+   (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
+   M = 8 in the top-level keys, every M a kernel ran at under ``at_m``;
+   v3-decode adds ``draft_depth``, the draft passes' ``draft_launches``
+   and ``draft_ms`` / ``draft_full_ms`` per layer on the model's own
+   operands; ``artifact_launches`` counts the compile phase's runs,
+   ``gemma_launches`` gemma's serving and engine runs, ``gemma`` its
+   kernel rows per shape and M, per call; every number measured in this
+   run but ``bound_ms``), the card line and, last, ``{"ok": true,
+   "device": {...}}``.  Any failed check raises first; the pool's
+   processes are stopped either way.
 """
 from __future__ import annotations
 
@@ -122,6 +153,10 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 #: embedding std of the random serving model: small enough that the layers,
 #: not just the tied head's echo of the last prompt token, set the tokens
 EMBED_STD = 0.05
+#: qwen1.5-0.5b's depth in the serving, engine and compile phases: 8 of its
+#: 24 layers, so that the whole script, the gemma3-12b phase included,
+#: stays well inside its time limit (the kernel phase runs every width)
+QWEN_LAYERS = 8
 
 
 def card_line() -> str:
@@ -211,14 +246,40 @@ def zero_counts():
         fn.launches = 0
 
 
+#: per kernel, the axis of each operand that indexes the column tile
+COL_AXES = {"sme_spmm_planes_decode": (0, 1, 1, 0, 0, 0, 0, 0),
+            "sme_spmm_planes": (0, 1, 1, 0, 0, 0, 0),
+            "sme_spmm6": (0, 0, 0, 0), "sme_spmm": (0, 0, 0, 0, 0)}
+
+
+def chunked(name, fn, rows=512, tiles=256):
+    """``fn`` (a plain version) over blocks of ``rows`` rows and ``tiles``
+    column tiles, concatenated: the same function (rows and column tiles
+    are independent), in the memory a block needs.  At gemma3-12b's widths
+    one call would hold every decoded tile of a weight at once (28 GB for
+    the head's v3 planes)."""
+    axes = COL_AXES[name]
+
+    def run(x, *ops, **kw):
+        nt = ops[0].shape[0]
+        return torch.cat([torch.cat([fn(x[r:r + rows], *(
+            o.narrow(a, c, min(tiles, nt - c)).contiguous()
+            for o, a in zip(ops, axes)), **kw)
+            for c in range(0, nt, tiles)], dim=1)
+            for r in range(0, x.shape[0], rows)])
+    return run
+
+
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(blocks: bool = False):
     """Route every kernel backend through the kernels' plain versions (the
-    backends resolve the wrappers from their modules at call time)."""
+    backends resolve the wrappers from their modules at call time), in
+    blocks of rows and column tiles with ``blocks``."""
     mods = _modules()
     saved = {name: getattr(m, name) for name, m in mods.items()}
     for name, m in mods.items():
-        setattr(m, name, getattr(m, f"{name}_plain"))
+        plain = getattr(m, f"{name}_plain")
+        setattr(m, name, chunked(name, plain) if blocks else plain)
     try:
         yield
     finally:
@@ -558,19 +619,30 @@ RUNS = {"auto": ("v2", ("sme_spmm6",)), "v1": ("v1", ("sme_spmm",)),
         "v3": ("v3", ("sme_spmm_planes", "sme_spmm_planes_decode"))}
 
 
-def serve_run(api, params, prompts, backend, card, route=None, label=None):
-    """Serve the 8 requests once under ``backend``; returns (tokens,
-    launches per kernel).  Counts are set to 0 just before.  ``route``:
-    (what the weights must resolve to, the kernels they launch), by
-    default :data:`RUNS`' entry for ``backend``."""
+def packed_linears(tree) -> int:
+    """SME-packed linears of a param tree: the launches of one model pass."""
+    if isinstance(tree, dict):
+        return 1 if "sme_codes" in tree else sum(map(packed_linears,
+                                                     tree.values()))
+    if isinstance(tree, (list, tuple)):
+        return sum(map(packed_linears, tree))
+    return 0
+
+
+def serve_run(api, params, prompts, backend, card, route=None, label=None,
+              engine_kw=None):
+    """Serve one request of 16 new tokens per prompt once under
+    ``backend``; returns (tokens, launches per kernel).  Counts are set to
+    0 just before.  ``route``: (what the weights must resolve to, the
+    kernels they launch), by default :data:`RUNS`' entry for ``backend``;
+    ``engine_kw``: the engine's settings (default :data:`ONE_SHOT`)."""
     from repro_torch.serve import Request, ServeEngine
-    cfg = api.cfg
     want, mine = route or RUNS[backend]
     label = label or backend
     reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
             for i, p in enumerate(prompts)]
     eng = ServeEngine(api, params, backend=backend, device=api.device,
-                      **ONE_SHOT)
+                      **(engine_kw or ONE_SHOT))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -578,14 +650,15 @@ def serve_run(api, params, prompts, backend, card, route=None, label=None):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    per_pass = cfg.n_layers * 7
+    per_pass = packed_linears(params)
     passes = stats["prefills"] + stats["decode_steps"]
     print(f"serve[{label}]: {stats}", flush=True)
     print(f"serve[{label}]: launches {launches}, per model pass {per_pass}")
     check(stats["backend"] == want,
           f"{label}: backend {backend!r} resolved to {stats['backend']}, "
           f"not {want}")
-    check(stats["completed"] == 8, f"completed {stats['completed']} of 8")
+    check(stats["completed"] == len(reqs),
+          f"completed {stats['completed']} of {len(reqs)}")
     check(all(len(r.out_tokens) == 16 for r in reqs), "short outputs")
     check(all(launches[k] == 0 for k in launches if k not in mine),
           f"{label}: kernels of another backend launched: {launches}")
@@ -595,24 +668,32 @@ def serve_run(api, params, prompts, backend, card, route=None, label=None):
     check(all(launches[k] > 0 for k in mine),
           f"{label}: a kernel of the path never launched: {launches}")
     if "sme_spmm_planes_decode" in mine:
-        n3 = len(_v3_params(params["blocks"]))     # v3 linears per pass
+        n3 = len(_v3_params(params))               # v3 linears per pass
         check(launches["sme_spmm_planes_decode"]
               >= n3 * stats["decode_steps"],
               "v3 decode kernel does not cover every decode step")
     n_tok = sum(len(r.out_tokens) for r in reqs)
     print(f"serve[{label}]: {n_tok / stats['wall_s']:.1f} tokens/s end to "
           f"end, {stats['decode_s'] / stats['decode_steps'] * 1e3:.2f} ms per "
-          f"decode step (4 slots), "
+          f"decode step ({eng.slots} slots), "
           f"{stats['prefill_s'] / stats['prefills'] * 1e3:.1f} ms per "
           f"prefill, peak memory {peak_gb:.2f} GiB | {card}", flush=True)
     return [r.out_tokens for r in reqs], launches
 
 
-def serve_phase(dev, card):
+def qwen_config():
+    """qwen1.5-0.5b at full width, cut to :data:`QWEN_LAYERS` layers."""
     from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS["qwen1.5-0.5b"], n_layers=QWEN_LAYERS)
+
+
+def serve_phase(dev, card):
     from repro_torch.core.integrate import sme_operand_bytes
     from repro_torch.models.model import build_model
-    cfg = ARCHS["qwen1.5-0.5b"]
+    cfg = qwen_config()
+    print(f"serve: qwen1.5-0.5b at full width, depth cut from 24 layers to "
+          f"{cfg.n_layers} (this script's time limit holds the gemma3-12b "
+          f"phase too)", flush=True)
     params, pack_s = build_model_params(dev, cfg)
     print(f"serve: packed {cfg.n_layers} layers x 7 linears to v1, v2 and "
           f"v3 in {pack_s:.1f}s", flush=True)
@@ -640,7 +721,7 @@ def serve_phase(dev, card):
     # one prefill window (the engine's first: 4 rows, bucket 128): v1, v2
     # and v3 bitwise equal, and each within tolerance of the plain
     # versions, in f32 (the algorithm) and bf16 (as served)
-    toks, plen = prefill_window(prompts)
+    toks, plen = prefill_window(prompts, ONE_SHOT["s_max"])
     for dtype in ("float32", "bfloat16"):
         api_d = build_model(dataclasses.replace(cfg, dtype=dtype), device=dev)
         lk = {be: api_d.prefill(params, toks, s_max=256, plen=plen,
@@ -670,22 +751,24 @@ def serve_phase(dev, card):
                                   auto_tokens=tokens["auto"])
 
 
-def prefill_window(prompts):
-    """The engine's first prefill window of ``prompts``: 4 rows right-padded
-    to the bucket of 128, and their lengths."""
-    toks = np.zeros((4, 128), np.int64)
+def prefill_window(prompts, s_max):
+    """The one-shot engine's first prefill window of ``prompts``: 4 rows
+    right-padded to their length bucket, and their lengths."""
+    from repro_torch.serve.engine import _prompt_bucket
+    lens = [len(p) for p in prompts[:4]]
+    toks = np.zeros((4, _prompt_bucket(max(lens), s_max)), np.int64)
     for i, p in enumerate(prompts[:4]):
         toks[i, :len(p)] = p
-    return toks, [len(p) for p in prompts[:4]]
+    return toks, lens
 
 
-def profile_window(api, params, prompts, card, backend):
+def profile_window(api, params, prompts, card, backend, engine_kw=None):
     """Where a serving window's time goes: torch.profiler over one prefill
     and 5 decode steps of 4 requests (after the counted runs)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Request, ServeEngine
     eng = ServeEngine(api, params, backend=backend, device=api.device,
-                      **ONE_SHOT)
+                      **(engine_kw or ONE_SHOT))
     reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
@@ -793,17 +876,21 @@ def engine_workload(vocab):
     return reqs[:4], reqs[4:]
 
 
-def engine_run(api, params, backend, spec_depth, prefix_cache):
-    """Drive the workload once through submit/pump/step/poll.  Returns the
-    requests, the engine, per-request token events and TTFT, wall seconds,
-    model passes (prefill + decode_step calls, counted on the API) and the
-    v3 decode kernel's launches inside draft passes."""
+def engine_run(api, params, backend, spec_depth, prefix_cache,
+               engine_kw=None, waves=None):
+    """Drive a workload once through submit/pump/step/poll: ``waves`` is
+    (first requests, second requests, ``ready(engine, steps)``, when the
+    second wave is submitted), by default :func:`engine_workload`'s after
+    :data:`SECOND_WAVE_AT` steps.  Returns the requests, the engine,
+    per-request token events and TTFT, wall seconds, model passes (prefill
+    + decode_step calls, counted on the API) and the v3 decode kernel's
+    launches inside draft passes."""
     from repro_torch.kernels.sme_spmm.sme_spmm_planes_decode import \
         sme_spmm_planes_decode as dec
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(api, params, backend=backend, device=api.device,
                       spec_depth=spec_depth, prefix_cache=prefix_cache,
-                      **ENGINE)
+                      **(engine_kw or ENGINE))
     passes, draft_launches = [0], [0]
 
     def counted(fn):
@@ -821,7 +908,8 @@ def engine_run(api, params, backend, spec_depth, prefix_cache):
         draft_launches[0] += dec.launches - n0
         return out
     eng._draft = counted_draft
-    first, second = engine_workload(api.cfg.vocab)
+    first, second, ready = waves or (*engine_workload(api.cfg.vocab),
+                                     lambda e, n: n == SECOND_WAVE_AT)
     events, t_sub, ttft = {}, {}, {}
     torch.cuda.synchronize()
     zero_counts()
@@ -829,13 +917,14 @@ def engine_run(api, params, backend, spec_depth, prefix_cache):
     for r in first:
         eng.submit(r)
         t_sub[r.rid] = time.perf_counter()
-    steps = 0
+    steps, waiting = 0, list(second)
     while not all(r.done for r in first + second):
         check(steps < 400, f"engine[{backend}]: not done in 400 steps")
-        if steps == SECOND_WAVE_AT:
-            for r in second:
+        if waiting and ready(eng, steps):
+            for r in waiting:
                 eng.submit(r)
                 t_sub[r.rid] = time.perf_counter()
+            waiting = []
         eng.pump()
         eng.step()
         steps += 1
@@ -884,10 +973,10 @@ def engine_phase(dev, card, params):
     chunked prefill, the prefix cache and self-speculative decode, then the
     same workload with spec off, with the prefix cache off, and under auto
     (v2).  Returns the v3-decode row's draft keys for the JSON line."""
-    from repro_torch.configs import ARCHS
     from repro_torch.models.model import build_model
     t_phase = time.perf_counter()
-    api = build_model(ARCHS["qwen1.5-0.5b"], device=dev)
+    api = build_model(qwen_config(), device=dev)
+    per_pass = packed_linears(params)
     depth, deepest, share, kept = choose_spec_depth(params)
     check(1 <= depth < deepest, f"draft depth {depth} of {deepest}")
     print(f"engine: draft depth {depth} of the deepest group's {deepest} "
@@ -912,8 +1001,8 @@ def engine_phase(dev, card, params):
         got = sum(r["launches"][k] for k in mine)
         check(all(r["launches"][k] == 0 for k in r["launches"]
                   if k not in mine), f"engine[{name}]: other kernels launched")
-        check(got == api.cfg.n_layers * 7 * r["passes"],
-              f"engine[{name}]: {got} launches of {mine} != 168 x "
+        check(got == per_pass * r["passes"],
+              f"engine[{name}]: {got} launches of {mine} != {per_pass} x "
               f"{r['passes']} model passes")
         check(all(r["launches"][k] > 0 for k in mine),
               f"engine[{name}]: a kernel of the path never launched: "
@@ -924,7 +1013,7 @@ def engine_phase(dev, card, params):
         if spec is not None:
             check(m["spec_rounds"].value > 0, f"engine[{name}]: no spec round")
             if backend == "v3":
-                check(r["draft_launches"] == api.cfg.n_layers * 7 * ENGINE[
+                check(r["draft_launches"] == per_pass * ENGINE[
                     "spec_len"] * m["spec_rounds"].value,
                       f"engine[{name}]: draft passes launched "
                       f"{r['draft_launches']} decode kernels")
@@ -1135,10 +1224,9 @@ def compile_phase(dev, card, served):
     import shutil
     import tempfile
     import repro_torch.core.backend as B
-    from repro_torch.configs import ARCHS
     from repro_torch.models.model import build_model
     t_phase = time.perf_counter()
-    cfg = ARCHS["qwen1.5-0.5b"]
+    cfg = qwen_config()
     api = build_model(cfg, device=dev)
     tree = dense_reference_tree(cfg)
     out, launches = {}, {name: 0 for name in KERNELS}
@@ -1157,7 +1245,7 @@ def compile_phase(dev, card, served):
                                    label="artifact auto")
         for k in launches:
             launches[k] += counts[k]
-        toks, plen = prefill_window(served["prompts"])
+        toks, plen = prefill_window(served["prompts"], ONE_SHOT["s_max"])
         for dtype, plain in (("float32", "torch"), ("bfloat16", "plain")):
             api_d = build_model(dataclasses.replace(cfg, dtype=dtype),
                                 device=dev)
@@ -1291,6 +1379,454 @@ def compile_phase(dev, card, served):
     return out, launches
 
 
+# ------------------------------------------------------------ gemma3-12b
+#: gemma3-12b's depth here: one superblock of its 5:1 pattern (5 local
+#: layers, 1 global) of the config's 48 layers (8 superblocks)
+GEMMA_LAYERS = 6
+#: the untied head [3840, 262144] is drawn and compressed in slabs of
+#: 16384 columns, one pool task each (one compression of the whole head
+#: would hold ~110 GB of host intermediates)
+HEAD_SLABS = 16
+HEAD_STD = 0.02                       # lm_init's head std
+#: every head slab is clipped to +-6 std and holds +6 std at [0, 0]: each
+#: slab's per-tensor scale (max |w|) is the whole head's, so the joined
+#: slabs are bitwise one compression of the head (everything after the
+#: scale works per tile or per column tile; checked at a small size)
+HEAD_CLIP = 6 * HEAD_STD
+#: host processes that compress and pack gemma's weights while the card
+#: tests run (no timed phase runs beside them: a busy host slows every
+#: host-bound step and the issue of timed launches)
+PACK_WORKERS = 6
+GEMMA_ONE_SHOT = dict(slots=4, s_max=2048, chunk_len=2048, prefix_cache=False)
+GEMMA_ENGINE = dict(slots=4, s_max=2048, chunk_len=32, page_tokens=16,
+                    spec_len=4)
+#: the prefix two of the gemma requests share: 34 chunks of 32, past W
+SHARED_PREFIX = 1088
+#: gemma prompt lengths are drawn from [lo, hi)
+PROMPT_LENS = (1100, 1501)
+#: gemma's kernel rows: (label, layer linear or "head", K, N)
+GEMMA_SHAPES = (("q 3840x3840", "q", 3840, 3840),
+                ("k 3840x1920", "k", 3840, 1920),
+                ("wi 3840x15360", "wi", 3840, 15360),
+                ("wo 15360x3840", "wo", 15360, 3840),
+                ("head 3840x262144", "head", 3840, 262144))
+#: columns of each gemma shape held against the f64 oracle on the host
+ORACLE_COLS = 1024
+V3_OPS = ("planes", "sign", "rowscale", "rowid", "shift", "last", "nnz")
+V1_OPS = ("codes", "sign", "rowscale", "rowid", "nnz")
+V2_OPS = ("packed", "rowscale", "rowid", "nnz")
+
+
+def gemma_config():
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS["gemma3-12b"], n_layers=GEMMA_LAYERS)
+
+
+def gemma_tasks(cfg):
+    """(name, seed, (K, N), std) of every gemma weight the pool packs,
+    largest first: per layer q, k, v, o, wi, wo (std 1/sqrt(K)), and the
+    head's slabs."""
+    d, ff = cfg.d_model, cfg.d_ff
+    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    shapes = {"q": (d, qd), "k": (d, kvd), "v": (d, kvd), "o": (qd, d),
+              "wi": (d, ff), "wo": (ff, d)}
+    tasks = [(f"{i}/{name}", (k, n), float(k) ** -0.5)
+             for i in range(cfg.n_layers) for name, (k, n) in shapes.items()]
+    tasks += [(f"head/{s}", (d, cfg.vocab // HEAD_SLABS), HEAD_STD)
+              for s in range(HEAD_SLABS)]
+    tasks = [(name, SEED * 1000 + i, shape, std)
+             for i, (name, shape, std) in enumerate(tasks)]
+    return sorted(tasks, key=lambda t: -t[2][0] * t[2][1])
+
+
+def head_slab(w):
+    """A head slab's values with the head's max |w|: clipped to
+    :data:`HEAD_CLIP`, which [0, 0] holds (in place)."""
+    np.clip(w, -HEAD_CLIP, HEAD_CLIP, out=w)
+    w[0, 0] = HEAD_CLIP
+    return w
+
+
+def pack_gemma_weight(task):
+    """Pool worker: one gemma weight (or head slab) drawn from its own seed,
+    compressed once (8 bits, window 3, squeeze 1) and packed for v1, v2
+    and v3; numpy arrays."""
+    from repro_torch.core.integrate import convert_params_to_sme
+    name, seed, (k, n), std = task
+    w = np.random.default_rng(seed).standard_normal((k, n), dtype=np.float32)
+    w *= np.float32(std)
+    if name.startswith("head/"):
+        head_slab(w)
+    packed = convert_params_to_sme({"w": w}, backend="all", device="cpu")
+    return name, {key: t.numpy() for key, t in packed["w"].items()}
+
+
+def join_columns(parts):
+    """One packed param from the packed column slabs of one weight: the
+    raw leaves and the v3 sign/rowscale join along their column-tile axis,
+    the lists per column tile, padded to the longest slab's with the
+    packers' fill (rowscale 1, everything else 0)."""
+    out = {}
+    for key in parts[0]:
+        arrs = [p[key] for p in parts]
+        if arrs[0].ndim == 0:
+            out[key] = arrs[0]
+            continue
+        if key.startswith("sme_v") and not key.endswith(("_nnz", "v3_sign",
+                                                        "v3_rowscale")):
+            L = max(a.shape[1] for a in arrs)
+            fill = 1 if key.endswith("rowscale") else 0
+            arrs = [np.pad(a, [(0, 0), (0, L - a.shape[1])]
+                           + [(0, 0)] * (a.ndim - 2), constant_values=fill)
+                    for a in arrs]
+        axis = 0 if key.startswith("sme_v") and not key.endswith(
+            ("v3_sign", "v3_rowscale")) else 1
+        out[key] = np.concatenate(arrs, axis=axis)
+    return out
+
+
+def check_slab_join():
+    """At 384 x 1024: two 512-column slabs (the second with an empty row
+    tile, so its lists are shorter) joined are byte for byte one
+    compression of the whole weight."""
+    from repro_torch.core.integrate import convert_params_to_sme
+    w = np.random.default_rng(SEED + 5).standard_normal(
+        (384, 1024), dtype=np.float32) * np.float32(HEAD_STD)
+    w[128:256, 512:] = 0.0
+    head_slab(w[:, :512])
+    head_slab(w[:, 512:])
+
+    def pack(a):
+        p = convert_params_to_sme({"w": a}, backend="all", device="cpu")
+        return {k: t.numpy() for k, t in p["w"].items()}
+    whole = pack(w)
+    joined = join_columns([pack(np.ascontiguousarray(w[:, :512])),
+                           pack(np.ascontiguousarray(w[:, 512:]))])
+    check(sorted(joined) == sorted(whole) and all(
+        joined[k].dtype == whole[k].dtype and joined[k].shape == whole[k].shape
+        and joined[k].tobytes() == whole[k].tobytes() for k in whole),
+        "joined column slabs differ from one compression of the weight")
+
+
+def pack_gemma_while(during):
+    """Draw and pack every gemma weight in a pool of :data:`PACK_WORKERS`
+    spawned host processes while ``during()`` runs, then wait for them and
+    stop the pool.  Returns ({name: packed numpy param}, seconds from the
+    pool's start to its last result, seconds waited after ``during``)."""
+    import multiprocessing
+    t0 = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(PACK_WORKERS)
+    try:
+        pending = [pool.apply_async(pack_gemma_weight, (t,))
+                   for t in gemma_tasks(gemma_config())]
+        during()
+        t1 = time.perf_counter()
+        got = dict(r.get() for r in pending)
+        t2 = time.perf_counter()
+    finally:
+        pool.terminate()
+        pool.join()
+    return got, t2 - t0, t2 - t1
+
+
+def gemma_params(dev, cfg, got):
+    """The packed gemma model on the card from the pool's results, and host
+    copies of layer 0's raw weights and the head's first slab for the
+    oracle."""
+    from repro_torch.core.integrate import to_torch
+    host = {k: got[k] for k in ("0/q", "0/k", "0/wi", "0/wo", "head/0")}
+    slabs = [got.pop(f"head/{s}") for s in range(HEAD_SLABS)]
+    check(len({float(p["sme_scale"][0, 0]) for p in slabs}) == 1,
+          "head slabs have different scales")
+    d, ff = cfg.d_model, cfg.d_ff
+    ones = np.ones(d, np.float32)
+    blocks = [{"norm1": {"w": ones},
+               "mix": {k: {"w": got.pop(f"{i}/{k}")} for k in "qkvo"},
+               "norm2": {"w": ones},
+               "mlp": {"wi": {"w": got.pop(f"{i}/wi"),
+                              "b": np.zeros(ff, np.float32)},
+                       "wo": {"w": got.pop(f"{i}/wo"),
+                              "b": np.zeros(d, np.float32)}}}
+              for i in range(cfg.n_layers)]
+    params = to_torch({"final_norm": {"w": ones}, "blocks": blocks,
+                       "lm_head": {"w": join_columns(slabs)}}, dev)
+    del slabs, blocks
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params["embed"] = {"w": torch.randn((cfg.vocab, d), generator=gen,
+                                        device=dev) * EMBED_STD}
+    torch.cuda.synchronize()
+    return params, host
+
+
+def oracle_weight(hp, cols):
+    """The SMEWeight of a raw packed param's first ``cols`` columns."""
+    from repro_torch.core.backend import smeweight_from_param
+    t = cols // 128
+    return smeweight_from_param({
+        "sme_codes": hp["sme_codes"][:, :t], "sme_rowexp":
+        hp["sme_rowexp"][:, :t], "sme_sign": hp["sme_sign"][:, :cols // 8],
+        "sme_scale": hp["sme_scale"][:, :cols], "sme_tilesq":
+        hp["sme_tilesq"][:, :t], "sme_nbits": hp["sme_nbits"],
+        "sme_squeezed": hp["sme_squeezed"], "sme_window": hp["sme_window"]})
+
+
+def gemma_kernel_rows(dev, params, host, card):
+    """Each kernel at gemma's widths (layer 0's q, k, wi and wo and the
+    head, the model's own operands): v3-decode at M = 8 and 64, v1 and v2
+    at 8, 64 and 512, v3-prefill at 512; each against its plain version
+    (in blocks of rows and column tiles) and the f64 oracle on the first
+    :data:`ORACLE_COLS` columns, v1 == v2 == v3 bitwise; times of the launch
+    alone, the plain version, ``torch.matmul`` on the dequantized weight in
+    f32 (the same function) and in bf16 (a dense bf16 model's), and the
+    bound.  Returns {kernel: {label: {M: readings}}}."""
+    from repro_torch.core.integrate import sme_dequant
+    from repro_torch.core.sme import sme_matmul_ref_np
+    ws = wrappers()
+    plains = {n: chunked(n, getattr(m, f"{n}_plain"))
+              for n, m in _modules().items()}
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(SEED + 6)
+    rows = {name: {} for name in KERNELS}
+    for label, leaf, K, N in GEMMA_SHAPES:
+        p = params["lm_head"]["w"] if leaf == "head" else (
+            params["blocks"][0]["mix" if leaf in "qkvo" else "mlp"][leaf]["w"])
+        smew = oracle_weight(host["head/0" if leaf == "head" else
+                                 f"0/{leaf}"], min(N, ORACLE_COLS))
+        check(tuple(p["sme_sign"].shape) == (K, N // 8), f"{label} shape")
+        a3 = [p[f"sme_v3_{o}"] for o in V3_OPS]
+        a1 = [p[f"sme_v1_{o}"] for o in V1_OPS]
+        a2 = [p[f"sme_v2_{o}"] for o in V2_OPS]
+        nt = N // 128
+        scale = p["sme_scale"].reshape(1, -1).float()
+        colscale = (scale * 2.0 ** -8).reshape(nt, 128)
+        nnz3, last = a3[6], a3[5]
+        valid = torch.arange(last.shape[1], device=dev)[None] < nnz3[:, None]
+        planes, groups = int(nnz3.sum()), int(((last == 1) & valid).sum())
+        occ = int(a1[4].sum())
+        w32 = sme_dequant(p, torch.float32)
+        w16 = w32.to(torch.bfloat16)
+        for m in (8, 64, 512):
+            x = torch.as_tensor(rng.standard_normal((m, K)),
+                                dtype=torch.float32, device=dev)
+            ref = sme_matmul_ref_np(x.cpu().numpy(), smew)
+            x128 = torch.zeros((-(-m // 128) * 128, K), device=dev)
+            x128[:m] = x
+            y_pre = (ws["sme_spmm_planes"](x128, *a3)[:m] * scale
+                     * 2.0 ** -8)
+            runs = []
+            if m <= 64:
+                runs.append(("sme_spmm_planes_decode", lambda: ws[
+                    "sme_spmm_planes_decode"](x, *a3[:3], colscale, *a3[3:]),
+                    lambda: plains["sme_spmm_planes_decode"](
+                        x, *a3[:3], colscale, *a3[3:]), 1.0))
+            else:
+                runs.append(("sme_spmm_planes", lambda: ws["sme_spmm_planes"](
+                    x128, *a3)[:m], lambda: plains["sme_spmm_planes"](
+                        x128, *a3)[:m], 2.0 ** -8))
+            runs.append(("sme_spmm", lambda: ws["sme_spmm"](x, *a1),
+                         lambda: plains["sme_spmm"](x, *a1), 2.0 ** -8))
+            runs.append(("sme_spmm6", lambda: ws["sme_spmm6"](x, *a2),
+                         lambda: plains["sme_spmm6"](x, *a2), 2.0 ** -1))
+            lib_ms = time_ms(lambda: torch.matmul(x, w32), flush)
+            bf16_ms = time_ms(lambda: torch.matmul(x.bfloat16(), w16), flush)
+            for name, kern, plain, q in runs:
+                s = scale if name != "sme_spmm_planes_decode" else 1.0
+                y, yp = kern() * s * q, plain() * s * q
+                torch.cuda.synchronize()
+                err, rel = check_close(name, y, yp, ref,
+                                       f"gemma {label} M={m}")
+                check(bool(torch.equal(y, y_pre)),
+                      f"{name} gemma {label} M={m}: != v3 prefill bitwise")
+                ms = time_ms(kern, flush)
+                plain_ms = time_ms(plain, flush, iters=3)
+                if name.startswith("sme_spmm_planes"):
+                    nbytes = (m * K * 4 + planes * 2048 + groups * (2048 + 512)
+                              + nt * 128 * 4 + m * N * 4)
+                    flops = 2.0 * m * 128 * 128 * groups
+                else:
+                    tile = 16384 + 2048 + 512 if name == "sme_spmm" \
+                        else 12288 + 512
+                    nbytes = (m * K * 4 + occ * tile + occ * 4 + nt * 4
+                              + m * N * 4)
+                    flops = 2.0 * m * 128 * 128 * occ
+                bound, by = bound_of(nbytes, flops)
+                print(f"kernel {name:22s} gemma {label:16s} M={m:3d}: "
+                      f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+                      f"torch.matmul f32 {lib_ms * 1e3:.1f} us (bf16 "
+                      f"{bf16_ms * 1e3:.1f} us), bound {bound * 1e3:.2f} us "
+                      f"({by}: {nbytes} B, {flops:.3g} FLOP) | max|k-p|="
+                      f"{err:.2e} oracle_rel={rel:.2e} (first "
+                      f"{ref.shape[1]} columns) == v3 prefill | {card}",
+                      flush=True)
+                rows[name].setdefault(label, {})[str(m)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    library_ms=lib_ms, bf16_matmul_ms=bf16_ms,
+                    max_abs_err=err)
+        del w32, w16
+        torch.cuda.empty_cache()
+    del flush
+    return rows
+
+
+def gemma_workload(vocab):
+    """4 greedy requests of 1,100-1,500-token prompts, 16 new tokens: A and
+    B share the first :data:`SHARED_PREFIX` tokens.  The engine admits A,
+    C and D, and B once A has scored the shared prefix (its snapshot there
+    holds rings wrapped past W = 1024)."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED + 4)
+    prefix = rng.integers(0, vocab, SHARED_PREFIX)
+    lens = rng.integers(*PROMPT_LENS, size=4)
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, vocab, int(n) - SHARED_PREFIX)]) for n in lens[:2]]
+    prompts += [rng.integers(0, vocab, int(n)) for n in lens[2:]]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    a = reqs[0]
+
+    def ready(eng, _):
+        slot = next((i for i, r in enumerate(eng.active) if r is a), None)
+        return slot is not None and eng._pf_next[slot] >= SHARED_PREFIX
+    return prompts, ([a] + reqs[2:], [reqs[1]], ready)
+
+
+def gemma_phase(dev, card, packed):
+    """gemma3-12b at full width, one superblock, untied packed head: its
+    kernel rows; one-shot serving under auto (v2) and v3; a prefill
+    window's f32 logits; a profiled window; the engine with spec and
+    without.  Returns the kernel rows, launches per kernel over the
+    serving and engine runs, and readings."""
+    from repro_torch.core.integrate import sme_operand_bytes
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    cfg = gemma_config()
+    print(f"gemma: {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, GQA kv {cfg.n_kv_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, W {cfg.swa_window}, rope theta "
+          f"{cfg.rope_theta:g}, {cfg.act}, untied packed head); depth cut "
+          f"from 48 layers to one superblock of {cfg.n_layers} "
+          f"({', '.join(cfg.pattern)})", flush=True)
+    check_slab_join()
+    got, pack_s, wait_s = packed
+    print(f"gemma: weights drawn, compressed once and packed to v1, v2 and "
+          f"v3 on the host by {PACK_WORKERS} processes beside the card "
+          f"tests: {pack_s:.1f}s from the pool's start, {wait_s:.1f}s waited "
+          f"after the card tests", flush=True)
+    params, host = gemma_params(dev, cfg, got)
+    del got
+    ob = sme_operand_bytes(params)
+    per_pass = packed_linears(params)
+    print(f"gemma: {ob['weights']} weights in {per_pass} packed linears: "
+          + ", ".join(
+              f"{be} {ob[be] / ob['weights']:.4f} B" for be in ("v1", "v2",
+                                                               "v3"))
+          + f"; card memory {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    out = {"weights": ob["weights"], "pack_s": pack_s, "pack_wait_s": wait_s}
+    rows = gemma_kernel_rows(dev, params, host, card)
+    del host
+    api = build_model(cfg, device=dev)
+    prompts, waves = gemma_workload(cfg.vocab)
+    launches = {name: 0 for name in KERNELS}
+    tokens = {}
+    for backend in ("auto", "v3"):
+        tokens[backend], counts = serve_run(api, params, prompts, backend,
+                                            card, engine_kw=GEMMA_ONE_SHOT,
+                                            label=f"gemma {backend}")
+        for k in launches:
+            launches[k] += counts[k]
+    check(tokens["auto"] == tokens["v3"], "gemma: v2 and v3 tokens differ")
+    print("gemma: one-shot tokens of auto (v2) and v3 identical", flush=True)
+
+    toks, plen = prefill_window(prompts, GEMMA_ONE_SHOT["s_max"])
+    api32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+
+    def logits(backend, plain=False):
+        with plain_kernels(blocks=True) if plain \
+                else contextlib.nullcontext():
+            return api32.prefill(params, toks, s_max=GEMMA_ONE_SHOT["s_max"],
+                                 plen=plen, backend=backend)[0]
+    lk = {be: logits(be) for be in ("v2", "v3")}
+    check(bool(torch.equal(lk["v2"], lk["v3"])),
+          "gemma f32 prefill logits differ between v2 and v3")
+    check(bool(torch.isfinite(lk["v2"]).all())
+          and lk["v2"].shape == (4, cfg.vocab), "gemma logits")
+    for what, other in (("torch backend", logits("torch")),
+                        ("plain versions", logits("v2", plain=True))):
+        diff = float((lk["v2"] - other).abs().max() / other.abs().max())
+        print(f"gemma: f32 prefill logits (4 x {toks.shape[1]}) v2 == v3 "
+              f"bitwise; vs the {what}: max rel diff {diff:.2e} (tolerance "
+              f"{TOL_LOGITS['float32']:.0e})", flush=True)
+        check(diff <= TOL_LOGITS["float32"], f"gemma logits vs {what}")
+        out[f"logits_rel_{what.split()[0]}"] = diff
+    del lk, api32
+    torch.cuda.empty_cache()
+    profile_window(api, params, prompts, card, "auto",
+                   engine_kw=GEMMA_ONE_SHOT)
+
+    depth, deepest, share, kept = choose_spec_depth(params)
+    runs = {}
+    for name, spec in (("spec", depth), ("spec off", None)):
+        _, w = gemma_workload(cfg.vocab)
+        r = runs[name] = engine_run(api, params, "v3", spec, True,
+                                    engine_kw=GEMMA_ENGINE, waves=w)
+        eng, reqs, m = r["eng"], r["reqs"], r["eng"]._m
+        for k in launches:
+            launches[k] += r["launches"][k]
+        mine = KERNELS_OF["v3"]
+        check(all(q.outcome == "completed" and len(q.out_tokens) == 16
+                  for q in reqs), f"gemma engine[{name}]: incomplete")
+        check(all(r["events"].get(q.rid) == q.out_tokens for q in reqs),
+              f"gemma engine[{name}]: token events != out_tokens")
+        check(sum(r["launches"][k] for k in mine) == per_pass * r["passes"]
+              and all(r["launches"][k] == 0 for k in r["launches"]
+                      if k not in mine) and all(r["launches"][k] > 0
+                                                for k in mine),
+              f"gemma engine[{name}]: launches {r['launches']} for "
+              f"{r['passes']} passes of {per_pass}")
+        hits, side = m["prefix_hits"].value, m["prefix_side_rows"].value
+        wrapped = sorted(e.length for e in eng._prefix.entries
+                         if e.length > cfg.swa_window)
+        check(hits >= 1 and side == m["prefix_snapshots"].value > 0,
+              f"gemma engine[{name}]: prefix hits {hits}, side rows {side}")
+        if spec is not None:
+            check(m["spec_rounds"].value > 0 and r["draft_launches"]
+                  == per_pass * GEMMA_ENGINE["spec_len"]
+                  * m["spec_rounds"].value,
+                  f"gemma engine[{name}]: draft launches "
+                  f"{r['draft_launches']}")
+        n_tok = sum(len(q.out_tokens) for q in reqs)
+        split = ", ".join(f"{k} {n} x {ms:.1f} ms"
+                          for k, (n, ms) in eng.step_ms().items())
+        drafted = m["spec_draft_tokens"].value
+        print(f"gemma engine[{name}]: {r['steps']} steps ({split}); "
+              f"{r['passes']} passes; {n_tok} tokens in {r['wall']:.2f} s = "
+              f"{n_tok / r['wall']:.2f} tokens/s; spec depth "
+              f"{depth if spec else '-'} of {deepest}, rounds "
+              f"{int(m['spec_rounds'].value)}, accepted "
+              f"{int(m['spec_accepted'].value)} of {int(drafted)}; prefix "
+              f"hits {int(hits)}, misses {int(m['prefix_misses'].value)}, "
+              f"snapshots {int(m['prefix_snapshots'].value)} (side-slab rows "
+              f"{int(side)}; live entries past W: {wrapped}); TTFT s "
+              + ", ".join(f"{q.rid}:{r['ttft'][q.rid]:.1f}" for q in reqs)
+              + f" | {card}", flush=True)
+        out[f"engine_{name.replace(' ', '_')}_tokens_per_s"] = \
+            n_tok / r["wall"]
+    greedy = [[q.out_tokens for q in r["reqs"]] for r in runs.values()]
+    one_shot = [tokens["v3"][q.rid] for q in runs["spec"]["reqs"]]
+    check(greedy[0] == greedy[1] == one_shot,
+          "gemma: engine tokens with spec, without, and one-shot differ")
+    print("gemma: engine tokens with spec == without == one-shot; distinct "
+          "tokens per request: " + ", ".join(
+              f"{q.rid}:{len(set(q.out_tokens))}"
+              for q in runs["spec"]["reqs"]),
+          flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"gemma: phase {out['phase_s']:.1f}s", flush=True)
+    return rows, launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1313,15 +1849,20 @@ def main() -> int:
     for line in ptxas_summary(reports):
         print(f"  ptxas {line}")
 
+    # gemma's weights are drawn and packed on the host beside the card
+    # tests, before any timed phase
+    packed = pack_gemma_while(card_tests)
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     agg, tile_agg = kernel_phase(dev, flush)
     del flush                    # not part of the serving peak memory
-    card_tests()
     launches, params, served = serve_phase(dev, card)
     draft = engine_phase(dev, card, params)
     del params
     torch.cuda.empty_cache()
     compiled, artifact_launches = compile_phase(dev, card, served)
+    torch.cuda.empty_cache()
+    gemma_rows, gemma_launches, gemma = gemma_phase(dev, card, packed)
+    del packed
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
     rows = []
@@ -1343,9 +1884,13 @@ def main() -> int:
             row.update(draft)
         # the compile phase's runs from the two artifacts
         row["artifact_launches"] = artifact_launches[name]
+        # gemma3-12b's path (one-shot auto and v3, the engine twice) and
+        # its kernel rows: per call at each shape and M
+        row["gemma_launches"] = gemma_launches[name]
+        row["gemma"] = gemma_rows[name]
         rows.append(row)
-    # times are per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls
-    print(json.dumps({"compile": compiled}))
+    # qwen times are per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls
+    print(json.dumps({"compile": compiled, "gemma": gemma}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 
 ``from_reference`` takes the reference decoder-only LM's params as numpy
 arrays (``jax.tree.map(np.asarray, params)``), dense or already SME-packed
-with ``sme_*`` / ``sme_v3_*`` leaves, and returns the port's params:
-the stacked ``blocks["slot0"]`` arrays split into one dict per layer,
+with ``sme_*`` / ``sme_v3_*`` leaves, and returns the port's params: the
+stacked superblock arrays ``blocks["slot{j}"]`` split into one dict per
+layer (layer ``s * n_slots + j`` is slot ``j`` of superblock ``s``, as the
+reference's scan runs them), the untied ``lm_head`` where there is one,
 every leaf a torch tensor on ``device``.  Packed leaves are carried byte
 for byte (their padded plane-list length included), so both packages then
 compute the same function; a compiler's per-layer draft depth
@@ -20,6 +22,8 @@ from .core.integrate import to_torch
 
 __all__ = ["from_reference", "to_reference"]
 
+_TOP = ("embed", "final_norm", "lm_head")
+
 
 def _index(tree, i: int):
     if isinstance(tree, dict):
@@ -28,26 +32,29 @@ def _index(tree, i: int):
 
 
 def from_reference(tree: dict, device=None) -> dict:
-    extra = set(tree) - {"embed", "final_norm", "blocks"}
-    if extra or set(tree["blocks"]) != {"slot0"}:
+    n_slots = len(tree["blocks"])
+    extra = set(tree) - {*_TOP, "blocks"}
+    if extra or set(tree["blocks"]) != {f"slot{j}" for j in range(n_slots)}:
         raise NotImplementedError(
-            f"only single-slot decoder-only trees with tied heads carry "
-            f"across so far; got extra keys {sorted(extra)} and block slots "
+            f"only decoder-only trees of superblock slots carry across; got "
+            f"extra keys {sorted(extra)} and block slots "
             f"{sorted(tree['blocks'])}")
-    slot = tree["blocks"]["slot0"]
-    n_layers = np.asarray(slot["norm1"]["w"]).shape[0]
-    return to_torch({"embed": tree["embed"], "final_norm": tree["final_norm"],
-                     "blocks": [_index(slot, i) for i in range(n_layers)]},
-                    device)
+    slots = [tree["blocks"][f"slot{j}"] for j in range(n_slots)]
+    n_super = np.asarray(slots[0]["norm1"]["w"]).shape[0]
+    out = {k: tree[k] for k in _TOP if k in tree}
+    out["blocks"] = [_index(slot, s) for s in range(n_super)
+                     for slot in slots]
+    return to_torch(out, device)
 
 
-def to_reference(params: dict) -> dict:
+def to_reference(params: dict, n_slots: int = 1) -> dict:
     """The inverse of :func:`from_reference`: the port's per-layer params
     (torch tensors or numpy arrays) as the reference's tree of numpy
-    arrays, every ``blocks[i]`` leaf stacked into ``blocks["slot0"]``.
-    The compiler plans and packs this layout (one plan per stacked leaf,
-    as the reference does), so a ``.smez`` of either package serves in
-    the other."""
+    arrays, layers ``j, j + n_slots, ...`` stacked into
+    ``blocks["slot{j}"]`` (``n_slots = len(cfg.pattern)``).  The compiler
+    plans and packs this layout (one plan per stacked leaf, as the
+    reference does), so a ``.smez`` of either package serves in the
+    other."""
     def host(t):
         return t.detach().cpu().numpy() if torch.is_tensor(t) \
             else np.asarray(t)
@@ -61,6 +68,11 @@ def to_reference(params: dict) -> dict:
         if isinstance(t, dict):
             return {k: walk(v) for k, v in t.items()}
         return host(t)
-    return {"embed": walk(params["embed"]),
-            "final_norm": walk(params["final_norm"]),
-            "blocks": {"slot0": stack(*params["blocks"])}}
+    blocks = params["blocks"]
+    if len(blocks) % n_slots:
+        raise ValueError(f"{len(blocks)} layers are not whole superblocks of "
+                         f"{n_slots} slots")
+    out = {k: walk(params[k]) for k in _TOP if k in params}
+    out["blocks"] = {f"slot{j}": stack(*blocks[j::n_slots])
+                     for j in range(n_slots)}
+    return out

@@ -39,6 +39,16 @@ holds, a v3 group deeper than the 16 planes a launch stages, groups left
 open); :func:`ensure_operands` and ``compiler.load_artifact`` call it, so
 a malformed list raises ``ValueError`` before any launch.
 
+The backend of a call is its explicit name, else the process default
+(:func:`default_backend`: the :func:`use_backend` context, else
+:func:`set_default_backend`, else ``SME_BACKEND``, else ``auto``).  v3
+takes its decode kernel by the ``SME_DECODE_KERNEL`` rule
+(:func:`_use_decode_kernel`: ``auto`` when ``2*M <= bm``, ``on`` when ``M
+<= bm``, ``off`` never) with ``bm`` from :func:`resolve_block_m`
+(:func:`use_block` > the autotune cache > ``SME_BM`` > 128).  The kernels
+fix their own 128x128 tiles, so ``bm`` moves only that threshold; v1 and
+v2 pick their walk by M inside the kernel.
+
 ``plane_depth`` (the self-speculative draft, DESIGN.md §11) resolves
 through :func:`resolve_spec_depth` (explicit argument > the
 :func:`use_spec_depth` context > ``None``).  Only v3 truncates: its draft
@@ -48,6 +58,8 @@ runs the decode kernel on each tile group's top planes.  v1, v2 and
 from __future__ import annotations
 
 import contextlib
+import math
+import os
 import weakref
 from typing import Dict, Optional, Tuple
 
@@ -61,14 +73,16 @@ from .sme import SMEWeight, csc_tile_order
 __all__ = ["SMEBackend", "SpmmV2Backend", "get_backend", "resolve_backend",
            "resolved_backends", "sme_apply", "AUTO_ORDER", "use_spec_depth",
            "resolve_spec_depth", "smeweight_from_param",
-           "pack_param_operands", "ensure_operands", "validate_operands"]
+           "pack_param_operands", "ensure_operands", "validate_operands",
+           "default_backend", "set_default_backend", "use_backend",
+           "use_block", "resolve_block_m"]
 
 _META = ("sme_nbits", "sme_squeezed", "sme_window")
 _META_DEFAULTS = {"sme_nbits": 8, "sme_squeezed": 1, "sme_window": 3}
 #: planes of one tile group the v3 kernels stage (``kMaxPlanes`` of
 #: ``kernels/csrc/ordered_partials.cuh``: codes have at most 16 bits)
 MAX_GROUP_PLANES = 16
-#: M tile of the prefill kernel's padding contract (the reference's bm)
+#: M tile of the prefill kernel's padding contract, and the default ``bm``
 BM = 128
 
 
@@ -95,10 +109,12 @@ class SMEBackend:
         return True
 
     def matmul2d(self, x2d: torch.Tensor, ops: Dict[str, torch.Tensor],
-                 param: dict, plane_depth=None) -> torch.Tensor:
+                 param: dict, plane_depth=None, bm: int = BM
+                 ) -> torch.Tensor:
         """[M, K] @ packed -> [M, N] float32.  ``plane_depth`` asks for
         the truncated draft product; backends without per-plane payload
-        ignore it (their draft is exact)."""
+        ignore it (their draft is exact).  ``bm`` is the decode
+        threshold's M block (v3 only)."""
         raise NotImplementedError(f"backend {self.name!r} has no operands")
 
     def key(self, op: str) -> str:
@@ -137,9 +153,24 @@ def _padded_x(x2d: torch.Tensor, mp: int, kp: int) -> torch.Tensor:
     return xp
 
 
+#: ``SME_DECODE_KERNEL`` values that turn the v3 decode kernel off
+_DECODE_OFF = ("off", "0", "never")
+
+
+def _decode_mode() -> str:
+    return os.environ.get("SME_DECODE_KERNEL", "auto").lower()
+
+
 def _use_decode_kernel(m: int, bm: int) -> bool:
-    """Decode kernel iff M is at most half an M tile, i.e. when the matmul
-    grid would waste most of its padded rows."""
+    """The v3 decode-kernel rule (``SME_DECODE_KERNEL``, read per call):
+    ``off``/``0`` never, ``on``/``1`` whenever M fits one M block, ``auto``
+    (default) when M is at most half a block, i.e. when the matmul grid
+    would waste most of its padded rows."""
+    mode = _decode_mode()
+    if mode in _DECODE_OFF:
+        return False
+    if mode in ("on", "1", "always"):
+        return m <= bm
     return 2 * m <= bm
 
 
@@ -161,7 +192,7 @@ class SpmmV1Backend(SMEBackend):
     def pack_weight(self, smew, pad_to=None):
         return smew.pack_csc(pad_to=pad_to)
 
-    def matmul2d(self, x2d, ops, param, plane_depth=None):
+    def matmul2d(self, x2d, ops, param, plane_depth=None, bm=BM):
         from ..kernels.sme_spmm.sme_spmm import sme_spmm
         return _tile_csc_call(
             sme_spmm, x2d, [ops[o] for o in self.OPERANDS],
@@ -214,7 +245,7 @@ class SpmmV2Backend(SMEBackend):
         return {"packed": packed, "rowscale": rowscale, "rowid": rowid,
                 "nnz": nnz}
 
-    def matmul2d(self, x2d, ops, param, plane_depth=None):
+    def matmul2d(self, x2d, ops, param, plane_depth=None, bm=BM):
         from ..kernels.sme_spmm.sme_spmm6 import sme_spmm6
         # the kernel decodes with squeezed = 0
         return _tile_csc_call(
@@ -268,16 +299,19 @@ class SpmmV3Backend(SMEBackend):
     def pack_weight(self, smew, pad_to=None):
         return smew.pack_plane_csc(pad_to=pad_to)
 
-    def matmul2d(self, x2d, ops, param, plane_depth=None):
+    def matmul2d(self, x2d, ops, param, plane_depth=None, bm=BM):
         n = param["sme_scale"].shape[-1]
         scale = param["sme_scale"].reshape(1, -1).float()
         qscale = _qscale(param, x2d)
         m = x2d.shape[0]
-        # truncation lives in the decode kernel's tile-group walk, so a
-        # draft takes it whenever the batch fits one M tile; past that the
-        # draft is the exact product (a correct draft, not a shortcut)
-        if _use_decode_kernel(m, BM) or (plane_depth is not None
-                                         and m <= BM):
+        use_decode = _use_decode_kernel(m, bm)
+        if plane_depth is not None and not use_decode:
+            # truncation lives in the decode kernel's tile-group walk, so a
+            # draft takes it whenever the batch fits one M block (unless
+            # SME_DECODE_KERNEL is off); otherwise the draft is the exact
+            # product (a correct draft, not a shortcut)
+            use_decode = m <= bm and _decode_mode() not in _DECODE_OFF
+        if use_decode:
             return _v3_decode_impl(x2d, ops, scale, qscale, n=n,
                                    plane_depth=plane_depth)
         return _v3_call(x2d, ops, scale, qscale, n=n)
@@ -300,13 +334,86 @@ def get_backend(name: str) -> SMEBackend:
                        f"{tuple(_REGISTRY)}") from None
 
 
+# ------------------------------------------------ default, block size
+#: the process default backend, seeded from ``SME_BACKEND`` (reference
+#: ``core/backend.py``'s ``_backend_stack``)
+_backend_stack = [os.environ.get("SME_BACKEND", "auto")]
+
+
+def default_backend() -> str:
+    return _backend_stack[-1]
+
+
+def set_default_backend(name: str) -> None:
+    if name != "auto":
+        get_backend(name)                     # validate eagerly
+    _backend_stack[0] = name
+
+
+@contextlib.contextmanager
+def use_backend(name: Optional[str]):
+    """Scoped default backend for every call that names none; ``None`` is
+    a no-op, so call sites thread an optional choice without branching."""
+    if name is None:
+        yield
+        return
+    if name != "auto":
+        get_backend(name)
+    _backend_stack.append(name)
+    try:
+        yield
+    finally:
+        _backend_stack.pop()
+
+
+#: scoped ``bm`` (use_block); None = unset
+_block_stack: list = [None]
+
+
+@contextlib.contextmanager
+def use_block(bm: Optional[int]):
+    """Scoped M block for every ``sme_apply`` underneath; ``None`` is a
+    no-op.  It sets v3's decode threshold only (:func:`_use_decode_kernel`):
+    the port's kernels fix their own 128x128 tiles."""
+    if bm is None:
+        yield
+        return
+    _block_stack.append(int(bm))
+    try:
+        yield
+    finally:
+        _block_stack.pop()
+
+
+def resolve_block_m(backend_name: Optional[str] = None,
+                    m: Optional[int] = None, k: Optional[int] = None,
+                    n: Optional[int] = None) -> int:
+    """The ``bm`` of one dispatch: :func:`use_block` > the active autotune
+    cache's best for this backend and shape > ``SME_BM`` > 128."""
+    if _block_stack[-1] is not None:
+        return _block_stack[-1]
+    if backend_name and m and k and n:
+        from ..hardware.autotune import get_cache
+        cache = get_cache()
+        if cache is not None:
+            best = cache.best(backend_name, m, k, n)
+            if best is not None:
+                return best[0]
+    env = os.environ.get("SME_BM", "")
+    if env.isdigit() and int(env) > 0:
+        return int(env)
+    return BM
+
+
 def resolve_backend(param: Optional[dict] = None,
                     name: Optional[str] = None) -> SMEBackend:
-    """An explicit name, else (``None`` or ``"auto"``) the first backend of
-    :data:`AUTO_ORDER` whose operands ``param`` carries; for a param
-    without any, on the card v2 (v1 where minifloat-6 cannot hold the
-    settings; :func:`sme_apply` packs them once), elsewhere ``torch``."""
-    if name not in (None, "auto"):
+    """An explicit name, else the default (:func:`default_backend`); under
+    ``"auto"`` the first backend of :data:`AUTO_ORDER` whose operands
+    ``param`` carries; for a param without any, on the card v2 (v1 where
+    minifloat-6 cannot hold the settings; :func:`sme_apply` packs them
+    once), elsewhere ``torch``."""
+    name = name or default_backend()
+    if name != "auto":
         return get_backend(name)
     if param is not None:
         for cand in AUTO_ORDER:
@@ -575,6 +682,7 @@ def sme_apply(x: torch.Tensor, param: dict, backend: Optional[str] = None,
     :func:`resolve_spec_depth`) asks for the truncated top-planes draft
     product; it is resolved for v3 only, and a stacked depth is sliced per
     lead index."""
+    backend = backend or default_backend()
     be = resolve_backend(param, backend)
     pd = resolve_spec_depth(param, plane_depth) if be.name == "v3" else None
     out_dtype = out_dtype or x.dtype
@@ -585,7 +693,7 @@ def sme_apply(x: torch.Tensor, param: dict, backend: Optional[str] = None,
         return torch.matmul(x, w).to(out_dtype)
     if be.has_operands(param):
         ops = {op: param[be.key(op)] for op in be.OPERANDS}
-    elif backend in (None, "auto"):
+    elif backend == "auto":
         ops = _cached_operands(param, be)     # auto on the card: pack once
     else:
         raise ValueError(f"param has no {be.name} operands: convert it with "
@@ -595,8 +703,9 @@ def sme_apply(x: torch.Tensor, param: dict, backend: Optional[str] = None,
         # reordered weight: operands hold W[perm, :], so gather the input
         # to match (x[..., p] @ W[p, :] == x @ W)
         x = x[..., param["sme_perm"].long()]
+    bm = resolve_block_m(be.name, x.numel() // (k * math.prod(lead)), k, n)
     if not lead:
-        y = be.matmul2d(x.reshape(-1, k), ops, param, plane_depth=pd)
+        y = be.matmul2d(x.reshape(-1, k), ops, param, plane_depth=pd, bm=bm)
         return y.reshape(*x.shape[:-1], n).to(out_dtype)
     nl = len(lead)
     if tuple(x.shape[:nl]) != lead:
@@ -612,6 +721,6 @@ def sme_apply(x: torch.Tensor, param: dict, backend: Optional[str] = None,
         pd_i = pd[idx] if getattr(pd, "ndim", 0) == nl else pd
         pd_i = None if pd_i is None or int(pd_i) <= 0 else int(pd_i)
         ys.append(be.matmul2d(x[idx].reshape(-1, k), ops_i, param_i,
-                              plane_depth=pd_i))
+                              plane_depth=pd_i, bm=bm))
     return torch.stack(ys).reshape(lead + tuple(x.shape[nl:-1]) + (n,)
                                    ).to(out_dtype)

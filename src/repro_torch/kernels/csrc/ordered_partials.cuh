@@ -467,7 +467,14 @@ struct Minifloat6Strip : SlotList {
 // ---- decode_walk ----------------------------------------------------------
 
 // Launch shape of decode_walk, from the host's view of the operands: the
-// groups of a column are at most min(row tiles, list length).
+// groups of a column are at most min(row tiles, list length).  A block
+// holds its ring of stages, the decoded strip, one [MB][32] partial per
+// group it computes and the decoder's metadata; the partials and the x
+// slices grow with the M bucket and with the row tiles per rank, so a
+// deep weight (K = 15360: 120 row tiles, 15 per rank) at the M <= 64
+// bucket would pass kMaxSmem with v3's 16 staged planes.  Then the bucket
+// halves (more, shorter M tiles in grid.y) until the block fits: rows are
+// independent, so every output keeps its chains and its list-order sum.
 struct DecodeShape {
   int mr, mb, cs, per_rank;
   size_t stage, smem;
@@ -477,16 +484,19 @@ struct DecodeShape {
 template <class D>
 inline DecodeShape decode_shape(const D& d, int m, int k_pad, int nt, int L) {
   DecodeShape s;
-  s.mr = m <= 8 ? 1 : m <= 16 ? 2 : m <= 32 ? 4 : 8;
-  s.mb = 8 * s.mr;
   int gcap = k_pad / kTile < L ? k_pad / kTile : L;
   gcap = gcap < 1 ? 1 : gcap;
   s.cs = 1;
   while (s.cs < kMaxCluster && s.cs < gcap) s.cs *= 2;
   s.per_rank = (gcap + s.cs - 1) / s.cs;
-  s.stage = d.payload_bytes() + (size_t)s.mb * kTile * 4;
-  s.smem = (s.per_rank > 1 ? 2 : 1) * s.stage + (size_t)kTile * D::kWS * 4 +
-           (size_t)s.per_rank * s.mb * kStrip * 4 + D::meta_bytes(L);
+  for (s.mr = m <= 8 ? 1 : m <= 16 ? 2 : m <= 32 ? 4 : 8;; s.mr /= 2) {
+    s.mb = 8 * s.mr;
+    s.stage = d.payload_bytes() + (size_t)s.mb * kTile * 4;
+    s.smem = (s.per_rank > 1 ? 2 : 1) * s.stage +
+             (size_t)kTile * D::kWS * 4 +
+             (size_t)s.per_rank * s.mb * kStrip * 4 + D::meta_bytes(L);
+    if (s.smem <= (size_t)kMaxSmem || s.mr == 1) break;
+  }
   s.grid = dim3(nt * kStrips * s.cs, (m + s.mb - 1) / s.mb);
   return s;
 }

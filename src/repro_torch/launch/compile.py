@@ -8,7 +8,11 @@ every layer's leaf stacked), which the planner plans one leaf at a time,
 as the reference does.  Full width by default; ``--small`` is the
 2-layer, 128-wide config of the CPU tests; ``--d-model``/``--d-ff``/
 ``--head-dim``/``--vocab`` scale the config down as the reference's
-flags do.  Compiling runs on the host (numpy); no card is needed.
+flags do (``--small`` rounds its 2 layers up to whole superblocks: 6
+for gemma3-12b's 5:1 local/global pattern).  ``--arch`` takes any
+of the port's ``ARCHS``; an untied ``lm_head`` is planned and packed like
+every other linear.  Compiling runs on the host (numpy); no card is
+needed.
 
     PYTHONPATH=src python -m repro_torch.launch.compile --small \\
         --out build/small.smez [--budget 0.06] \\
@@ -53,8 +57,23 @@ def scaled_config(args):
             if getattr(args, k) is not None}
     cfg = ARCHS[args.arch]
     if args.small or over:
-        cfg = scale_down(cfg, **{**(SMALL if args.small else {}), **over})
+        small = {}
+        if args.small:
+            p = len(cfg.pattern)
+            small = dict(SMALL, n_layers=-(-SMALL["n_layers"] // p) * p)
+        cfg = scale_down(cfg, **{**small, **over})
     return cfg
+
+
+def model_dims(cfg) -> dict:
+    """The dims an artifact records and a server checks (the reference's
+    five, and the window, layer pattern, MLP and head of the dense
+    family)."""
+    return {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "n_layers": cfg.n_layers, "head_dim": cfg.hd,
+            "swa_window": cfg.swa_window,
+            "block_pattern": list(cfg.pattern), "act": cfg.act,
+            "tie_embeddings": cfg.tie_embeddings}
 
 
 def main(argv=None):
@@ -88,7 +107,8 @@ def main(argv=None):
     from repro_torch.models.transformer import lm_init
 
     cfg = scaled_config(args)
-    params = to_reference(lm_init(cfg, np.random.default_rng(args.seed)))
+    params = to_reference(lm_init(cfg, np.random.default_rng(args.seed)),
+                          n_slots=len(cfg.pattern))
     out = args.out or f"{args.arch}.smez"
     backend = None if args.backend == "none" else args.backend
     t0 = time.perf_counter()
@@ -97,9 +117,7 @@ def main(argv=None):
         reorder=not args.no_reorder, measure=args.measure,
         objective=args.objective,
         extra={"arch": args.arch, "config": cfg.name,
-               "dims": {"d_model": cfg.d_model, "d_ff": cfg.d_ff,
-                        "vocab": cfg.vocab, "n_layers": cfg.n_layers,
-                        "head_dim": cfg.hd},
+               "dims": model_dims(cfg),
                "serve_backend": None if backend is None else "auto"})
     dt = time.perf_counter() - t0
 

@@ -1,13 +1,16 @@
 """Serving driver of the port: random-weight requests through ServeEngine.
 
-Checked against ``repro/launch/serve.py`` (its flags but ``--mesh``,
-``--bm``, ``--host-devices`` and ``--metrics-port``).  Weights come from a
-numpy generator seeded by ``--seed`` (the reference init's
-distributions), or from a compiled ``.smez`` (``--artifact``, made by
-``repro_torch.launch.compile`` or the reference's compiler; its arch and
-dims must match the size flags).  ``--sme`` packs every eligible weight at
-``--squeeze`` and
-emits the kernel operands ``--backend`` serves from: ``v1``/``v2``/``v3``
+Checked against ``repro/launch/serve.py`` (its flags but ``--mesh`` and
+``--host-devices``).  ``--arch`` takes any of the port's ``ARCHS`` (the
+dense family: qwen1.5-0.5b, qwen2-0.5b, phi4-mini-3.8b, gemma3-12b).
+Weights come from a numpy generator seeded by ``--seed`` (the reference
+init's distributions), or from a compiled ``.smez`` (``--artifact``, made
+by ``repro_torch.launch.compile`` or the reference's compiler; its arch and
+dims must match the size flags).  ``--bm`` sets the M block of v3's
+decode-kernel threshold (``core.backend.use_block``; the kernels fix
+their own 128x128 tiles); ``--backend`` defaults to ``SME_BACKEND``.
+``--sme`` packs every eligible weight at ``--squeeze`` and emits the
+kernel operands ``--backend`` serves from: ``v1``/``v2``/``v3``
 their own; ``auto`` on the card v2 when ``--squeeze >= 1`` and v1 when it
 is 0 (the reference's choice on its chip), on ``--device cpu`` none, so
 auto serves the dense dequant (``torch``) as the reference does off its
@@ -23,8 +26,11 @@ tokens per round (v3 drafts through the decode kernel's ``plane_depth``;
 --backend v3`` plans the weights first, as the reference does, an
 artifact brings its plan, and anything else is refused),
 ``--stream`` drives ``submit``/``pump``/``step``/``poll`` instead of
-``run()``.  ``--metrics-out`` writes the metrics snapshot, ``--trace-out``
-the request trace (``*.json``: Chrome/Perfetto; else JSONL).
+``run()``.  ``--metrics-out`` writes the metrics snapshot (which
+``python -m repro_torch.obs.gate`` checks), ``--trace-out`` the request
+trace (``*.json``: Chrome/Perfetto; else JSONL), and ``--metrics-port N``
+serves the Prometheus text at ``/metrics`` on 127.0.0.1 for the process
+lifetime (0: an ephemeral port).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --sme
     PYTHONPATH=src python -m repro_torch.launch.serve --small --device cpu \\
@@ -46,7 +52,8 @@ import numpy as np
 from repro_torch.configs import ARCHS
 from repro_torch.core.integrate import (convert_params_to_sme,
                                         sme_storage_summary, to_torch)
-from repro_torch.launch.compile import SMALL, add_scale_args, scaled_config
+from repro_torch.launch.compile import (SMALL, add_scale_args, model_dims,
+                                        scaled_config)
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import lm_init
 from repro_torch.serve import Request, ServeEngine
@@ -66,8 +73,7 @@ def check_artifact(path, arch: str, cfg) -> None:
     if extra.get("arch") and extra["arch"] != arch:
         raise SystemExit(f"artifact {path} was compiled for --arch "
                          f"{extra['arch']}, not {arch}")
-    mine = {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
-            "n_layers": cfg.n_layers, "head_dim": cfg.hd}
+    mine = model_dims(cfg)
     bad = {k: (v, mine[k]) for k, v in (extra.get("dims") or {}).items()
            if k in mine and v != mine[k]}
     if bad:
@@ -77,13 +83,13 @@ def check_artifact(path, arch: str, cfg) -> None:
             f"artifact was compiled with")
 
 
-def planned_params(params, device):
+def planned_params(params, device, n_slots: int = 1):
     """``--spec-depth auto`` on v3: plan the weights in the reference's
     layout (each layer's draft depth from its plane occupancy) and pack
     them through the plan, as the reference launcher does."""
     from repro_torch.compiler import compile_model, plan_model
     from repro_torch.convert import from_reference, to_reference
-    ref = to_reference(params)
+    ref = to_reference(params, n_slots)
     plan = plan_model(ref, backend="v3")
     packed, _ = compile_model(ref, plan=plan)
     return from_reference(packed, device=device), plan
@@ -102,8 +108,14 @@ def main(argv=None):
     ap.add_argument("--s-max", type=int, default=96)
     ap.add_argument("--sme", action="store_true",
                     help="serve SME-packed weights")
-    ap.add_argument("--backend", default="auto",
+    ap.add_argument("--backend",
+                    default=os.environ.get("SME_BACKEND", "auto"),
                     choices=["auto", "torch", "v1", "v2", "v3"])
+    ap.add_argument("--bm", type=int, default=None,
+                    help="M block of v3's decode-kernel threshold "
+                         "(core.backend.use_block; default: the autotune "
+                         "cache, SME_BM or 128); the kernels fix their own "
+                         "128x128 tiles")
     ap.add_argument("--squeeze", type=int, default=1,
                     help="bits squeezed out of every SME codeword")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -139,6 +151,9 @@ def main(argv=None):
                          "Chrome/Perfetto trace_event, else JSONL")
     ap.add_argument("--trace-capacity", type=int, default=4096,
                     help="trace ring capacity (oldest spans evict)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve the Prometheus text at /metrics on this "
+                         "port for the process lifetime (0: ephemeral)")
     args = ap.parse_args(argv)
     spec_depth = args.spec_depth
     if spec_depth is not None and spec_depth != "auto":
@@ -147,6 +162,10 @@ def main(argv=None):
                      f"{spec_depth!r}")
         spec_depth = int(spec_depth)
 
+    if args.metrics_port is not None:
+        from repro_torch.obs.httpd import start_metrics_server
+        server, _ = start_metrics_server(args.metrics_port)
+        print(f"metrics: http://127.0.0.1:{server.server_port}/metrics")
     cfg = scaled_config(args)
     api = build_model(cfg, device=args.device)
     rng = np.random.default_rng(args.seed)
@@ -154,7 +173,7 @@ def main(argv=None):
                      seed=args.seed, trace_capacity=args.trace_capacity,
                      spec_depth=spec_depth, spec_len=args.spec_len,
                      chunk_len=args.chunk_len, page_tokens=args.page_tokens,
-                     prefix_cache=args.prefix_cache)
+                     prefix_cache=args.prefix_cache, bm=args.bm)
     t0 = time.perf_counter()
     plan = None
     if args.artifact:
@@ -179,7 +198,8 @@ def main(argv=None):
             if spec_depth == "auto" and emit != "v3":
                 raise SystemExit(_NO_PLAN_DEPTH)
             if spec_depth == "auto":
-                params, plan = planned_params(params, args.device)
+                params, plan = planned_params(params, args.device,
+                                              len(cfg.pattern))
             else:
                 params = convert_params_to_sme(params, squeeze=args.squeeze,
                                                backend=emit,

@@ -1,11 +1,15 @@
 """GQA self-attention: prefill over the whole prompt, decode one token
-against a per-slot KV cache.
+against a per-slot KV cache, with full or sliding-window (local) layers.
 
 Checked against ``repro/models/attention.py`` (``gqa_prefill``,
 ``gqa_decode``, ``blockwise_attention``, ``_decode_attend``,
-``_ring_gather``, ``_masked_row_scatter``), full attention only.  The
-reference has no attention kernel, so this stays plain tensor code with
-the reference's math: flash-style online softmax over KV blocks in f32.
+``_ring_gather``, ``_masked_row_scatter``).  The reference has no
+attention kernel, so this stays plain tensor code with the reference's
+math: flash-style online softmax over KV blocks in f32, and for a window
+``W`` shorter than the keys, one softmax per query block over the K/V slice
+``[start - W + 1, start + block_q)`` it can see.  A windowed layer's cache
+is a ring of ``min(W, cache_len)`` slots; slot ``j`` at next position
+``pos`` holds position ``pos - ((pos - j) mod ring)``.
 
 Decode positions are per batch row (``pos`` [B]) and ``active`` [B] masks
 which rows may write their cache slot.  Unlike the reference, decode
@@ -25,13 +29,16 @@ __all__ = ["gqa_prefill", "gqa_decode", "blockwise_attention", "NEG_INF"]
 NEG_INF = -1e30
 
 
-def _attend_block(q, k, qpos, kpos, scale):
-    """Causal scores of one (q-block, k-block) tile: [B, KV, G, Bq, Bk]."""
+def _attend_block(q, k, qpos, kpos, scale, window: int = 0):
+    """Causal (and, with ``window``, local) scores of one (q-block,
+    k-block) tile: [B, KV, G, Bq, Bk]."""
     b, bq, h, hd = q.shape
     kv = k.shape[2]
     qh = q.reshape(b, bq, kv, h // kv, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qh.float(), k.float()) * scale
     mask = (qpos[:, None] >= kpos[None, :]) & (kpos[None, :] >= 0)
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
     return torch.where(mask, s, torch.full_like(s, NEG_INF))
 
 
@@ -44,10 +51,26 @@ def _online_update(m, l, acc, s, v):
     return m_new, l, acc * corr[..., None] + pv
 
 
-def blockwise_attention(q, k, v, *, q_offset: int = 0, block_q: int = 512,
-                        block_k: int = 512) -> torch.Tensor:
-    """Causal attention. q: [B, Sq, H, hd], k/v: [B, Sk, KV, hd] ->
-    [B, Sq, H, hd]; ``q_offset`` is the absolute position of q[0]."""
+def _window_block(qi, k, v, qpos, start: int, span: int, window: int,
+                  scale):
+    """One query block of a windowed layer against the K/V slice
+    ``[start, start + span)`` it can see: one softmax, no online update
+    (the reference's ``q_block`` of its windowed branch)."""
+    ki, vi = k[:, start:start + span], v[:, start:start + span]
+    kpos = start + torch.arange(span, device=qi.device)
+    s = _attend_block(qi, ki, qpos, kpos, scale, window)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p, vi.float())
+    return acc / torch.clamp(p.sum(dim=-1)[..., None], min=1e-30)
+
+
+def blockwise_attention(q, k, v, *, q_offset: int = 0, window: int = 0,
+                        block_q: int = 512, block_k: int = 512
+                        ) -> torch.Tensor:
+    """Causal attention, local to the last ``window`` positions when
+    ``window`` > 0. q: [B, Sq, H, hd], k/v: [B, Sk, KV, hd] -> [B, Sq, H,
+    hd]; ``q_offset`` is the absolute position of q[0].  A window shorter
+    than the keys slices K/V per query block instead of scanning them."""
     b, sq, h, hd = q.shape
     hd_v = v.shape[-1]
     sk, kvh = k.shape[1], k.shape[2]
@@ -56,36 +79,47 @@ def blockwise_attention(q, k, v, *, q_offset: int = 0, block_q: int = 512,
     block_q, block_k = min(block_q, sq), min(block_k, sk)
     nq, nk = -(-sq // block_q), -(-sk // block_k)
     q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, nq * block_q - sq))
-    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * block_k - sk))
-    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * block_k - sk))
     dev = q.device
     outs = []
-    for i in range(nq):
-        qi = q[:, i * block_q:(i + 1) * block_q]
-        qpos = q_offset + i * block_q + torch.arange(block_q, device=dev)
-        m = torch.full((b, kvh, g, block_q), NEG_INF, device=dev)
-        l = torch.zeros((b, kvh, g, block_q), device=dev)
-        acc = torch.zeros((b, kvh, g, block_q, hd_v), device=dev)
-        for j in range(nk):
-            idx = j * block_k + torch.arange(block_k, device=dev)
-            kpos = torch.where(idx < sk, idx, torch.full_like(idx, -1))
-            s = _attend_block(qi, k[:, j * block_k:(j + 1) * block_k], qpos,
-                              kpos, scale)
-            m, l, acc = _online_update(
-                m, l, acc, s, v[:, j * block_k:(j + 1) * block_k])
-        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    if window and window < sk:
+        span = min(window - 1 + block_q, sk)
+        for i in range(nq):
+            q0 = q_offset + i * block_q
+            qpos = q0 + torch.arange(block_q, device=dev)
+            start = min(max(q0 - (window - 1), 0), sk - span)
+            outs.append(_window_block(q[:, i * block_q:(i + 1) * block_q],
+                                      k, v, qpos, start, span, window, scale))
+    else:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * block_k - sk))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * block_k - sk))
+        for i in range(nq):
+            qi = q[:, i * block_q:(i + 1) * block_q]
+            qpos = q_offset + i * block_q + torch.arange(block_q, device=dev)
+            m = torch.full((b, kvh, g, block_q), NEG_INF, device=dev)
+            l = torch.zeros((b, kvh, g, block_q), device=dev)
+            acc = torch.zeros((b, kvh, g, block_q, hd_v), device=dev)
+            for j in range(nk):
+                idx = j * block_k + torch.arange(block_k, device=dev)
+                kpos = torch.where(idx < sk, idx, torch.full_like(idx, -1))
+                s = _attend_block(qi, k[:, j * block_k:(j + 1) * block_k],
+                                  qpos, kpos, scale, window)
+                m, l, acc = _online_update(
+                    m, l, acc, s, v[:, j * block_k:(j + 1) * block_k])
+            outs.append(acc / torch.clamp(l[..., None], min=1e-30))
     out = torch.stack(outs, dim=3).reshape(b, h, nq * block_q, hd_v)[:, :, :sq]
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _decode_attend(q, k, v, kpos, pos, scale):
+def _decode_attend(q, k, v, kpos, pos, window, scale):
     """Single-step attention. q: [B, 1, H, hd]; k/v: [B, W, KV, hd];
-    kpos: [B, W]; pos: [B]."""
+    kpos: [B, W]; pos: [B]; ``window`` > 0 keeps ``pos - kpos < window``."""
     b, _, h, hd = q.shape
     kvh = k.shape[2]
     qh = q.reshape(b, kvh, h // kvh, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qh.float(), k.float()) * scale
     valid = (kpos >= 0) & (kpos <= pos[:, None])
+    if window:
+        valid &= pos[:, None] - kpos < window
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
@@ -128,30 +162,34 @@ def _qkv(p, x, cfg, positions, backend):
 
 
 def gqa_prefill(p, x, cfg, cache_len: int = 0, plen=None,
-                backend: Optional[str] = None, block_q: int = 512,
-                block_k: int = 512):
-    """Full-sequence causal self-attention.  Returns (y, cache) with the
-    cache holding, per row, positions ``< plen[i]`` in ring order over
-    ``cache_len`` slots (None when ``cache_len`` is 0)."""
+                backend: Optional[str] = None, window: int = 0,
+                block_q: int = 512, block_k: int = 512):
+    """Full-sequence causal self-attention (local to ``window`` positions
+    when it is > 0).  Returns (y, cache) with the cache holding, per row,
+    the last positions ``< plen[i]`` in ring order over ``min(window,
+    cache_len)`` slots (``cache_len`` without a window; None when
+    ``cache_len`` is 0)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg, positions, backend)
     g = cfg.n_heads // cfg.n_kv_heads
     kr, vr = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
-    y = blockwise_attention(q, kr, vr, block_q=block_q, block_k=block_k)
+    y = blockwise_attention(q, kr, vr, window=window, block_q=block_q,
+                            block_k=block_k)
     y = linear(y.reshape(b, s, -1), p["o"], backend)
     if not cache_len:
         return y, None
+    w = min(window, cache_len) if window else cache_len
     rows = (torch.full((b,), s, device=x.device) if plen is None
             else torch.as_tensor(plen, device=x.device).long())
-    return y, {"k": _ring_gather(k, rows, cache_len),
-               "v": _ring_gather(v, rows, cache_len)}
+    return y, {"k": _ring_gather(k, rows, w), "v": _ring_gather(v, rows, w)}
 
 
 def gqa_decode(p, x, cache, pos, cfg, active=None,
-               backend: Optional[str] = None):
-    """One-step decode. x: [B, 1, D]; cache k/v: [B, W, KV, hd], updated in
-    place; pos: [B] per-row next position; active: [B] write mask."""
+               backend: Optional[str] = None, window: int = 0):
+    """One-step decode. x: [B, 1, D]; cache k/v: [B, W, KV, hd] (a ring
+    of W slots), updated in place; pos: [B] per-row next position; active:
+    [B] write mask; ``window`` > 0 attends the last ``window`` positions."""
     b = x.shape[0]
     pos, active = norm_pos_active(pos, active, b, x.device)
     q, k, v = _qkv(p, x, cfg, pos[:, None], backend)
@@ -161,5 +199,5 @@ def gqa_decode(p, x, cache, pos, cfg, active=None,
     vc = _masked_row_scatter(cache["v"], v[:, 0], slot, active)
     j = torch.arange(w, device=x.device)
     kpos = pos[:, None] - ((pos[:, None] - j[None]) % w)
-    y = _decode_attend(q, kc, vc, kpos, pos, 1.0 / (cfg.hd ** 0.5))
+    y = _decode_attend(q, kc, vc, kpos, pos, window, 1.0 / (cfg.hd ** 0.5))
     return linear(y.reshape(b, 1, -1), p["o"], backend), {"k": kc, "v": vc}

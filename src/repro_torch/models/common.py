@@ -1,8 +1,9 @@
 """Shared model building blocks on torch tensors.
 
 Checked against ``repro/models/common.py``: ``rmsnorm``, ``linear``,
-``mlp_apply`` (SwiGLU), ``apply_rope`` and ``norm_pos_active`` compute the
-same functions in the same dtypes.  SME-packed weights dispatch through
+``mlp_apply`` (SwiGLU, or GELU with biased ``wi``/``wo`` and no ``wg``),
+``apply_rope`` and ``norm_pos_active`` compute the same functions in the
+same dtypes.  GELU is the tanh approximation, ``jax.nn.gelu``'s default.  SME-packed weights dispatch through
 ``core.backend.sme_apply``; ``backend`` is passed down explicitly.
 """
 from __future__ import annotations
@@ -47,10 +48,13 @@ def linear(x: torch.Tensor, p: dict, backend: Optional[str] = None
     return y
 
 
-def mlp_apply(x: torch.Tensor, p: dict, backend: Optional[str] = None
-              ) -> torch.Tensor:
-    """SwiGLU MLP: wo(silu(wg x) * wi x)."""
-    h = F.silu(linear(x, p["wg"], backend)) * linear(x, p["wi"], backend)
+def mlp_apply(x: torch.Tensor, p: dict, backend: Optional[str] = None,
+              act: str = "swiglu") -> torch.Tensor:
+    """SwiGLU MLP wo(silu(wg x) * wi x), or GELU MLP wo(gelu(wi x))."""
+    if act == "swiglu":
+        h = F.silu(linear(x, p["wg"], backend)) * linear(x, p["wi"], backend)
+    else:
+        h = F.gelu(linear(x, p["wi"], backend), approximate="tanh")
     return linear(h, p["wo"], backend)
 
 

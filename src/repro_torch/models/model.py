@@ -1,6 +1,8 @@
 """Model API of the port: ``build_model(cfg, device)`` -> :class:`ModelAPI`.
 
-Checked against ``repro/models/model.py`` for the decoder-only family:
+Checked against ``repro/models/model.py`` for the dense decoder-only
+family (RMSNorm, SwiGLU or GELU MLPs, full or sliding-window GQA layers,
+a tied or untied head):
 ``prefill(params, tokens, s_max, plen)`` -> (last logits, caches),
 ``decode_step(params, token, caches, pos, active)`` -> (logits, caches)
 with per-row ``pos``/``active``, ``decode_chunk(params, tokens, caches,
@@ -63,21 +65,46 @@ def make_decode_chunk(decode_step: Callable) -> Callable:
     return decode_chunk
 
 
+#: (what a config asks for, the reference module the port lacks for it)
+_MISSING = (
+    (lambda c: c.family == "moe" or getattr(c, "n_experts", 0),
+     "MoE MLPs (repro/models/moe.py)"),
+    (lambda c: getattr(c, "attn_type", "gqa") == "mla",
+     "MLA attention (repro/models/attention.py mla_*)"),
+    (lambda c: c.family in ("ssm", "hybrid") or any(
+        k in ("mamba", "mlstm", "slstm") for k in c.pattern),
+     "SSM blocks (repro/models/ssm.py)"),
+    (lambda c: c.family == "encdec" or getattr(c, "n_enc_layers", 0),
+     "the encoder-decoder family (repro/models/encdec.py)"),
+    (lambda c: getattr(c, "frontend", ""),
+     "the audio/vision frontends (repro/models/transformer.py "
+     "_embed_tokens)"),
+    (lambda c: c.norm != "rmsnorm", "layernorm models"),
+    (lambda c: c.act not in ("swiglu", "gelu"), "MLP activations other "
+     "than SwiGLU and GELU"),
+)
+
+
 class ModelAPI:
     def __init__(self, cfg, device=None):
-        if cfg.family != "dense" or cfg.norm != "rmsnorm" \
-                or cfg.act != "swiglu" or not cfg.tie_embeddings:
+        missing = [what for test, what in _MISSING if test(cfg)]
+        if missing or cfg.family != "dense":
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense RMSNorm/SwiGLU models "
-                f"with tied embeddings so far")
+                f"{cfg.name}: the port serves dense decoder-only models "
+                f"(RMSNorm, SwiGLU or GELU, full or sliding-window GQA, tied "
+                f"or untied head); not yet ported: "
+                f"{', '.join(missing) or 'family ' + repr(cfg.family)}")
         self.cfg = cfg
         self.device = resolve_device(device)
 
     def _ids(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device).long()
 
-    def init_cache(self, batch: int, s_max: int) -> list:
-        return tf.lm_init_cache(self.cfg, batch, s_max, self.device)
+    def init_cache(self, batch: int, s_max: int, device=None) -> list:
+        """Zero caches, one dict per layer; ``device="meta"`` gives their
+        shapes without memory (the engine's leaf probe)."""
+        return tf.lm_init_cache(self.cfg, batch, s_max,
+                                self.device if device is None else device)
 
     def prefill(self, params, tokens, s_max: Optional[int] = None, plen=None,
                 backend: Optional[str] = None):

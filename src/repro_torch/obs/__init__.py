@@ -1,6 +1,7 @@
 """Telemetry of the port: metrics registry, per-request tracing, exporters.
 
-Copies of ``repro/obs/{metrics,trace}.py`` (standard library and numpy).
+Copies of ``repro/obs/{metrics,trace,gate,httpd}.py`` (standard library
+and numpy); ``python -m repro_torch.obs.gate`` checks a snapshot.
 Host-side only (DESIGN.md §9): hooks run between device calls, so
 telemetry never changes served tokens, and disabling it leaves one
 branch on the hot path.

@@ -1,9 +1,12 @@
 """Continuous batching over an open request stream.
 
 Checked against ``repro/serve/engine.py`` (DESIGN.md §6, §11, §12) without
-its mesh, ``bm`` override and encoder-decoder/frontend branches: the port
-serves the dense decoder-only family on one device, from a param tree or
-from a compiled ``.smez`` artifact (:meth:`ServeEngine.from_artifact`).
+its mesh and encoder-decoder/frontend branches: the port serves the dense
+decoder-only family (full and sliding-window layers) on one device, from a
+param tree or from a compiled ``.smez`` artifact
+(:meth:`ServeEngine.from_artifact`).  ``bm`` scopes
+``core.backend.use_block`` around every model call (v3's decode
+threshold).
 
 * ``slots`` sequences decode together, each with its own cache row; a
   request joins by writing its prefill cache into a free row and leaves by
@@ -29,14 +32,22 @@ from a compiled ``.smez`` artifact (:meth:`ServeEngine.from_artifact`).
   (``use_spec_depth``: the v3 decode kernel's ``plane_depth``), then the
   step verifies them at full precision.  Every emitted token comes from a
   full-precision step over verified context, so tokens equal the
-  non-speculative run.  The draft writes its K/V in place, only at
-  positions >= each row's ``pos``; attention reads positions ``<= pos``
-  and every step writes its position before reading it, so no draft value
-  is ever read (the reference drafts on a throwaway copy instead).
+  non-speculative run.  On a *paged* cache leaf (one whose sequence dim
+  spans ``s_max``) the draft writes its K/V in place, only at positions
+  >= each row's ``pos``; attention reads positions ``<= pos`` and every
+  step writes its position before reading it, so no draft value is ever
+  read.  A *side* leaf (a sliding-window ring shorter than ``s_max``)
+  would lose positions ``pos + d - W`` that the verify step still reads,
+  so it is copied before the draft and put back after it (the reference
+  drafts on a throwaway copy of every leaf).
 * **Prefix cache** (``prefix_cache``): at every ``chunk_len`` boundary a
-  prefilling row's cache is snapshotted into refcounted device page pools
-  (``serve/paged.py`` keeps the books), and a later prompt with the same
-  token ids restores it instead of recomputing.
+  prefilling row's cache is snapshotted: its paged leaves into refcounted
+  device page pools (``serve/paged.py`` keeps the books), its side leaves
+  whole into a side-slab row of the entry; a later prompt with the same
+  token ids restores both instead of recomputing.  Leaves are classified
+  by probing ``api.init_cache`` on the ``meta`` device at ``s_max`` and
+  ``2 * s_max``; where a leaf fits neither class the engine serves
+  without the cache, as the reference does.
 * **Preemption** of a still-prefilling row, per-request temperature,
   ``max_new_tokens`` and eos, streaming callbacks (``Request.on_token``).
 * Counters, gauges and histograms live in the process registry
@@ -62,7 +73,8 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core.backend import get_backend, resolved_backends, use_spec_depth
+from ..core.backend import (get_backend, resolved_backends, use_block,
+                            use_spec_depth)
 from ..device import resolve_device
 from .paged import PageAllocator, PrefixIndex
 
@@ -118,7 +130,7 @@ class ServeEngine:
                  page_tokens: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  prefix_pages: Optional[int] = None,
-                 prefix_entries: int = 8):
+                 prefix_entries: int = 8, bm: Optional[int] = None):
         """``chunk_len`` (``SME_CHUNK_LEN``, default 32) bounds the prompt
         tokens a prefilling row scores per step; ``page_tokens``
         (``SME_PAGE_TOKENS``, default 16) is the prefix-cache page size and
@@ -130,7 +142,9 @@ class ServeEngine:
         that uniform plane depth, ``"plan"``/``"auto"`` at each layer's
         ``sme_draft_planes`` (full precision where absent), ``None``
         (default) disables it.  ``spec_len`` tokens are drafted per round
-        (4 once a depth is set).  ``seed`` seeds the sampling generator."""
+        (4 once a depth is set).  ``seed`` seeds the sampling generator.
+        ``bm`` (None: ``resolve_block_m``'s default) is the M block of
+        v3's decode-kernel threshold for every model call."""
         self.device = resolve_device(device)
         if backend not in (None, "auto"):
             get_backend(backend)                # unknown names raise here
@@ -141,9 +155,13 @@ class ServeEngine:
         self.slots = slots
         self.s_max = s_max
         self.backend = backend
+        self.bm = bm
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.caches = api.init_cache(slots, s_max)
+        #: per layer {leaf: True (paged) | False (side)}, None when a leaf
+        #: fits neither class
+        self._paged = self._classify_cache_leaves()
         self.pos = np.zeros(slots, np.int64)       # next position per slot
         self.active: List[Optional[Request]] = [None] * slots
         self.last_token = np.zeros((slots, 1), np.int64)
@@ -252,6 +270,10 @@ class ServeEngine:
             "prefix_snapshots": counter(
                 "serve_prefix_snapshots_total",
                 "prefix snapshots taken at chunk boundaries"),
+            "prefix_side_rows": counter(
+                "serve_prefix_side_snapshots_total",
+                "prefix snapshots that also wrote a side-slab row (the "
+                "side leaves: sliding-window rings shorter than s_max)"),
             "prefix_evictions": counter(
                 "serve_prefix_evictions_total",
                 "prefix entries evicted (LRU) to free pages or slots"),
@@ -311,16 +333,56 @@ class ServeEngine:
                     f"prefix caching needs the chunk boundary ({self._c}) "
                     f"to be a multiple of page_tokens ({page_tokens}) so "
                     f"snapshots are page-aligned")
-            n_pages = int(prefix_pages) if prefix_pages \
-                else 4 * self._max_pages
-            # one pool of n_pages pages per k/v cache tensor (the dense
-            # family's caches are all paged: [B, s_max, ...])
-            self._pool = [{name: torch.zeros(
-                (n_pages, page_tokens) + tuple(t.shape[2:]), dtype=t.dtype,
-                device=self.device) for name, t in layer.items()}
-                for layer in self.caches]
-            self._prefix = PrefixIndex(PageAllocator(n_pages),
-                                       int(prefix_entries), page_tokens)
+            if self._paged is not None:
+                self._init_prefix(prefix_pages, int(prefix_entries))
+
+    def _classify_cache_leaves(self) -> Optional[List[Dict[str, bool]]]:
+        """Split the cache leaves into *paged* (only the sequence dim 1
+        scales with ``s_max``: K/V over every position) and *side* (shape
+        independent of ``s_max``: a sliding-window ring of ``W < s_max``
+        slots), probing ``api.init_cache`` on the ``meta`` device at
+        ``s_max`` and ``2 * s_max``; None when a leaf fits neither.  The
+        reference also probes at ``page_tokens`` and disables its prefix
+        cache when a side leaf shrinks there (its side slab is an
+        ``init_cache`` at ``page_tokens``), so it serves a window wider
+        than a page without reuse; the port sizes the side slab from the
+        engine's own leaves, which keeps the cache on for such windows."""
+        a1 = self.api.init_cache(self.slots, self.s_max, device="meta")
+        a2 = self.api.init_cache(self.slots, 2 * self.s_max, device="meta")
+        out = []
+        for l1, l2 in zip(a1, a2):
+            kinds = {}
+            for name, t1 in l1.items():
+                diffs = [d for d in range(t1.dim())
+                         if t1.shape[d] != l2[name].shape[d]]
+                if not diffs:
+                    kinds[name] = False
+                elif diffs == [1] and t1.shape[1] == self.s_max \
+                        and l2[name].shape[1] == 2 * self.s_max:
+                    kinds[name] = True
+                else:
+                    return None
+            out.append(kinds)
+        return out
+
+    def _init_prefix(self, prefix_pages, prefix_entries: int) -> None:
+        """The device half of the prefix cache: per paged leaf a pool of
+        ``n_pages`` pages of ``page_tokens`` positions, per side leaf a
+        slab of ``prefix_entries`` whole rows."""
+        P_ = self.page_tokens
+        n_pages = int(prefix_pages) if prefix_pages else 4 * self._max_pages
+        self._pool, self._side = [], []
+        for layer, paged in zip(self.caches, self._paged):
+            self._pool.append({name: torch.zeros(
+                (n_pages, P_) + tuple(t.shape[2:]), dtype=t.dtype,
+                device=self.device) for name, t in layer.items()
+                if paged[name]})
+            self._side.append({name: torch.zeros(
+                (prefix_entries,) + tuple(t.shape[1:]), dtype=t.dtype,
+                device=self.device) for name, t in layer.items()
+                if not paged[name]})
+        self._prefix = PrefixIndex(PageAllocator(n_pages), prefix_entries,
+                                   P_)
 
     @classmethod
     def from_artifact(cls, api, path, *, verify: bool = False, **kw):
@@ -553,9 +615,10 @@ class ServeEngine:
                 tq = self._t_enq.get(id(r))
                 if tq is not None:
                     self._m["qwait"].observe(t_pf - tq)
-        logits, pre = self.api.prefill(self.params, toks, s_max=self.s_max,
-                                       plen=np.array(feed, np.int64),
-                                       backend=self.backend)
+        with use_block(self.bm):
+            logits, pre = self.api.prefill(
+                self.params, toks, s_max=self.s_max,
+                plen=np.array(feed, np.int64), backend=self.backend)
         temps = np.array([r.temperature for r in reqs], np.float32)
         first = self._sample(logits, temps).cpu().numpy()
         t_first = self.tracer.now()
@@ -621,14 +684,19 @@ class ServeEngine:
 
     def _draft(self, spec_rows: np.ndarray) -> np.ndarray:
         """``spec_len`` greedy steps at the draft depth for ``spec_rows``
-        (the other rows are inactive): ``[spec_len, B]`` ids.  Writes K/V
-        in place only at positions >= each spec row's ``pos`` (never read,
-        see the module note)."""
+        (the other rows are inactive): ``[spec_len, B]`` ids.  Paged leaves
+        take the draft's K/V in place, only at positions >= each spec row's
+        ``pos`` (never read); side leaves are copied first and put back
+        after (see the module note)."""
         tok = self._dev(self.last_token)
         pos = self._dev(self.pos)
         act = self._dev(spec_rows, torch.bool)
+        # unclassified leaves (self._paged None) are all kept
+        saved = [{name: t.clone() for name, t in layer.items()
+                  if self._paged is None or not self._paged[i][name]}
+                 for i, layer in enumerate(self.caches)]
         out = []
-        with use_spec_depth(self.spec_depth):
+        with use_spec_depth(self.spec_depth), use_block(self.bm):
             for _ in range(self.spec_len):
                 logits, self.caches = self.api.decode_step(
                     self.params, tok, self.caches, pos, act,
@@ -636,6 +704,9 @@ class ServeEngine:
                 nxt = logits.argmax(dim=-1)
                 out.append(nxt)
                 tok, pos = nxt[:, None], pos + 1
+        for layer, keep in zip(self.caches, saved):
+            for name, t in keep.items():
+                layer[name].copy_(t)
         return torch.stack(out).cpu().numpy()
 
     def step(self) -> None:
@@ -692,9 +763,10 @@ class ServeEngine:
         temps = np.array([r.temperature if r is not None else 0.0
                           for r in self.active], np.float32)
         t_call = self.tracer.now()
-        logits, live, self.caches = self.api.decode_chunk(
-            self.params, toks, self.caches, self.pos, quota, act, gated,
-            backend=self.backend)
+        with use_block(self.bm):
+            logits, live, self.caches = self.api.decode_chunk(
+                self.params, toks, self.caches, self.pos, quota, act, gated,
+                backend=self.backend)
         emitted = self._sample(logits, temps).cpu().numpy()     # [K, B]
         live = live.cpu().numpy()                               # [K, B]
         del logits
@@ -790,10 +862,10 @@ class ServeEngine:
         return ent
 
     def _restore_entry(self, req: Request, ent) -> None:
-        """Admit a prefix-cache hit: copy the snapshot's pages into a free
-        slot and resume prefilling at ``ent.length``.  The snapshot is the
-        deterministic chunk-schedule state of exactly these token ids, so
-        the tokens equal a cold admission's."""
+        """Admit a prefix-cache hit: copy the snapshot's pages and side row
+        into a free slot and resume prefilling at ``ent.length``.  The
+        snapshot is the deterministic chunk-schedule state of exactly these
+        token ids, so the tokens equal a cold admission's."""
         slot = self._free_slots()[0]
         tr = obs.enabled()
         if tr:
@@ -803,10 +875,13 @@ class ServeEngine:
         n = len(ent.page_ids)
         ids = self._dev(ent.page_ids)
         P_ = self.page_tokens
-        for layer, pool in zip(self.caches, self._pool):
-            for name, full in layer.items():
-                full[slot, :n * P_] = pool[name][ids].reshape(
+        for layer, pool, side in zip(self.caches, self._pool, self._side):
+            for name, pages in pool.items():
+                full = layer[name]
+                full[slot, :n * P_] = pages[ids].reshape(
                     (n * P_,) + tuple(full.shape[2:]))
+            for name, slab in side.items():
+                layer[name][slot] = slab[ent.entry_slot]
         self.pos[slot] = ent.length
         self._pf_next[slot] = ent.length
         self.active[slot] = req
@@ -834,12 +909,17 @@ class ServeEngine:
         n, f = len(plan.entry.page_ids), plan.first_new
         ids = self._dev(plan.entry.page_ids[f:])
         P_ = self.page_tokens
-        for layer, pool in zip(self.caches, self._pool):
-            for name, full in layer.items():
-                pool[name][ids] = full[slot, f * P_:n * P_].reshape(
+        for layer, pool, side in zip(self.caches, self._pool, self._side):
+            for name, pages in pool.items():
+                full = layer[name]
+                pages[ids] = full[slot, f * P_:n * P_].reshape(
                     (n - f, P_) + tuple(full.shape[2:]))
+            for name, slab in side.items():
+                slab[plan.entry.entry_slot] = layer[name][slot]
         self._prefix.commit(plan)
         self._m["prefix_snapshots"].inc()
+        if any(self._side):
+            self._m["prefix_side_rows"].inc()
         self._g_pool.set(self._prefix.alloc.in_use)
         self._g_entries.set(len(self._prefix))
         self.tracer.event("snapshot", rid=req.rid, plen=L, new_pages=n - f)

@@ -11,6 +11,8 @@ decode ≡ prefill bitwise at every decode M bucket and at a 22-group column,
 scaling) on both of v1's and v2's paths, empty column tiles, the launch
 geometry of the four kernels, the launch counters, the operands each
 wrapper refuses, and the malformed lists the device refuses."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -218,23 +220,31 @@ def _oracle_rel(y, x, dense):
     return np.abs(got - ref).max() / np.abs(ref).max()
 
 
+@functools.lru_cache(maxsize=None)
+def _bucket_weight(shape):
+    """One compression (and its v3 and v1 lists) per shape, shared by the
+    M buckets."""
+    w = np.random.default_rng(11).normal(0, 1, shape) / np.sqrt(shape[0])
+    smew = sme_compress(w, squeeze=1)
+    return smew, smew.pack_plane_csc(), smew.pack_csc()
+
+
 @pytest.mark.parametrize("m", [8, 16, 24, 32, 64, 72])
-@pytest.mark.parametrize("shape", [(384, 256), (2816, 256)],
-                         ids=["k384", "k2816"])
+@pytest.mark.parametrize("shape", [(384, 256), (2816, 256), (15360, 256)],
+                         ids=["k384", "k2816", "k15360"])
 def test_decode_kernel_buckets_equal_prefill_kernel(cuda, m, shape):
     """Every decode M bucket (8/16/32/64; 24 pads its bucket, 72 takes two
     M tiles) and wo's depth (K = 2816: 22 groups per column, spread over a
-    cluster of 8) of the v3-decode kernel and of v1 (decode_walk up to
-    M = 64, tiled_walk at 72) equal the prefill kernel bitwise."""
-    rng = np.random.default_rng(11)
-    w = rng.normal(0, 1, shape) / np.sqrt(shape[0])
-    smew = sme_compress(w, squeeze=1)
-    ops = smew.pack_plane_csc()
+    cluster of 8; gemma3-12b's K = 15360: 120 groups, 15 per rank, where
+    the M <= 64 bucket halves to fit shared memory) of the v3-decode kernel
+    and of v1 (decode_walk up to M = 64, tiled_walk at 72) equal the
+    prefill kernel bitwise."""
+    smew, ops, v1 = _bucket_weight(shape)
     args = [torch.as_tensor(ops[k], device=cuda) for k in OPS]
-    a1 = [torch.as_tensor(smew.pack_csc()[k], device=cuda) for k in V1]
+    a1 = [torch.as_tensor(v1[k], device=cuda) for k in V1]
     nt = ops["planes"].shape[0]
-    if shape[0] == 2816:
-        assert (ops["last"].sum(1) == 22).all()
+    if shape[0] > 384:
+        assert (ops["last"].sum(1) == shape[0] // 128).all()
     cs = torch.full((nt, 128), float(smew.scale.reshape(-1)[0]) * 2.0 ** -8,
                     device=cuda)
     x = _x(cuda, m, shape[0], m - 3)
@@ -325,6 +335,72 @@ def test_cluster_kernels_launch_geometry(cuda):
     assert wo["cluster"] == 8
     for g in [d, wo, *dec, *tiled]:
         assert 0 < g["smem_bytes"] <= 232448
+
+
+#: gemma3-12b's full-width linears (K, N): q and o, k and v, wi, wo, head
+GEMMA = ((3840, 3840), (3840, 1920), (3840, 15360), (15360, 3840),
+         (3840, 262144))
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 24, 32, 64, 72, 128])
+def test_gemma_shapes_fit_shared_memory_at_every_bucket(cuda, m):
+    """decode_walk's block (v3-decode up to M = 128, the draft's limit,
+    with 8 planes per row tile in its lists; v1 and v2 at 2M <= 128, one
+    slot per row tile) and the tiled walks at every gemma3-12b width fit
+    kMaxSmem.  Only wo's 120 row tiles (15 partials per rank) push v3's
+    64-row bucket over, which then takes 32-row M tiles."""
+    for k, n in GEMMA:
+        nr, nt = k // 128, n // 128
+        d = build.geometry("sme_spmm_planes_decode", m, k, nt, 8 * nr, 0)
+        assert 0 < d["smem_bytes"] <= 232448, (k, n)
+        assert d["cluster"] == 8 and d["grid_x"] == nt * 4 * 8
+        mb = 8 if m <= 8 else 16 if m <= 16 else 32 if m <= 32 else 64
+        if k == 15360 and mb == 64:
+            mb = 32
+        assert d["grid_y"] == -(-m // mb), (k, n, m)
+        for name in ("sme_spmm6", "sme_spmm"):
+            g = build.geometry(name, m, k, nt, nr)
+            assert 0 < g["smem_bytes"] <= 232448, (name, k, n)
+        g = build.geometry("sme_spmm_planes", max(m, 128), k, nt, 8 * nr)
+        assert 0 < g["smem_bytes"] <= 232448
+
+
+@functools.lru_cache(maxsize=None)
+def _head_shaped(dev):
+    w = np.random.default_rng(21).normal(0, 1, (256, 2048 * 128)) / 16.0
+    return _tile_csc(dev, w, squeeze=1)
+
+
+@pytest.mark.parametrize("m", [8, 64, 512])
+def test_head_shaped_weight_every_format_and_walk(cuda, m):
+    """A weight as wide as gemma3-12b's head (2048 column tiles, 2 row
+    tiles): v1 and v2 (decode_walk at M = 8 and 64, tiled_walk at 512),
+    v3-decode and v3-prefill give one product bitwise, each within 5e-5 of
+    its plain version (the kernels' fmaf chains against cuBLAS: not the
+    same order, so not bitwise) and of the oracle on the first 1024
+    columns."""
+    smew, a1, a2, a3 = _head_shaped(cuda)
+    scale = float(smew.scale.reshape(-1)[0])
+    x = _x(cuda, m, 256, m - 3)
+    x128 = torch.zeros((-(-m // 128) * 128, 256), device=cuda)
+    x128[:m] = x
+    y3 = sme_spmm_planes(x128, *a3)[:m]
+    assert _rel(y3, sme_spmm_planes_plain(x128, *a3)[:m]) <= 5e-5
+    y3 = y3 * scale * 2.0 ** -8
+    y1 = sme_spmm(x, *a1)
+    assert _rel(y1, sme_spmm_plain(x, *a1)) <= 5e-5
+    y2 = sme_spmm6(x, *a2)
+    assert _rel(y2, sme_spmm6_plain(x, *a2)) <= 5e-5
+    assert torch.equal(y1 * scale * 2.0 ** -8, y3)
+    assert torch.equal(y2 * scale * 2.0 ** -1, y3)
+    if 2 * m <= 128:
+        cs = torch.full((2048, 128), scale * 2.0 ** -8, device=cuda)
+        yd = sme_spmm_planes_decode(x, *a3[:3], cs, *a3[3:])
+        assert torch.equal(yd, y3)
+        assert _rel(yd, sme_spmm_planes_decode_plain(x, *a3[:3], cs,
+                                                     *a3[3:])) <= 5e-5
+    dense = smew.dequant()[:, :1024]
+    assert _oracle_rel(y3[:, :1024], x, dense) <= TOL_ORACLE
 
 
 def test_redesigned_wrappers_reject_unaligned_operands(cuda):
