@@ -29,10 +29,13 @@
    launches), beside the plain version's, ``torch.matmul`` on the
    dequantized weight and the bound.
    Before them the card tests (``pytest -m gpu tests/test_torch_cuda.py``,
-   in a child process on the same build) must all pass, while a pool of
-   :data:`PACK_WORKERS` host processes draws and packs gemma3-12b's
-   weights (phase 6); the script waits for the pool before any timed
-   phase.
+   in a child process on the same build) must all pass.  From the start
+   a pool of :data:`PACK_WORKERS` host processes at the lowest CPU
+   priority draws and packs the weights of phases 6 and 7 (gemma3-12b,
+   then mixtral-8x7b, deepseek-v2-lite-16b and llava-next-34b), beside
+   the card tests and phases 2-5, and is paused for every timed launch,
+   profiled window, serving and engine run; each later phase waits for
+   its model.
 3. Serving: qwen1.5-0.5b at full width, its depth cut to 8 of 24 layers
    (:data:`QWEN_LAYERS`; random weights from a numpy seed, every
    attention/MLP weight packed once to v1, v2 and v3)
@@ -104,15 +107,42 @@
    snapshot whose rings wrapped past W), with spec and without: prefix
    hits and side-slab snapshots counted, greedy tokens equal to each other
    and to the one-shot run's.
-7. Prints the compile and gemma readings as JSON, the kernels JSON line
-   (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
+7. The MoE family and the vision frontend at full width (``moe_phase``,
+   ``vision_phase``): mixtral-8x7b (one layer: 8 experts of 4096x14336
+   top-2, W = 4096, 1.58 B packed weights), deepseek-v2-lite-16b (its dense
+   ``first0`` and one MoE layer: MLA with a 512 cache and a packed
+   ``kv_up``, 64 experts of 2048x1408 top-6 and 2 shared) and
+   llava-next-34b (one layer, a packed ``patch_proj`` 7168x7168 for 576
+   patch embeddings), each packed to v2 and v3 by the pool (experts stacked
+   per layer, heads in column slabs; stacking checked against one
+   conversion at a small size).  Kernel rows on the models' own operands at
+   the expert shapes (4096x14336 and 14336x4096 at M = 4 and 512, 2048x1408
+   at M = 8) and the ragged widths (2048x10944, 10944x2048, 2048x576 at M =
+   8 and 512), as in phase 6.  mixtral and deepseek: one-shot serving (4
+   slots, s_max 2048) of 4 prompts of 400-600 tokens under auto (v2) and
+   v3: only the backend's kernels, 3 x E expert launches per MoE layer per
+   pass (a decode pass skips each packed ``kv_up``, read as its dequantized
+   matrix), equal tokens, routing drops printed; f32 prefill logits v2 ==
+   v3 bitwise and within 5e-5 of the ``torch`` backend; a profiled window;
+   the engine on v3 (``chunk_len`` 128): mixtral with spec and without
+   (equal tokens), deepseek with spec and the prefix cache, two prompts
+   sharing 256 tokens (a hit), MLA's ``c`` and ``k_pe`` classified paged
+   and one dequantized ``kv_up`` per layer. llava: one-shot through the
+   model API with seeded random patches under v2 and v3 (equal tokens,
+   ``patch_proj`` launched at prefill only), f32 logits and a profiled
+   window as above, and the engine with 2 requests admitted whole in one
+   prefill whose ``plen`` counts the 576 frontend tokens (no chunked step,
+   no prefix cache).
+8. Prints the compile, gemma and slice readings as JSON, the kernels JSON
+   line (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
    M = 8 in the top-level keys, every M a kernel ran at under ``at_m``;
    v3-decode adds ``draft_depth``, the draft passes' ``draft_launches``
    and ``draft_ms`` / ``draft_full_ms`` per layer on the model's own
    operands; ``artifact_launches`` counts the compile phase's runs,
    ``gemma_launches`` gemma's serving and engine runs, ``gemma`` its
-   kernel rows per shape and M, per call; every number measured in this
-   run but ``bound_ms``), the card line and, last, ``{"ok": true,
+   kernel rows per shape and M, per call; ``slice_launches`` and
+   ``slice`` the same for phase 7; every number measured in this run but
+   ``bound_ms``), the card line and, last, ``{"ok": true,
    "device": {...}}``.  Any failed check raises first; the pool's
    processes are stopped either way.
 """
@@ -154,8 +184,9 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 #: not just the tied head's echo of the last prompt token, set the tokens
 EMBED_STD = 0.05
 #: qwen1.5-0.5b's depth in the serving, engine and compile phases: 8 of its
-#: 24 layers, so that the whole script, the gemma3-12b phase included,
-#: stays well inside its time limit (the kernel phase runs every width)
+#: 24 layers, so that the whole script, the gemma3-12b, MoE and vision
+#: phases included, stays well inside its time limit (the kernel phase
+#: runs every width)
 QWEN_LAYERS = 8
 
 
@@ -191,9 +222,23 @@ def ptxas_summary(reports) -> list:
     return lines
 
 
+def free_card() -> None:
+    """Between phases: collect what the last phase left (an engine refers
+    to itself through the test hooks, so its model outlives the phase
+    until a collection) and return the cached blocks."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+#: pauses the packing pool, if one runs, for a measurement: device timings,
+#: profiled windows, serving and engine runs (set by :class:`Packer`)
+quiet = contextlib.nullcontext
 
 
 def time_ms(fn, flush, iters: int = 10) -> float:
@@ -201,19 +246,21 @@ def time_ms(fn, flush, iters: int = 10) -> float:
     L2 cache was flushed (the main path finds its weights cold).  The flush
     (:data:`FLUSH_BYTES`) keeps the device busy while the host issues the
     start event and ``fn``'s launches, so the events time device work, not
-    the host's Python in front of it."""
-    fn()
-    fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    the host's Python in front of it; the packing pool is paused
+    (:data:`quiet`), as a busy host outlasts the flush."""
+    with quiet():
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        fn()
+        times = []
+        for _ in range(iters):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -620,22 +667,26 @@ RUNS = {"auto": ("v2", ("sme_spmm6",)), "v1": ("v1", ("sme_spmm",)),
 
 
 def packed_linears(tree) -> int:
-    """SME-packed linears of a param tree: the launches of one model pass."""
+    """SME-packed linears of a param tree, a stacked [E, K, N] weight
+    counting its E slices: the launches of one model pass."""
     if isinstance(tree, dict):
-        return 1 if "sme_codes" in tree else sum(map(packed_linears,
-                                                     tree.values()))
+        if "sme_codes" in tree:
+            return int(np.prod(tuple(tree["sme_codes"].shape[:-4])))
+        return sum(map(packed_linears, tree.values()))
     if isinstance(tree, (list, tuple)):
         return sum(map(packed_linears, tree))
     return 0
 
 
 def serve_run(api, params, prompts, backend, card, route=None, label=None,
-              engine_kw=None):
+              engine_kw=None, decode_skip=0):
     """Serve one request of 16 new tokens per prompt once under
     ``backend``; returns (tokens, launches per kernel).  Counts are set to
     0 just before.  ``route``: (what the weights must resolve to, the
     kernels they launch), by default :data:`RUNS`' entry for ``backend``;
-    ``engine_kw``: the engine's settings (default :data:`ONE_SHOT`)."""
+    ``engine_kw``: the engine's settings (default :data:`ONE_SHOT`);
+    ``decode_skip``: packed linears a decode pass does not launch (MLA's
+    ``kv_up``, read as a dequantized matrix at decode)."""
     from repro_torch.serve import Request, ServeEngine
     want, mine = route or RUNS[backend]
     label = label or backend
@@ -646,8 +697,9 @@ def serve_run(api, params, prompts, backend, card, route=None, label=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    stats = eng.run(reqs, max_steps=200)
-    torch.cuda.synchronize()
+    with quiet():              # its ms per step and per prefill are readings
+        stats = eng.run(reqs, max_steps=200)
+        torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in wrappers().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     per_pass = packed_linears(params)
@@ -662,9 +714,11 @@ def serve_run(api, params, prompts, backend, card, route=None, label=None,
     check(all(len(r.out_tokens) == 16 for r in reqs), "short outputs")
     check(all(launches[k] == 0 for k in launches if k not in mine),
           f"{label}: kernels of another backend launched: {launches}")
-    check(sum(launches[k] for k in mine) == per_pass * passes,
+    want = per_pass * passes - decode_skip * stats["decode_steps"]
+    check(sum(launches[k] for k in mine) == want,
           f"{label}: {sum(launches[k] for k in mine)} launches of "
-          f"{mine} != {per_pass} x {passes} model passes")
+          f"{mine} != {want} ({per_pass} x {passes} model passes, "
+          f"{decode_skip} fewer per decode pass)")
     check(all(launches[k] > 0 for k in mine),
           f"{label}: a kernel of the path never launched: {launches}")
     if "sme_spmm_planes_decode" in mine:
@@ -692,8 +746,8 @@ def serve_phase(dev, card):
     from repro_torch.models.model import build_model
     cfg = qwen_config()
     print(f"serve: qwen1.5-0.5b at full width, depth cut from 24 layers to "
-          f"{cfg.n_layers} (this script's time limit holds the gemma3-12b "
-          f"phase too)", flush=True)
+          f"{cfg.n_layers} (this script's time limit holds the gemma3-12b, "
+          f"MoE and vision phases too)", flush=True)
     params, pack_s = build_model_params(dev, cfg)
     print(f"serve: packed {cfg.n_layers} layers x 7 linears to v1, v2 and "
           f"v3 in {pack_s:.1f}s", flush=True)
@@ -772,8 +826,8 @@ def profile_window(api, params, prompts, card, backend, engine_kw=None):
     reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with quiet(), profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         stats = eng.run(reqs)
         torch.cuda.synchronize()
@@ -829,14 +883,20 @@ def choose_spec_depth(params, coverage=DRAFT_COVERAGE):
     magnitude mass (set bits x 2^shift, what truncation drops), capped
     below the deepest group so the draft always truncates.  Returns (k,
     deepest, kept mass share, kept plane share)."""
-    dev = params["blocks"][0]["mlp"]["wi"]["w"]["sme_v3_planes"].device
+    linears = _v3_params(params["blocks"])
+    dev = linears[0]["sme_v3_planes"].device
     lut = torch.tensor([bin(i).count("1") for i in range(256)],
                        dtype=torch.float64, device=dev)
     mass = torch.zeros(64, dtype=torch.float64, device=dev)
     count = torch.zeros(64, dtype=torch.float64, device=dev)
-    for p in _v3_params(params["blocks"]):
-        planes, shift = p["sme_v3_planes"], p["sme_v3_shift"]
-        last, nnz = p["sme_v3_last"], p["sme_v3_nnz"]
+    for p in linears:
+        # stacked [E, ...] operands: each slice's columns, one after another
+        L = p["sme_v3_shift"].shape[-1]
+        planes = p["sme_v3_planes"].reshape(
+            (-1, L) + tuple(p["sme_v3_planes"].shape[-2:]))
+        shift = p["sme_v3_shift"].reshape(-1, L)
+        last = p["sme_v3_last"].reshape(-1, L)
+        nnz = p["sme_v3_nnz"].reshape(-1)
         nt, L = shift.shape
         slot = torch.arange(L, device=dev).expand(nt, L)
         start = torch.ones_like(last, dtype=torch.bool)
@@ -891,14 +951,16 @@ def engine_run(api, params, backend, spec_depth, prefix_cache,
     eng = ServeEngine(api, params, backend=backend, device=api.device,
                       spec_depth=spec_depth, prefix_cache=prefix_cache,
                       **(engine_kw or ENGINE))
-    passes, draft_launches = [0], [0]
+    passes, prefills, draft_launches = [0], [0], [0]
 
-    def counted(fn):
+    def counted(fn, also=None):
         def call(*a, **kw):
             passes[0] += 1
+            if also:
+                also[0] += 1
             return fn(*a, **kw)
         return call
-    api.prefill, api.decode_step = counted(api.prefill), \
+    api.prefill, api.decode_step = counted(api.prefill, prefills), \
         counted(api.decode_step)
     draft = eng._draft
 
@@ -913,33 +975,35 @@ def engine_run(api, params, backend, spec_depth, prefix_cache,
     events, t_sub, ttft = {}, {}, {}
     torch.cuda.synchronize()
     zero_counts()
-    t0 = time.perf_counter()
-    for r in first:
-        eng.submit(r)
-        t_sub[r.rid] = time.perf_counter()
-    steps, waiting = 0, list(second)
-    while not all(r.done for r in first + second):
-        check(steps < 400, f"engine[{backend}]: not done in 400 steps")
-        if waiting and ready(eng, steps):
-            for r in waiting:
-                eng.submit(r)
-                t_sub[r.rid] = time.perf_counter()
-            waiting = []
-        eng.pump()
-        eng.step()
-        steps += 1
-        now = time.perf_counter()
-        for ev in eng.poll():
-            if ev["kind"] == "token":
-                events.setdefault(ev["rid"], []).append(ev["token"])
-                ttft.setdefault(ev["rid"], now - t_sub[ev["rid"]])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with quiet():
+        t0 = time.perf_counter()
+        for r in first:
+            eng.submit(r)
+            t_sub[r.rid] = time.perf_counter()
+        steps, waiting = 0, list(second)
+        while not all(r.done for r in first + second):
+            check(steps < 400, f"engine[{backend}]: not done in 400 steps")
+            if waiting and ready(eng, steps):
+                for r in waiting:
+                    eng.submit(r)
+                    t_sub[r.rid] = time.perf_counter()
+                waiting = []
+            eng.pump()
+            eng.step()
+            steps += 1
+            now = time.perf_counter()
+            for ev in eng.poll():
+                if ev["kind"] == "token":
+                    events.setdefault(ev["rid"], []).append(ev["token"])
+                    ttft.setdefault(ev["rid"], now - t_sub[ev["rid"]])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers().items()}
     del api.prefill, api.decode_step
     return dict(reqs=first + second, eng=eng, events=events, ttft=ttft,
                 wall=wall, steps=steps, passes=passes[0],
-                launches=launches, draft_launches=draft_launches[0])
+                prefill_passes=prefills[0], launches=launches,
+                draft_launches=draft_launches[0])
 
 
 def draft_layer_ms(params, depth, flush):
@@ -1393,9 +1457,12 @@ HEAD_STD = 0.02                       # lm_init's head std
 #: slabs are bitwise one compression of the head (everything after the
 #: scale works per tile or per column tile; checked at a small size)
 HEAD_CLIP = 6 * HEAD_STD
-#: host processes that compress and pack gemma's weights while the card
-#: tests run (no timed phase runs beside them: a busy host slows every
-#: host-bound step and the issue of timed launches)
+#: host processes that compress and pack the full-width models' weights
+#: (gemma, mixtral, deepseek, llava) beside the card tests and the qwen
+#: phases, at the lowest CPU priority.  Measurements pause them
+#: (:data:`quiet`): beside them, CUDA-event times of the qwen kernel rows
+#: came out 30-300x too long, the host's launches falling behind the
+#: flush, and host-bound engine steps several times slower
 PACK_WORKERS = 6
 GEMMA_ONE_SHOT = dict(slots=4, s_max=2048, chunk_len=2048, prefix_cache=False)
 GEMMA_ENGINE = dict(slots=4, s_max=2048, chunk_len=32, page_tokens=16,
@@ -1423,9 +1490,9 @@ def gemma_config():
 
 
 def gemma_tasks(cfg):
-    """(name, seed, (K, N), std) of every gemma weight the pool packs,
-    largest first: per layer q, k, v, o, wi, wo (std 1/sqrt(K)), and the
-    head's slabs."""
+    """(name, seed, (K, N), std, backends) of every gemma weight the pool
+    packs, largest first: per layer q, k, v, o, wi, wo (std 1/sqrt(K)),
+    and the head's slabs, each for v1, v2 and v3."""
     d, ff = cfg.d_model, cfg.d_ff
     qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
     shapes = {"q": (d, qd), "k": (d, kvd), "v": (d, kvd), "o": (qd, d),
@@ -1434,7 +1501,7 @@ def gemma_tasks(cfg):
              for i in range(cfg.n_layers) for name, (k, n) in shapes.items()]
     tasks += [(f"head/{s}", (d, cfg.vocab // HEAD_SLABS), HEAD_STD)
               for s in range(HEAD_SLABS)]
-    tasks = [(name, SEED * 1000 + i, shape, std)
+    tasks = [(name, SEED * 1000 + i, shape, std, "all")
              for i, (name, shape, std) in enumerate(tasks)]
     return sorted(tasks, key=lambda t: -t[2][0] * t[2][1])
 
@@ -1447,17 +1514,17 @@ def head_slab(w):
     return w
 
 
-def pack_gemma_weight(task):
-    """Pool worker: one gemma weight (or head slab) drawn from its own seed,
-    compressed once (8 bits, window 3, squeeze 1) and packed for v1, v2
-    and v3; numpy arrays."""
+def pack_task(task):
+    """Pool worker: one weight (or head slab) drawn from its own seed,
+    compressed once (8 bits, window 3, squeeze 1) and packed for the
+    backends the task names ("all", or a tuple); numpy arrays."""
     from repro_torch.core.integrate import convert_params_to_sme
-    name, seed, (k, n), std = task
+    name, seed, (k, n), std, backend = task
     w = np.random.default_rng(seed).standard_normal((k, n), dtype=np.float32)
     w *= np.float32(std)
     if name.startswith("head/"):
         head_slab(w)
-    packed = convert_params_to_sme({"w": w}, backend="all", device="cpu")
+    packed = convert_params_to_sme({"w": w}, backend=backend, device="cpu")
     return name, {key: t.numpy() for key, t in packed["w"].items()}
 
 
@@ -1508,25 +1575,65 @@ def check_slab_join():
         "joined column slabs differ from one compression of the weight")
 
 
-def pack_gemma_while(during):
-    """Draw and pack every gemma weight in a pool of :data:`PACK_WORKERS`
-    spawned host processes while ``during()`` runs, then wait for them and
-    stop the pool.  Returns ({name: packed numpy param}, seconds from the
-    pool's start to its last result, seconds waited after ``during``)."""
-    import multiprocessing
-    t0 = time.perf_counter()
-    pool = multiprocessing.get_context("spawn").Pool(PACK_WORKERS)
-    try:
-        pending = [pool.apply_async(pack_gemma_weight, (t,))
-                   for t in gemma_tasks(gemma_config())]
-        during()
+def _low_priority():
+    import os
+    os.nice(19)
+
+
+class Packer:
+    """Draws and packs the weights of every full-width model of the later
+    phases (:data:`PACK_WORKERS` spawned host processes at the lowest CPU
+    priority) from the script's start: gemma's, then the MoE and vision
+    models', largest first within each.  While it runs, :data:`quiet`
+    stops its processes (SIGSTOP) for the length of a measurement and
+    continues them after.  :meth:`wait` returns one model's ({name:
+    packed numpy param}, seconds from the pool's start to its last result,
+    seconds waited); :meth:`close` stops the pool."""
+
+    def __init__(self, groups):
+        import multiprocessing
+        global quiet
+        self.t0 = time.perf_counter()
+        self.paused_s = 0.0
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            PACK_WORKERS, initializer=_low_priority)
+        self.pending = {model: [self.pool.apply_async(pack_task, (t,))
+                                for t in tasks]
+                        for model, tasks in groups.items()}
+        quiet = self.paused
+
+    def _signal(self, sig):
+        import os
+        for proc in self.pool._pool:
+            try:
+                os.kill(proc.pid, sig)
+            except (ProcessLookupError, TypeError):
+                pass                     # exited, or not started yet
+
+    @contextlib.contextmanager
+    def paused(self):
+        import signal
+        t0 = time.perf_counter()
+        self._signal(signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            self._signal(signal.SIGCONT)
+            self.paused_s += time.perf_counter() - t0
+
+    def wait(self, model):
         t1 = time.perf_counter()
-        got = dict(r.get() for r in pending)
+        got = dict(r.get() for r in self.pending.pop(model))
         t2 = time.perf_counter()
-    finally:
-        pool.terminate()
-        pool.join()
-    return got, t2 - t0, t2 - t1
+        return got, t2 - self.t0, t2 - t1
+
+    def close(self):
+        global quiet
+        quiet = contextlib.nullcontext
+        self.pool.terminate()
+        self.pool.join()
+        print(f"pack: the pool was paused {self.paused_s:.1f}s in all for "
+              f"device measurements", flush=True)
 
 
 def gemma_params(dev, cfg, got):
@@ -1562,7 +1669,7 @@ def gemma_params(dev, cfg, got):
 def oracle_weight(hp, cols):
     """The SMEWeight of a raw packed param's first ``cols`` columns."""
     from repro_torch.core.backend import smeweight_from_param
-    t = cols // 128
+    t = -(-cols // 128)
     return smeweight_from_param({
         "sme_codes": hp["sme_codes"][:, :t], "sme_rowexp":
         hp["sme_rowexp"][:, :t], "sme_sign": hp["sme_sign"][:, :cols // 8],
@@ -1573,32 +1680,46 @@ def oracle_weight(hp, cols):
 
 def gemma_kernel_rows(dev, params, host, card):
     """Each kernel at gemma's widths (layer 0's q, k, wi and wo and the
-    head, the model's own operands): v3-decode at M = 8 and 64, v1 and v2
-    at 8, 64 and 512, v3-prefill at 512; each against its plain version
-    (in blocks of rows and column tiles) and the f64 oracle on the first
-    :data:`ORACLE_COLS` columns, v1 == v2 == v3 bitwise; times of the launch
-    alone, the plain version, ``torch.matmul`` on the dequantized weight in
-    f32 (the same function) and in bf16 (a dense bf16 model's), and the
-    bound.  Returns {kernel: {label: {M: readings}}}."""
+    head, the model's own operands) at M = 8, 64 and 512 (see
+    :func:`kernel_rows`).  Returns {kernel: {label: {M: readings}}}."""
+    shapes = []
+    for label, leaf, K, N in GEMMA_SHAPES:
+        p = params["lm_head"]["w"] if leaf == "head" else (
+            params["blocks"][0]["mix" if leaf in "qkvo" else "mlp"][leaf]["w"])
+        smew = oracle_weight(host["head/0" if leaf == "head" else
+                                 f"0/{leaf}"], min(N, ORACLE_COLS))
+        shapes.append((f"gemma {label}", p, smew, K, N, (8, 64, 512)))
+    return kernel_rows(dev, shapes, card, SEED + 6)
+
+
+def kernel_rows(dev, shapes, card, seed):
+    """Each kernel at the given shapes on a model's own operands
+    (``shapes``: (label, packed param with v1, v2 and v3 operands, oracle
+    SMEWeight of its first columns, K, N, Ms)): v3-decode, v1 and v2 at M
+    <= 64 (rows padded to 8 with zeros, as the backends pad), v3-prefill,
+    v1 and v2 above; each against its plain version (in blocks of rows and
+    column tiles) and the f64 oracle on the first :data:`ORACLE_COLS`
+    columns, v1 == v2 == v3 bitwise; times of the launch alone, the plain
+    version, ``torch.matmul`` on the dequantized weight in f32 (the same
+    function) and in bf16 (a dense bf16 model's), and the bound.  Returns
+    {kernel: {label: {M: readings}}}."""
     from repro_torch.core.integrate import sme_dequant
     from repro_torch.core.sme import sme_matmul_ref_np
     ws = wrappers()
     plains = {n: chunked(n, getattr(m, f"{n}_plain"))
               for n, m in _modules().items()}
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-    rng = np.random.default_rng(SEED + 6)
+    rng = np.random.default_rng(seed)
     rows = {name: {} for name in KERNELS}
-    for label, leaf, K, N in GEMMA_SHAPES:
-        p = params["lm_head"]["w"] if leaf == "head" else (
-            params["blocks"][0]["mix" if leaf in "qkvo" else "mlp"][leaf]["w"])
-        smew = oracle_weight(host["head/0" if leaf == "head" else
-                                 f"0/{leaf}"], min(N, ORACLE_COLS))
-        check(tuple(p["sme_sign"].shape) == (K, N // 8), f"{label} shape")
+    for label, p, smew, K, N, ms in shapes:
+        check(tuple(p["sme_sign"].shape) == (K, -(-N // 8)), f"{label} shape")
         a3 = [p[f"sme_v3_{o}"] for o in V3_OPS]
         a1 = [p[f"sme_v1_{o}"] for o in V1_OPS]
         a2 = [p[f"sme_v2_{o}"] for o in V2_OPS]
-        nt = N // 128
-        scale = p["sme_scale"].reshape(1, -1).float()
+        nt = a3[0].shape[0]
+        kp = p["sme_codes"].shape[0] * p["sme_codes"].shape[2]
+        scale = torch.zeros((1, nt * 128), device=dev)
+        scale[:, :N] = p["sme_scale"].reshape(1, -1).float()
         colscale = (scale * 2.0 ** -8).reshape(nt, 128)
         nnz3, last = a3[6], a3[5]
         valid = torch.arange(last.shape[1], device=dev)[None] < nnz3[:, None]
@@ -1606,13 +1727,15 @@ def gemma_kernel_rows(dev, params, host, card):
         occ = int(a1[4].sum())
         w32 = sme_dequant(p, torch.float32)
         w16 = w32.to(torch.bfloat16)
-        for m in (8, 64, 512):
-            x = torch.as_tensor(rng.standard_normal((m, K)),
-                                dtype=torch.float32, device=dev)
-            ref = sme_matmul_ref_np(x.cpu().numpy(), smew)
-            x128 = torch.zeros((-(-m // 128) * 128, K), device=dev)
-            x128[:m] = x
-            y_pre = (ws["sme_spmm_planes"](x128, *a3)[:m] * scale
+        for m in ms:
+            mp = -(-m // 8) * 8
+            x = torch.zeros((mp, kp), device=dev)
+            x[:m, :K] = torch.as_tensor(rng.standard_normal((m, K)),
+                                        dtype=torch.float32, device=dev)
+            ref = sme_matmul_ref_np(x[:m, :K].cpu().numpy(), smew)
+            x128 = torch.zeros((-(-mp // 128) * 128, kp), device=dev)
+            x128[:mp] = x
+            y_pre = (ws["sme_spmm_planes"](x128, *a3)[:mp] * scale
                      * 2.0 ** -8)
             runs = []
             if m <= 64:
@@ -1622,23 +1745,25 @@ def gemma_kernel_rows(dev, params, host, card):
                         x, *a3[:3], colscale, *a3[3:]), 1.0))
             else:
                 runs.append(("sme_spmm_planes", lambda: ws["sme_spmm_planes"](
-                    x128, *a3)[:m], lambda: plains["sme_spmm_planes"](
-                        x128, *a3)[:m], 2.0 ** -8))
+                    x128, *a3)[:mp], lambda: plains["sme_spmm_planes"](
+                        x128, *a3)[:mp], 2.0 ** -8))
             runs.append(("sme_spmm", lambda: ws["sme_spmm"](x, *a1),
                          lambda: plains["sme_spmm"](x, *a1), 2.0 ** -8))
             runs.append(("sme_spmm6", lambda: ws["sme_spmm6"](x, *a2),
                          lambda: plains["sme_spmm6"](x, *a2), 2.0 ** -1))
-            lib_ms = time_ms(lambda: torch.matmul(x, w32), flush)
-            bf16_ms = time_ms(lambda: torch.matmul(x.bfloat16(), w16), flush)
+            xm = x[:m, :K]
+            lib_ms = time_ms(lambda: torch.matmul(xm, w32), flush)
+            bf16_ms = time_ms(lambda: torch.matmul(xm.bfloat16(), w16),
+                              flush)
             for name, kern, plain, q in runs:
                 s = scale if name != "sme_spmm_planes_decode" else 1.0
                 y, yp = kern() * s * q, plain() * s * q
                 torch.cuda.synchronize()
-                err, rel = check_close(name, y, yp, ref,
-                                       f"gemma {label} M={m}")
+                err, rel = check_close(name, y[:m], yp[:m], ref,
+                                       f"{label} M={m}")
                 check(bool(torch.equal(y, y_pre)),
-                      f"{name} gemma {label} M={m}: != v3 prefill bitwise")
-                ms = time_ms(kern, flush)
+                      f"{name} {label} M={m}: != v3 prefill bitwise")
+                ms_ = time_ms(kern, flush)
                 plain_ms = time_ms(plain, flush, iters=3)
                 if name.startswith("sme_spmm_planes"):
                     nbytes = (m * K * 4 + planes * 2048 + groups * (2048 + 512)
@@ -1651,8 +1776,8 @@ def gemma_kernel_rows(dev, params, host, card):
                               + m * N * 4)
                     flops = 2.0 * m * 128 * 128 * occ
                 bound, by = bound_of(nbytes, flops)
-                print(f"kernel {name:22s} gemma {label:16s} M={m:3d}: "
-                      f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+                print(f"kernel {name:22s} {label:22s} M={m:3d}: "
+                      f"{ms_ * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
                       f"torch.matmul f32 {lib_ms * 1e3:.1f} us (bf16 "
                       f"{bf16_ms * 1e3:.1f} us), bound {bound * 1e3:.2f} us "
                       f"({by}: {nbytes} B, {flops:.3g} FLOP) | max|k-p|="
@@ -1660,7 +1785,7 @@ def gemma_kernel_rows(dev, params, host, card):
                       f"{ref.shape[1]} columns) == v3 prefill | {card}",
                       flush=True)
                 rows[name].setdefault(label, {})[str(m)] = dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    ms=ms_, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                     library_ms=lib_ms, bf16_matmul_ms=bf16_ms,
                     max_abs_err=err)
         del w32, w16
@@ -1827,6 +1952,548 @@ def gemma_phase(dev, card, packed):
     return rows, launches, out
 
 
+# ---------------------------------------------------------------------------
+# the MoE family and the vision frontend: mixtral-8x7b, deepseek-v2-lite,
+# llava-next-34b at full width
+
+#: the slice's models: key -> (arch, layers run on the card)
+SLICE = {"mixtral": ("mixtral-8x7b", 1),
+         "deepseek": ("deepseek-v2-lite-16b", 2),
+         "llava": ("llava-next-34b", 1)}
+#: their full depth, for the log
+SLICE_DEPTH = {"mixtral": 32, "deepseek": 27, "llava": 60}
+SLICE_ONE_SHOT = dict(slots=4, s_max=2048, chunk_len=2048, prefix_cache=False)
+SLICE_ENGINE = dict(slots=4, s_max=2048, chunk_len=128, page_tokens=16,
+                    spec_len=4)
+#: the slice's prompt lengths are drawn from [lo, hi)
+SLICE_PROMPTS = (400, 601)
+#: the prefix deepseek's first two requests share: 2 chunks of 128
+SLICE_SHARED = 256
+#: a weight of more than this many is packed in column slabs (the heads)
+SLAB_WEIGHTS = 64 * 2 ** 20
+#: f32 prefill logits of the slice's models against the ``torch`` backend,
+#: relative to max |logit|: one or two layers of the per-linear difference
+#: (<= 5e-5 of a product, DESIGN.md §5)
+TOL_SLICE = 5e-5
+#: the pool packs these weights for v1 too: the kernel rows'
+ROW_WEIGHTS = {"mixtral": ("b0/wi/0", "b0/wo/0"),
+               "deepseek": ("b0/wi/0", "first0/wi", "first0/wo",
+                            "first0/kv_down"),
+               "llava": ()}
+#: the slice's kernel rows: (model, label, weight, K, N, Ms): mixtral's
+#: and deepseek's expert shapes, and the ragged widths (10944 = 85.5
+#: tiles, 576 = 4.5 tiles)
+SLICE_SHAPES = (
+    ("mixtral", "expert wi 4096x14336", "b0/wi/0", 4096, 14336, (4, 512)),
+    ("mixtral", "expert wo 14336x4096", "b0/wo/0", 14336, 4096, (4, 512)),
+    ("deepseek", "expert wi 2048x1408", "b0/wi/0", 2048, 1408, (8,)),
+    ("deepseek", "first0 wi 2048x10944", "first0/wi", 2048, 10944, (8, 512)),
+    ("deepseek", "first0 wo 10944x2048", "first0/wo", 10944, 2048, (8, 512)),
+    ("deepseek", "kv_down 2048x576", "first0/kv_down", 2048, 576, (8, 512)))
+
+
+def slice_config(key):
+    from repro_torch.configs import ARCHS
+    arch, n = SLICE[key]
+    return dataclasses.replace(ARCHS[arch], n_layers=n)
+
+
+def head_slabs(cfg) -> int:
+    """Column slabs of a head: the fewest that split its column tiles
+    evenly with at most :data:`SLAB_WEIGHTS` weights each."""
+    nt = cfg.vocab // 128
+    return next(n for n in range(1, nt + 1)
+                if nt % n == 0 and cfg.d_model * cfg.vocab / n
+                <= SLAB_WEIGHTS)
+
+
+def layer_linears(cfg, layer: str, moe: bool):
+    """(name, (K, N)) of one layer's packed weights: attention (GQA or
+    MLA), then the MLP (dense wi/wg/wo, or each expert's and the shared
+    experts')."""
+    d, h = cfg.d_model, cfg.n_heads
+    if cfg.attn_type == "mla":
+        dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+        out = [("q", (d, h * (dn + dr))), ("kv_down", (d, cfg.kv_lora + dr)),
+               ("kv_up", (cfg.kv_lora, h * (dn + dv))), ("o", (h * dv, d))]
+    else:
+        qd, kvd = h * cfg.hd, cfg.n_kv_heads * cfg.hd
+        out = [("q", (d, qd)), ("k", (d, kvd)), ("v", (d, kvd)),
+               ("o", (qd, d))]
+    if moe:
+        f = cfg.expert_dff
+        for e in range(cfg.n_experts):
+            out += [(f"wi/{e}", (d, f)), (f"wg/{e}", (d, f)),
+                    (f"wo/{e}", (f, d))]
+        if cfg.n_shared_experts:
+            fs = f * cfg.n_shared_experts
+            out += [("shared/wi", (d, fs)), ("shared/wg", (d, fs)),
+                    ("shared/wo", (fs, d))]
+    else:
+        out += [("wi", (d, cfg.d_ff)), ("wg", (d, cfg.d_ff)),
+                ("wo", (cfg.d_ff, d))]
+    return [(f"{layer}/{n}", shape) for n, shape in out]
+
+
+def layer_names(cfg):
+    """(param name, use_moe) of every layer: ``first{i}``, then ``b{i}``."""
+    from repro_torch.models.transformer import layer_slots
+    nf = cfg.first_dense_layers
+    return [(f"first{i}" if i < nf else f"b{i - nf}", moe)
+            for i, (_, moe) in enumerate(layer_slots(cfg))]
+
+
+def slice_tasks(key, offset):
+    """The pool's tasks for one of the slice's models, largest first: every
+    packed weight (std 1/sqrt(K)), the head's slabs and a vision model's
+    ``patch_proj``, for v2 and v3 (all three formats for the kernel rows'
+    weights)."""
+    cfg = slice_config(key)
+    named = [t for layer, moe in layer_names(cfg)
+             for t in layer_linears(cfg, layer, moe)]
+    ns = head_slabs(cfg)
+    named += [(f"head/{j}", (cfg.d_model, cfg.vocab // ns))
+              for j in range(ns)]
+    if cfg.frontend:
+        named.append(("patch_proj", (cfg.d_model, cfg.d_model)))
+    tasks = [(name, SEED * 1000 + offset + i, shape,
+              HEAD_STD if name.startswith("head/") else shape[0] ** -0.5,
+              "all" if name in ROW_WEIGHTS[key] else ("v2", "v3"))
+             for i, (name, shape) in enumerate(named)]
+    return sorted(tasks, key=lambda t: -t[2][0] * t[2][1])
+
+
+def stack_slices(parts):
+    """One stacked [E, ...] packed param from E packed slices: every leaf
+    on a new lead axis, the operand lists padded to the longest slice's
+    with the packers' fill (rowscale 1, everything else 0), as
+    ``convert_params_to_sme`` pads a stacked weight."""
+    out = {}
+    for key in parts[0]:
+        arrs = [p[key] for p in parts]
+        if key.startswith("sme_v") and not key.endswith(("_nnz", "v3_sign",
+                                                        "v3_rowscale")):
+            L = max(a.shape[1] for a in arrs)
+            fill = 1 if key.endswith("rowscale") else 0
+            arrs = [np.pad(a, [(0, 0), (0, L - a.shape[1])]
+                           + [(0, 0)] * (a.ndim - 2), constant_values=fill)
+                    for a in arrs]
+        out[key] = np.stack(arrs)
+    return out
+
+
+def check_stack():
+    """At 3 x 256 x 384 (one slice with an empty tile, so its lists are
+    shorter): slices packed alone and stacked are byte for byte one
+    conversion of the stacked weight."""
+    from repro_torch.core.integrate import convert_params_to_sme
+    w = np.random.default_rng(SEED + 10).standard_normal(
+        (3, 256, 384), dtype=np.float32) * np.float32(0.06)
+    w[1, 128:, 128:256] = 0.0
+
+    def pack(a):
+        p = convert_params_to_sme({"w": a}, backend=("v2", "v3"),
+                                  device="cpu")
+        return {k: t.numpy() for k, t in p["w"].items()}
+    whole = pack(w)
+    stacked = stack_slices([pack(np.ascontiguousarray(w[e]))
+                            for e in range(3)])
+    check(sorted(stacked) == sorted(whole) and all(
+        stacked[k].dtype == whole[k].dtype
+        and stacked[k].shape == whole[k].shape
+        and stacked[k].tobytes() == whole[k].tobytes() for k in whole),
+        "stacked expert slices differ from one conversion of the stack")
+
+
+def slice_params(dev, key, cfg, got):
+    """The packed model on the card from the pool's results: experts
+    stacked per layer, a numpy-seeded router (std 0.02), unit norms, the
+    head's slabs joined, the embedding drawn on the card; and the host
+    copies of the kernel rows' weights (with their v1 operands, which the
+    stacked experts do not keep)."""
+    from repro_torch.core.integrate import to_torch
+    rows = {name: got[name] for name in ROW_WEIGHTS[key]}
+    rng = np.random.default_rng(SEED + 8)
+    d = cfg.d_model
+    ones = np.ones(d, np.float32)
+
+    def lin(name):
+        return {"w": got.pop(name)}
+
+    def v2v3(p):
+        return {k: v for k, v in p.items() if not k.startswith("sme_v1_")}
+    tree = {"final_norm": {"w": ones}, "blocks": []}
+    for layer, moe in layer_names(cfg):
+        mix = {k: lin(f"{layer}/{k}") for k in (
+            ("q", "kv_down", "kv_up", "o") if cfg.attn_type == "mla"
+            else "qkvo")}
+        if moe:
+            mlp = {"router": {"w": rng.standard_normal(
+                (d, cfg.n_experts), dtype=np.float32) * np.float32(0.02)}}
+            for w in ("wi", "wg", "wo"):
+                mlp[w] = stack_slices([v2v3(got.pop(f"{layer}/{w}/{e}"))
+                                       for e in range(cfg.n_experts)])
+            if cfg.n_shared_experts:
+                mlp["shared"] = {w: lin(f"{layer}/shared/{w}")
+                                 for w in ("wi", "wg", "wo")}
+        else:
+            mlp = {w: lin(f"{layer}/{w}") for w in ("wi", "wg", "wo")}
+        block = {"norm1": {"w": ones}, "mix": mix, "norm2": {"w": ones},
+                 "mlp": mlp}
+        if layer.startswith("first"):
+            tree[layer] = block
+        else:
+            tree["blocks"].append(block)
+    slabs = [got.pop(f"head/{j}") for j in range(head_slabs(cfg))]
+    check(len({float(p["sme_scale"][0, 0]) for p in slabs}) == 1,
+          f"{cfg.name}: head slabs have different scales")
+    tree["lm_head"] = {"w": join_columns(slabs) if len(slabs) > 1
+                       else slabs[0]}
+    del slabs
+    if cfg.frontend:
+        tree["patch_proj"] = lin("patch_proj")
+    check(not got, f"{cfg.name}: packed weights left over: {sorted(got)}")
+    params = to_torch(tree, dev)
+    del tree
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params["embed"] = {"w": torch.randn((cfg.vocab, d), generator=gen,
+                                        device=dev) * EMBED_STD}
+    torch.cuda.synchronize()
+    return params, rows
+
+
+def slice_kernel_rows(dev, key, rows_host, card):
+    from repro_torch.core.integrate import to_torch
+    shapes = []
+    for model, label, name, K, N, ms in SLICE_SHAPES:
+        if model == key:
+            shapes.append((f"{model} {label}", to_torch(rows_host[name], dev),
+                           oracle_weight(rows_host[name], min(N, ORACLE_COLS)),
+                           K, N, ms))
+    return kernel_rows(dev, shapes, card, SEED + 9) if shapes else {}
+
+
+def slice_workload(key, vocab):
+    """4 greedy requests of 400-600-token prompts, 16 new tokens; for
+    deepseek the first two share :data:`SLICE_SHARED` tokens and the
+    second is submitted once the first has scored them (a prefix-cache
+    hit).  Returns (prompts, (first wave, second wave, ready))."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED + 11 + len(key))
+    lens = rng.integers(*SLICE_PROMPTS, size=4)
+    prompts = [rng.integers(0, vocab, int(n)) for n in lens]
+    if key == "deepseek":
+        prompts[1][:SLICE_SHARED] = prompts[0][:SLICE_SHARED]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    if key != "deepseek":
+        return prompts, (reqs, [], lambda e, n: False)
+    a = reqs[0]
+
+    def ready(eng, _):
+        slot = next((i for i, r in enumerate(eng.active) if r is a), None)
+        return slot is not None and eng._pf_next[slot] >= SLICE_SHARED
+    return prompts, ([a] + reqs[2:], [reqs[1]], ready)
+
+
+def slice_logits(api32, params, toks, plen, label, patches=None):
+    """f32 prefill logits of one window under v2 and v3 (bitwise equal)
+    and the ``torch`` backend (within :data:`TOL_SLICE`).  Returns the
+    relative difference."""
+    lk = {be: api32.prefill(params, toks, s_max=SLICE_ONE_SHOT["s_max"],
+                            plen=plen, backend=be, patches=patches)[0]
+          for be in ("v2", "v3", "torch")}
+    check(bool(torch.equal(lk["v2"], lk["v3"])),
+          f"{label}: f32 prefill logits differ between v2 and v3")
+    check(bool(torch.isfinite(lk["v2"]).all())
+          and lk["v2"].shape == (len(plen), api32.cfg.vocab),
+          f"{label}: logits non-finite or misshapen")
+    diff = float((lk["v2"] - lk["torch"]).abs().max()
+                 / lk["torch"].abs().max())
+    agree = int((lk["v2"].argmax(-1) == lk["torch"].argmax(-1)).sum())
+    print(f"{label}: f32 prefill logits ({toks.shape[0]} x "
+          f"{toks.shape[1]}) v2 == v3 bitwise; vs the torch backend: max "
+          f"rel diff {diff:.2e} (tolerance {TOL_SLICE:.0e}), greedy "
+          f"agreement {agree}/{len(plen)}", flush=True)
+    check(diff <= TOL_SLICE, f"{label}: logits vs torch {diff}")
+    return diff
+
+
+def check_engine(r, per_pass, skip, label, card, spec_len):
+    """An engine run of the slice: every request complete, token events
+    equal to the outputs, only v3's kernels, ``per_pass`` launches per
+    prefill pass and ``per_pass - skip`` per decode pass, and a draft's
+    passes on the decode kernel; prints its readings."""
+    eng, reqs, m = r["eng"], r["reqs"], r["eng"]._m
+    mine = KERNELS_OF["v3"]
+    check(all(q.outcome == "completed" and len(q.out_tokens) == 16
+              for q in reqs), f"{label}: incomplete requests")
+    check(all(r["events"].get(q.rid) == q.out_tokens for q in reqs),
+          f"{label}: token events != out_tokens")
+    want = per_pass * r["passes"] - skip * (r["passes"] - r["prefill_passes"])
+    got = sum(r["launches"][k] for k in mine)
+    check(got == want and all(r["launches"][k] == 0 for k in r["launches"]
+                              if k not in mine)
+          and all(r["launches"][k] > 0 for k in mine),
+          f"{label}: launches {r['launches']} != {want} over {r['passes']} "
+          f"passes ({r['prefill_passes']} prefill) of {per_pass} - {skip}")
+    rounds = int(m["spec_rounds"].value)
+    if spec_len:
+        check(rounds > 0 and r["draft_launches"]
+              == (per_pass - skip) * spec_len * rounds,
+              f"{label}: draft launches {r['draft_launches']} for {rounds} "
+              f"rounds")
+    n_tok = sum(len(q.out_tokens) for q in reqs)
+    split = ", ".join(f"{k} {n} x {ms:.1f} ms"
+                      for k, (n, ms) in eng.step_ms().items())
+    print(f"{label}: {r['steps']} steps ({split}); {r['passes']} passes "
+          f"({r['prefill_passes']} prefill); {n_tok} tokens in "
+          f"{r['wall']:.2f} s = {n_tok / r['wall']:.2f} tokens/s; spec "
+          f"rounds {rounds}, accepted {int(m['spec_accepted'].value)} of "
+          f"{int(m['spec_draft_tokens'].value)}; prefix hits "
+          f"{int(m['prefix_hits'].value)}, snapshots "
+          f"{int(m['prefix_snapshots'].value)}; TTFT s "
+          + ", ".join(f"{q.rid}:{r['ttft'][q.rid]:.2f}" for q in reqs)
+          + f" | {card}", flush=True)
+    return n_tok / r["wall"]
+
+
+def slice_setup(dev, key, packed, card):
+    """The phases' common start: the packed model on the card, its
+    readings, and its kernel rows."""
+    from repro_torch.core.integrate import sme_operand_bytes
+    from repro_torch.models.transformer import model_layers
+    cfg = slice_config(key)
+    got, pack_s, wait_s = packed
+    params, rows_host = slice_params(dev, key, cfg, got)
+    del got
+    ob = sme_operand_bytes(params)
+    per_pass = packed_linears(params)
+    # MLA decode reads a packed kv_up as its dequantized matrix (R4)
+    skip = sum(isinstance(p["mix"].get("kv_up", {}).get("w"), dict)
+               for p in model_layers(params, cfg))
+    print(f"{cfg.name}: {ob['weights']} packed weights, {per_pass} launches "
+          f"per prefill pass ({per_pass - skip - (1 if cfg.frontend else 0)}"
+          f" per decode pass), v2 {ob['v2'] / ob['weights']:.4f} B and v3 "
+          f"{ob['v3'] / ob['weights']:.4f} B per weight; packed on the host "
+          f"by the pool: {pack_s:.1f}s from its start, {wait_s:.1f}s waited "
+          f"here; card memory {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB | {card}", flush=True)
+    rows = slice_kernel_rows(dev, key, rows_host, card)
+    del rows_host
+    out = {"weights": ob["weights"], "pack_s": pack_s, "pack_wait_s": wait_s,
+           "card_gib": torch.cuda.memory_allocated() / 2 ** 30,
+           "launches_per_pass": per_pass}
+    return cfg, params, skip, rows, out
+
+
+def moe_phase(dev, card, key, packed):
+    """An MoE model at full width: its kernel rows; one-shot serving under
+    auto (v2) and v3 (equal tokens, 3 x E expert launches per MoE layer
+    per pass, routing drops); f32 prefill logits; the engine on v3 (mixtral
+    with spec and without, equal tokens; deepseek with spec and the prefix
+    cache, MLA's leaves paged and each packed ``kv_up`` dequantized
+    once).  Returns the kernel rows, launches per kernel and readings."""
+    from repro_torch.core.backend import cached_dequant
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import moe_drops
+    t_phase = time.perf_counter()
+    builds0 = cached_dequant.builds
+    cfg = slice_config(key)
+    label = f"moe[{cfg.name}]"
+    n_moe = sum(cfg.moe_for_slot(j) for j in range(len(cfg.pattern))) \
+        * cfg.n_super
+    mla = f" kv_lora {cfg.kv_lora}" if cfg.kv_lora else ""
+    shared = (f" + {cfg.n_shared_experts} shared" if cfg.n_shared_experts
+              else "")
+    print(f"{label}: full width (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.attn_type}{mla}, {cfg.n_experts} experts top-{cfg.top_k} of "
+          f"{cfg.expert_dff}{shared}, vocab {cfg.vocab}); depth cut from "
+          f"{SLICE_DEPTH[key]} layers to {cfg.n_layers} "
+          f"({cfg.first_dense_layers} leading dense + {n_moe} MoE); "
+          f"{3 * cfg.n_experts} expert launches per MoE layer per pass",
+          flush=True)
+    check_stack()
+    cfg, params, skip, rows, out = slice_setup(dev, key, packed, card)
+    api = build_model(cfg, device=dev)
+    prompts, waves = slice_workload(key, cfg.vocab)
+    launches = {name: 0 for name in KERNELS}
+    tokens = {}
+    for backend in ("auto", "v3"):
+        moe_drops.update(dropped=0, routed=0)
+        tokens[backend], counts = serve_run(
+            api, params, prompts, backend, card, engine_kw=SLICE_ONE_SHOT,
+            label=f"{label} {backend}", decode_skip=skip)
+        for k in launches:
+            launches[k] += counts[k]
+        dropped, routed = int(moe_drops["dropped"]), int(moe_drops["routed"])
+        print(f"{label} {backend}: routing drops {dropped} of {routed} "
+              f"routed (token, expert) entries, all in the one prefill "
+              f"(decode passes run at capacity 1 per row and drop none)",
+              flush=True)
+        out[f"drops_{backend}"] = dropped
+    check(tokens["auto"] == tokens["v3"], f"{label}: v2 and v3 tokens differ")
+    print(f"{label}: one-shot tokens of auto (v2) and v3 identical; distinct "
+          f"tokens per request: "
+          + ", ".join(f"{i}:{len(set(t))}" for i, t in
+                      enumerate(tokens["v3"])), flush=True)
+    toks, plen = prefill_window(prompts, SLICE_ONE_SHOT["s_max"])
+    api32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    out["logits_rel_torch"] = slice_logits(api32, params, toks, plen, label)
+    del api32
+    torch.cuda.empty_cache()
+    profile_window(api, params, prompts, card, "auto",
+                   engine_kw=SLICE_ONE_SHOT)
+
+    depth, deepest, _, _ = choose_spec_depth(params)
+    runs = {}
+    specs = (("spec", depth), ("spec off", None)) if key == "mixtral" \
+        else (("spec+prefix", depth),)
+    for name, spec in specs:
+        _, w = slice_workload(key, cfg.vocab)
+        r = runs[name] = engine_run(api, params, "v3", spec, True,
+                                    engine_kw=SLICE_ENGINE, waves=w)
+        for k in launches:
+            launches[k] += r["launches"][k]
+        out[f"engine_{name}_tokens_per_s"] = check_engine(
+            r, out["launches_per_pass"], skip, f"{label} engine[{name}]",
+            card, SLICE_ENGINE["spec_len"] if spec else 0)
+    greedy = [[q.out_tokens for q in r["reqs"]] for r in runs.values()]
+    check(all(g == greedy[0] for g in greedy),
+          f"{label}: engine tokens with spec and without differ")
+    if key == "deepseek":
+        eng = runs["spec+prefix"]["eng"]
+        check(eng._paged is not None and all(
+            kinds == {"c": True, "k_pe": True} for kinds in eng._paged),
+            f"{label}: MLA cache leaves not classified paged: {eng._paged}")
+        check(eng._m["prefix_hits"].value >= 1, f"{label}: no prefix hit")
+        built = cached_dequant.builds - builds0
+        check(built == skip, f"{label}: {built} dequantized kv_up matrices "
+              f"built for {skip} layers")
+        print(f"{label}: MLA leaves c/k_pe paged in every layer; "
+              f"{built} dequantized kv_up matrices built over the phase, "
+              f"one per layer (R4)", flush=True)
+    print(f"{label}: engine tokens "
+          f"{'with spec == without' if key == 'mixtral' else 'complete'}; "
+          f"draft depth {depth} of {deepest}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{label}: phase {out['phase_s']:.1f}s", flush=True)
+    return rows, launches, out
+
+
+def vision_phase(dev, card, packed):
+    """llava-next-34b at full width, one layer: one-shot through the model
+    API with seeded random patches through the packed ``patch_proj`` (R5)
+    under v2 and v3 (equal tokens, counted launches), f32 prefill logits,
+    then the engine with 2 requests admitted whole (no chunked step, no
+    prefix cache; positions count the 576 frontend tokens)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Request
+    t_phase = time.perf_counter()
+    cfg = slice_config("llava")
+    label = f"vision[{cfg.name}]"
+    front = cfg.n_frontend_tokens
+    print(f"{label}: full width (d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"of {cfg.hd}, GQA kv {cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {front} patch embeddings through a packed "
+          f"patch_proj {cfg.d_model}x{cfg.d_model}); depth cut from "
+          f"{SLICE_DEPTH['llava']} layers to {cfg.n_layers}", flush=True)
+    cfg, params, skip, rows, out = slice_setup(dev, "llava", packed, card)
+    check(isinstance(params["patch_proj"]["w"], dict), "patch_proj packed")
+    per_pass = out["launches_per_pass"]
+    api = build_model(cfg, device=dev)
+    prompts, _ = slice_workload("llava", cfg.vocab)
+    toks, lens = prefill_window(prompts, SLICE_ONE_SHOT["s_max"])
+    plen = np.array(lens) + front
+    patches = torch.as_tensor(np.random.default_rng(SEED + 12)
+                              .standard_normal((4, front, cfg.d_model),
+                                               dtype=np.float32),
+                              device=dev).to(torch.bfloat16)
+    launches = {name: 0 for name in KERNELS}
+    tokens = {}
+    for backend in ("v2", "v3"):
+        mine = KERNELS_OF[backend]
+        torch.cuda.synchronize()
+        zero_counts()
+        with quiet():
+            t0 = time.perf_counter()
+            logits, caches = api.prefill(params, toks, s_max=SLICE_ONE_SHOT[
+                "s_max"], plen=plen, backend=backend, patches=patches)
+            seq = [logits.argmax(-1)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pos = torch.as_tensor(plen, device=dev)
+            for _ in range(15):
+                logits, caches = api.decode_step(params, seq[-1][:, None],
+                                                 caches, pos, backend=backend)
+                seq.append(logits.argmax(-1))
+                pos = pos + 1
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        counts = {name: fn.launches for name, fn in wrappers().items()}
+        for k in launches:
+            launches[k] += counts[k]
+        tokens[backend] = torch.stack(seq, 1).cpu().tolist()
+        want = per_pass + 15 * (per_pass - 1)        # patch_proj: prefill
+        check(sum(counts[k] for k in mine) == want
+              and all(counts[k] == 0 for k in counts if k not in mine)
+              and all(counts[k] > 0 for k in mine),
+              f"{label} {backend}: launches {counts}, want {want} of {mine}")
+        print(f"{label} one-shot {backend}: prefill 4 x {toks.shape[1]} "
+              f"tokens + {front} patches {1e3 * (t1 - t0):.1f} ms, "
+              f"{1e3 * (t2 - t1) / 15:.2f} ms per decode step; launches "
+              f"{counts} | {card}", flush=True)
+        out[f"prefill_ms_{backend}"] = 1e3 * (t1 - t0)
+        out[f"decode_ms_{backend}"] = 1e3 * (t2 - t1) / 15
+        del caches, logits
+    check(tokens["v2"] == tokens["v3"], f"{label}: v2 and v3 tokens differ")
+    print(f"{label}: one-shot tokens (seeded patches) of v2 and v3 "
+          f"identical; distinct tokens per request: "
+          + ", ".join(f"{i}:{len(set(t))}" for i, t in
+                      enumerate(tokens["v3"])), flush=True)
+    api32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    out["logits_rel_torch"] = slice_logits(api32, params, toks, plen, label,
+                                           patches=patches.float())
+    del api32
+    torch.cuda.empty_cache()
+    profile_window(api, params, prompts, card, "auto",
+                   engine_kw=SLICE_ONE_SHOT)
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts[:2])]
+    plens, real = [], api.prefill
+
+    def spy(*a, **kw):
+        plens.append(np.asarray(kw["plen"]).tolist())
+        return real(*a, **kw)
+    api.prefill = spy               # engine_run wraps it and removes both
+    r = engine_run(api, params, "v3", None, True, engine_kw=SLICE_ENGINE,
+                   waves=(reqs, [], lambda e, n: False))
+    for k in launches:
+        launches[k] += r["launches"][k]
+    eng = r["eng"]
+    check(eng._prefix is None and eng.step_ms()["chunked"][0] == 0
+          and eng.stats["prefills"] == 1,
+          f"{label} engine: admission not whole-prompt ({eng.step_ms()}, "
+          f"{eng.stats['prefills']} prefills)")
+    check(plens == [[len(q.prompt) + front for q in reqs]],
+          f"{label} engine: prefill plen {plens}, want prompt + {front}")
+    out["engine_tokens_per_s"] = check_engine(
+        r, per_pass, 1, f"{label} engine", card, 0)
+    print(f"{label} engine: {len(reqs)} prompts of "
+          f"{[len(q.prompt) for q in reqs]} tokens admitted whole in one "
+          f"prefill (plen counts the {front} frontend tokens; chunk_len "
+          f"{SLICE_ENGINE['chunk_len']} ignored, no prefix cache)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{label}: phase {out['phase_s']:.1f}s", flush=True)
+    return rows, launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1849,20 +2516,39 @@ def main() -> int:
     for line in ptxas_summary(reports):
         print(f"  ptxas {line}")
 
-    # gemma's weights are drawn and packed on the host beside the card
-    # tests, before any timed phase
-    packed = pack_gemma_while(card_tests)
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-    agg, tile_agg = kernel_phase(dev, flush)
-    del flush                    # not part of the serving peak memory
-    launches, params, served = serve_phase(dev, card)
-    draft = engine_phase(dev, card, params)
-    del params
-    torch.cuda.empty_cache()
-    compiled, artifact_launches = compile_phase(dev, card, served)
-    torch.cuda.empty_cache()
-    gemma_rows, gemma_launches, gemma = gemma_phase(dev, card, packed)
-    del packed
+    # the full-width models' weights are drawn and packed on the host by
+    # a pool at the lowest priority from here on, beside the card tests and
+    # the qwen phases; each later phase waits for its own model's
+    packer = Packer({"gemma": gemma_tasks(gemma_config()),
+                     **{key: slice_tasks(key, 100000 * (i + 1))
+                        for i, key in enumerate(SLICE)}})
+    try:
+        card_tests()
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+        agg, tile_agg = kernel_phase(dev, flush)
+        del flush                # not part of the serving peak memory
+        launches, params, served = serve_phase(dev, card)
+        draft = engine_phase(dev, card, params)
+        del params
+        free_card()
+        compiled, artifact_launches = compile_phase(dev, card, served)
+        free_card()
+        gemma_rows, gemma_launches, gemma = gemma_phase(
+            dev, card, packer.wait("gemma"))
+        free_card()
+        slice_rows = {name: {} for name in KERNELS}
+        slice_launches = {name: 0 for name in KERNELS}
+        slice_out = {}
+        for key in SLICE:
+            rows_k, launches_k, slice_out[key] = (
+                vision_phase(dev, card, packer.wait(key)) if key == "llava"
+                else moe_phase(dev, card, key, packer.wait(key)))
+            free_card()
+            for name in KERNELS:
+                slice_rows[name].update(rows_k.get(name, {}))
+                slice_launches[name] += launches_k[name]
+    finally:
+        packer.close()
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
     rows = []
@@ -1888,9 +2574,14 @@ def main() -> int:
         # its kernel rows: per call at each shape and M
         row["gemma_launches"] = gemma_launches[name]
         row["gemma"] = gemma_rows[name]
+        # the MoE and vision phases' main paths (one-shot, engine) and
+        # their kernel rows (expert and ragged shapes)
+        row["slice_launches"] = slice_launches[name]
+        row["slice"] = slice_rows[name]
         rows.append(row)
     # qwen times are per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls
-    print(json.dumps({"compile": compiled, "gemma": gemma}))
+    print(json.dumps({"compile": compiled, "gemma": gemma,
+                      "slice": slice_out}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
-"""Model configuration: the dense decoder-only subset of the reference's.
+"""Model configuration: the decoder-only subset of the reference's.
 
 Checked against ``repro/configs/base.py``: same field names and defaults
-for every field the dense GQA path reads (sliding-window local/global
-layouts and the GELU MLP included), and the same ``scale_down`` rules for
-them, so a config built by either package describes the same model
-(``tests/test_torch_model.py`` and ``test_torch_family.py`` compare the two
-field by field).
+for every field the ported paths read (sliding-window local/global
+layouts, the GELU MLP, MLA attention, MoE MLPs with shared experts and
+leading dense layers, the vision frontend's prefix), and the same
+``scale_down`` rules for them, so a config built by either package
+describes the same model (``tests/test_torch_model.py``,
+``test_torch_family.py`` and ``test_torch_moe.py`` compare the two field
+by field).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ __all__ = ["ModelConfig", "scale_down"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense (the only family ported so far)
+    family: str                     # dense | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -26,11 +28,28 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0               # 0 -> d_model // n_heads
+    attn_type: str = "gqa"          # gqa | mla
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     swa_window: int = 0             # 0 = full attention (all layers)
     # per-superblock layer layout; empty -> n_layers x one "attn" slot
     block_pattern: Tuple[str, ...] = ()   # attn | attn_local | attn_global
+    # --- MLA (deepseek) ---
+    kv_lora: int = 0
+    q_lora: int = 0
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    expert_dff: int = 0
+    moe_pattern: Tuple[int, ...] = ()     # per slot: 1 = MoE MLP, 0 = dense
+    first_dense_layers: int = 0           # leading dense blocks (deepseek)
+    capacity_factor: float = 1.25
+    frontend: str = ""                    # "" | vision_stub
+    n_frontend_tokens: int = 0            # patch embeddings prepended
     act: str = "swiglu"             # swiglu | gelu
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
@@ -46,22 +65,41 @@ class ModelConfig:
 
     @property
     def n_super(self) -> int:
-        """Superblocks: layer ``s * len(pattern) + j`` is slot ``j`` of
-        superblock ``s``."""
-        assert self.n_layers % len(self.pattern) == 0, \
+        """Superblocks after the ``first_dense_layers``: block layer ``s *
+        len(pattern) + j`` is slot ``j`` of superblock ``s``."""
+        body = self.n_layers - self.first_dense_layers
+        assert body % len(self.pattern) == 0, \
             (self.name, self.n_layers, self.pattern)
-        return self.n_layers // len(self.pattern)
+        return body // len(self.pattern)
+
+    def moe_for_slot(self, slot: int) -> bool:
+        if not self.n_experts:
+            return False
+        if not self.moe_pattern:
+            return True
+        return bool(self.moe_pattern[slot])
 
 
 def scale_down(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family config for CPU tests (the reference's rules for
-    the fields above: one superblock, 64 wide, 4 heads of 16, vocab 256,
-    a window of at most 8)."""
+    the fields above: the leading dense layers and one superblock, 64
+    wide, 4 heads of 16, vocab 256, a window of at most 8, at most 4
+    experts of 64 with top-2, an MLA cache of 32 with rope/nope/v heads of
+    8/16/16, 8 frontend tokens)."""
+    mla = cfg.attn_type == "mla"
     small = dict(
-        n_layers=len(cfg.pattern), d_model=64, n_heads=4,
-        n_kv_heads=max(1, min(cfg.n_kv_heads, 2)), head_dim=16,
+        n_layers=cfg.first_dense_layers + len(cfg.pattern), d_model=64,
+        n_heads=4, n_kv_heads=max(1, min(cfg.n_kv_heads, 2)), head_dim=16,
         d_ff=128 if cfg.d_ff else 0, vocab=256,
+        n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        expert_dff=64 if cfg.expert_dff else 0,
+        kv_lora=32 if cfg.kv_lora else 0, q_lora=0,
+        rope_head_dim=8 if mla else cfg.rope_head_dim,
+        nope_head_dim=16 if mla else cfg.nope_head_dim,
+        v_head_dim=16 if mla else cfg.v_head_dim,
         swa_window=min(cfg.swa_window, 8) if cfg.swa_window else 0,
+        n_frontend_tokens=8 if cfg.frontend else 0,
         name=cfg.name + "-smoke",
     )
     small.update(overrides)

@@ -5,15 +5,21 @@ arrays (``jax.tree.map(np.asarray, params)``), dense or already SME-packed
 with ``sme_*`` / ``sme_v3_*`` leaves, and returns the port's params: the
 stacked superblock arrays ``blocks["slot{j}"]`` split into one dict per
 layer (layer ``s * n_slots + j`` is slot ``j`` of superblock ``s``, as the
-reference's scan runs them), the untied ``lm_head`` where there is one,
-every leaf a torch tensor on ``device``.  Packed leaves are carried byte
-for byte (their padded plane-list length included), so both packages then
-compute the same function; a compiler's per-layer draft depth
-(``sme_draft_planes``, read under ``use_spec_depth("plan")``) comes across
-as each layer's scalar.  ``to_reference`` is the inverse: the layout the
+reference's scan runs them), the top-level leaves (``embed``,
+``final_norm``, an untied ``lm_head``, a vision model's ``patch_proj``,
+deepseek's leading dense layers ``first{i}``) as they are, every leaf a
+torch tensor on ``device``.  Stacked expert leaves ``[n_super, E, D,
+F]`` become each layer's ``[E, D, F]``, dense or packed.  Packed leaves
+are carried byte for byte (their padded plane-list length included), so
+both packages then compute the same function; a compiler's per-layer
+draft depth (``sme_draft_planes``, read under ``use_spec_depth("plan")``)
+comes across as each layer's scalar (one per expert for stacked
+experts).  ``to_reference`` is the inverse: the layout the
 compiler plans, packs and persists.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -22,7 +28,11 @@ from .core.integrate import to_torch
 
 __all__ = ["from_reference", "to_reference"]
 
-_TOP = ("embed", "final_norm", "lm_head")
+
+def _top(key: str) -> bool:
+    """A top-level key that carries across as it is."""
+    return key in ("embed", "final_norm", "lm_head", "patch_proj") or \
+        re.fullmatch(r"first\d+", key) is not None
 
 
 def _index(tree, i: int):
@@ -33,7 +43,7 @@ def _index(tree, i: int):
 
 def from_reference(tree: dict, device=None) -> dict:
     n_slots = len(tree["blocks"])
-    extra = set(tree) - {*_TOP, "blocks"}
+    extra = {k for k in tree if k != "blocks" and not _top(k)}
     if extra or set(tree["blocks"]) != {f"slot{j}" for j in range(n_slots)}:
         raise NotImplementedError(
             f"only decoder-only trees of superblock slots carry across; got "
@@ -41,7 +51,7 @@ def from_reference(tree: dict, device=None) -> dict:
             f"{sorted(tree['blocks'])}")
     slots = [tree["blocks"][f"slot{j}"] for j in range(n_slots)]
     n_super = np.asarray(slots[0]["norm1"]["w"]).shape[0]
-    out = {k: tree[k] for k in _TOP if k in tree}
+    out = {k: v for k, v in tree.items() if _top(k)}
     out["blocks"] = [_index(slot, s) for s in range(n_super)
                      for slot in slots]
     return to_torch(out, device)
@@ -72,7 +82,7 @@ def to_reference(params: dict, n_slots: int = 1) -> dict:
     if len(blocks) % n_slots:
         raise ValueError(f"{len(blocks)} layers are not whole superblocks of "
                          f"{n_slots} slots")
-    out = {k: walk(params[k]) for k in _TOP if k in params}
+    out = {k: walk(v) for k, v in params.items() if _top(k)}
     out["blocks"] = {f"slot{j}": stack(*blocks[j::n_slots])
                      for j in range(n_slots)}
     return out

@@ -31,6 +31,8 @@ operands, resolves to v2 (v1 where minifloat-6 cannot hold the settings),
 as the reference's ``auto`` does on its chip, and packs them once into a
 cache keyed by a weakref on the param's ``sme_codes`` (the reference's
 ``_cached_operands``); on the CPU it resolves to ``torch``.
+:func:`cached_dequant` keeps a packed weight's dense matrix the same way,
+for a model path that needs the weight itself (MLA's absorbed decode).
 
 :func:`validate_operands` checks an operand list on the host for
 everything the kernels would trap on or misread (``nnz`` past the list,
@@ -75,7 +77,7 @@ __all__ = ["SMEBackend", "SpmmV2Backend", "get_backend", "resolve_backend",
            "resolve_spec_depth", "smeweight_from_param",
            "pack_param_operands", "ensure_operands", "validate_operands",
            "default_backend", "set_default_backend", "use_backend",
-           "use_block", "resolve_block_m"]
+           "use_block", "resolve_block_m", "cached_dequant"]
 
 _META = ("sme_nbits", "sme_squeezed", "sme_window")
 _META_DEFAULTS = {"sme_nbits": 8, "sme_squeezed": 1, "sme_window": 3}
@@ -628,6 +630,36 @@ def _cached_operands(param: dict, be: SMEBackend) -> dict:
         return ops              # not weakref-able: do not risk pinning it
     _OPERAND_CACHE[key] = (ref, be.name, ops)
     return ops
+
+
+#: weight identity -> (weakref to its ``sme_codes``, dense f32 weight):
+#: :func:`cached_dequant`'s matrices, evicted with their weight
+_DENSE_CACHE: Dict[int, tuple] = {}
+
+
+def cached_dequant(param: dict) -> torch.Tensor:
+    """The dense f32 weight of a packed param (``sme_dequant``: row order
+    restored, bitwise the tiles the kernels splice), built once per weight
+    and kept while its ``sme_codes`` lives, keyed as auto's operand cache.
+    For a model path that needs the weight as a matrix, not a product
+    (MLA's absorbed decode of a packed ``kv_up``).  ``cached_dequant.builds``
+    counts the matrices built."""
+    anchor = param["sme_codes"]
+    key = id(anchor)
+    hit = _DENSE_CACHE.get(key)
+    if hit is not None and hit[0]() is anchor:
+        return hit[1]
+    w = sme_dequant(param, torch.float32)
+    cached_dequant.builds += 1
+    try:
+        ref = weakref.ref(anchor, lambda _, k=key: _DENSE_CACHE.pop(k, None))
+    except TypeError:
+        return w
+    _DENSE_CACHE[key] = (ref, w)
+    return w
+
+
+cached_dequant.builds = 0
 
 
 #: scoped draft plane-depth (use_spec_depth); None = full precision

@@ -48,15 +48,19 @@ def _raw_param(smew: SMEWeight, row_perm=None) -> dict:
 def _backend_names(backend) -> tuple:
     """Operand sets to emit: none for ``None``/``"torch"``/``"auto"``
     (auto resolves at call time among what was packed), all three kernel
-    formats for ``"all"``."""
+    formats for ``"all"``, each of a tuple of kernel formats."""
     if backend in (None, "torch", "auto"):
         return ()
     if backend == "all":
         return ("v1", "v2", "v3")
     if backend in ("v1", "v2", "v3"):
         return (backend,)
+    if isinstance(backend, tuple) and backend and all(
+            b in ("v1", "v2", "v3") for b in backend):
+        return backend
     raise ValueError(f"backend {backend!r}: want None, 'torch', 'auto', "
-                     f"'v1', 'v2', 'v3' or 'all'")
+                     f"'v1', 'v2', 'v3', 'all' or a tuple of kernel "
+                     f"formats")
 
 
 def pack_sme_param(w2d: np.ndarray, n_bits=8, window=3, squeeze=1,
@@ -113,7 +117,8 @@ def convert_params_to_sme(params, n_bits=8, window=3, squeeze=1,
                           plan=None, squeeze_max=None, device=None):
     """A new param tree (torch tensors on ``device``) with every eligible
     weight SME-packed, with the operands of each backend ``backend`` names
-    (``"all"``: v1, v2 and v3, from one compression per weight).  Stacked
+    (``"all"``: v1, v2 and v3, or a tuple such as ``("v2", "v3")``, from
+    one compression per weight).  Stacked
     ``[..., K, N]`` weights pack per slice and share each backend's
     largest list length (``pad_hint``), so their operands stack
     rectangularly.  ``predicate(path, leaf)`` replaces the eligibility

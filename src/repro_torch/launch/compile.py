@@ -9,9 +9,11 @@ as the reference does.  Full width by default; ``--small`` is the
 2-layer, 128-wide config of the CPU tests; ``--d-model``/``--d-ff``/
 ``--head-dim``/``--vocab`` scale the config down as the reference's
 flags do (``--small`` rounds its 2 layers up to whole superblocks: 6
-for gemma3-12b's 5:1 local/global pattern).  ``--arch`` takes any
-of the port's ``ARCHS``; an untied ``lm_head`` is planned and packed like
-every other linear.  Compiling runs on the host (numpy); no card is
+for gemma3-12b's 5:1 local/global pattern; an MoE model's experts are
+128 wide, so they pack).  ``--arch`` takes any of the port's ``ARCHS``
+(mixtral-8x7b, deepseek-v2-lite-16b and llava-next-34b included); an
+untied ``lm_head``, stacked experts, deepseek's ``first0`` and a vision
+``patch_proj`` are planned and packed like every other linear.  Compiling runs on the host (numpy); no card is
 needed.
 
     PYTHONPATH=src python -m repro_torch.launch.compile --small \\
@@ -61,6 +63,9 @@ def scaled_config(args):
         if args.small:
             p = len(cfg.pattern)
             small = dict(SMALL, n_layers=-(-SMALL["n_layers"] // p) * p)
+            if cfg.n_experts:
+                # experts past the 128 floor, so they pack
+                small["expert_dff"] = 128
         cfg = scale_down(cfg, **{**small, **over})
     return cfg
 
@@ -68,12 +73,15 @@ def scaled_config(args):
 def model_dims(cfg) -> dict:
     """The dims an artifact records and a server checks (the reference's
     five, and the window, layer pattern, MLP and head of the dense
-    family)."""
+    family, the experts, MLA cache and frontend tokens)."""
     return {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
             "n_layers": cfg.n_layers, "head_dim": cfg.hd,
             "swa_window": cfg.swa_window,
             "block_pattern": list(cfg.pattern), "act": cfg.act,
-            "tie_embeddings": cfg.tie_embeddings}
+            "tie_embeddings": cfg.tie_embeddings,
+            "n_experts": cfg.n_experts, "expert_dff": cfg.expert_dff,
+            "kv_lora": cfg.kv_lora,
+            "n_frontend_tokens": cfg.n_frontend_tokens}
 
 
 def main(argv=None):

@@ -1,15 +1,28 @@
-"""GQA self-attention: prefill over the whole prompt, decode one token
-against a per-slot KV cache, with full or sliding-window (local) layers.
+"""Self-attention: GQA prefill over the whole prompt and decode of one
+token against a per-slot KV cache, with full or sliding-window (local)
+layers; and MLA (deepseek), whose cache holds the compressed ``c`` and
+the shared rope key ``k_pe``.
 
 Checked against ``repro/models/attention.py`` (``gqa_prefill``,
 ``gqa_decode``, ``blockwise_attention``, ``_decode_attend``,
-``_ring_gather``, ``_masked_row_scatter``).  The reference has no
+``_ring_gather``, ``_masked_row_scatter``, ``_mla_q``, ``mla_prefill``,
+``mla_decode``).  The reference has no
 attention kernel, so this stays plain tensor code with the reference's
 math: flash-style online softmax over KV blocks in f32, and for a window
 ``W`` shorter than the keys, one softmax per query block over the K/V slice
 ``[start - W + 1, start + block_q)`` it can see.  A windowed layer's cache
 is a ring of ``min(W, cache_len)`` slots; slot ``j`` at next position
 ``pos`` holds position ``pos - ((pos - j) mod ring)``.
+
+MLA prefill expands ``c`` through ``kv_up`` into per-head keys (nope part
+plus the shared rope part, 192 wide at deepseek's widths) and values (128
+wide), so ``blockwise_attention`` takes a value head dim other than the
+query/key one; its scale is ``1/sqrt(nope + rope)``.  MLA decode is the
+absorbed form: the query folds through ``W_uk`` and the context through
+``W_uv``, both read from ``kv_up`` as a matrix; a packed ``kv_up`` gives
+them as its dequantized weight, built once per weight
+(``core.backend.cached_dequant``; the reference cannot decode a packed
+``kv_up``, ROADMAP R4).
 
 Decode positions are per batch row (``pos`` [B]) and ``active`` [B] masks
 which rows may write their cache slot.  Unlike the reference, decode
@@ -22,9 +35,11 @@ from typing import Optional
 
 import torch
 
+from ..core.backend import cached_dequant
 from .common import apply_rope, linear, norm_pos_active
 
-__all__ = ["gqa_prefill", "gqa_decode", "blockwise_attention", "NEG_INF"]
+__all__ = ["gqa_prefill", "gqa_decode", "mla_prefill", "mla_decode",
+           "blockwise_attention", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -68,8 +83,9 @@ def blockwise_attention(q, k, v, *, q_offset: int = 0, window: int = 0,
                         block_q: int = 512, block_k: int = 512
                         ) -> torch.Tensor:
     """Causal attention, local to the last ``window`` positions when
-    ``window`` > 0. q: [B, Sq, H, hd], k/v: [B, Sk, KV, hd] -> [B, Sq, H,
-    hd]; ``q_offset`` is the absolute position of q[0].  A window shorter
+    ``window`` > 0. q/k: [B, Sq|Sk, H|KV, hd], v: [B, Sk, KV, hd_v] ->
+    [B, Sq, H, hd_v], scaled by 1/sqrt(hd); ``q_offset`` is the absolute
+    position of q[0].  A window shorter
     than the keys slices K/V per query block instead of scanning them."""
     b, sq, h, hd = q.shape
     hd_v = v.shape[-1]
@@ -201,3 +217,94 @@ def gqa_decode(p, x, cache, pos, cfg, active=None,
     kpos = pos[:, None] - ((pos[:, None] - j[None]) % w)
     y = _decode_attend(q, kc, vc, kpos, pos, window, 1.0 / (cfg.hd ** 0.5))
     return linear(y.reshape(b, 1, -1), p["o"], backend), {"k": kc, "v": vc}
+
+
+def _mla_q(p, x, cfg, positions, backend):
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    if "q_down" in p:
+        q = linear(linear(x, p["q_down"], backend), p["q_up"], backend)
+    else:
+        q = linear(x, p["q"], backend)
+    q = q.reshape(b, s, h, dn + dr)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def mla_prefill(p, x, cfg, cache_len: int = 0, plen=None,
+                backend: Optional[str] = None, block_q: int = 512,
+                block_k: int = 512):
+    """Full-sequence causal MLA.  Returns (y, cache) with the cache {"c":
+    [B, cache_len, kv_lora], "k_pe": [B, cache_len, rope]} holding, per
+    row, positions ``< plen[i]`` (zeros past them; None when
+    ``cache_len`` is 0)."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    positions = torch.arange(s, device=x.device)[None, :]
+    q_nope, q_pe = _mla_q(p, x, cfg, positions, backend)
+    ckv = linear(x, p["kv_down"], backend)
+    c, k_pe_raw = ckv[..., :cfg.kv_lora], ckv[..., cfg.kv_lora:]
+    k_pe = apply_rope(k_pe_raw[:, :, None, :], positions, cfg.rope_theta)
+    kv = linear(c, p["kv_up"], backend).reshape(b, s, h, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(b, s, h, dr)], dim=-1)
+    y = blockwise_attention(q, k, v, block_q=block_q, block_k=block_k)
+    y = linear(y.reshape(b, s, -1), p["o"], backend)
+    if not cache_len:
+        return y, None
+    cc = c.new_zeros((b, cache_len, cfg.kv_lora))
+    pc = c.new_zeros((b, cache_len, dr))
+    take = min(cache_len, s)
+    c_w, pe_w = c, k_pe[:, :, 0]
+    if plen is not None:
+        keep = (torch.arange(s, device=x.device)[None]
+                < torch.as_tensor(plen, device=x.device).long()[:, None]
+                )[..., None]
+        c_w = torch.where(keep, c_w, torch.zeros((), dtype=c.dtype,
+                                                 device=c.device))
+        pe_w = torch.where(keep, pe_w, torch.zeros((), dtype=c.dtype,
+                                                   device=c.device))
+    cc[:, :take] = c_w[:, s - take:]
+    pc[:, :take] = pe_w[:, s - take:]
+    return y, {"c": cc, "k_pe": pc}
+
+
+def _kv_up_matrix(p) -> torch.Tensor:
+    """``kv_up``'s weight [kv_lora, H * (nope + v)] as a matrix: the dense
+    one, or a packed one dequantized once (R4)."""
+    we = p["kv_up"]["w"]
+    return cached_dequant(we) if isinstance(we, dict) else we
+
+
+def mla_decode(p, x, cache, pos, cfg, active=None,
+               backend: Optional[str] = None):
+    """Absorbed-form decode over the compressed cache, updated in place.
+    x: [B, 1, D]; pos: [B] per-row next position; active: [B] write
+    mask."""
+    b = x.shape[0]
+    h, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    pos, active = norm_pos_active(pos, active, b, x.device)
+    positions = pos[:, None]
+    q_nope, q_pe = _mla_q(p, x, cfg, positions, backend)
+    ckv = linear(x, p["kv_down"], backend)
+    c_t, k_pe_raw = ckv[..., :cfg.kv_lora], ckv[..., cfg.kv_lora:]
+    k_pe_t = apply_rope(k_pe_raw[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    cc = _masked_row_scatter(cache["c"], c_t[:, 0], pos, active)
+    pc = _masked_row_scatter(cache["k_pe"], k_pe_t[:, 0], pos, active)
+    w_up = _kv_up_matrix(p).reshape(cfg.kv_lora, h, dn + dv).float()
+    w_uk, w_uv = w_up[..., :dn], w_up[..., dn:]
+    q_c = torch.einsum("bthn,khn->bthk", q_nope.float(), w_uk)
+    s_c = torch.einsum("bthk,bsk->bhs", q_c, cc.float())
+    s_pe = torch.einsum("bthr,bsr->bhs", q_pe.float(), pc.float())
+    s = (s_c + s_pe) * (1.0 / ((dn + dr) ** 0.5))
+    kpos = torch.arange(cc.shape[1], device=x.device)[None]
+    s = torch.where((kpos <= pos[:, None])[:, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    prob = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsk->bhk", prob, cc.float())
+    y = torch.einsum("bhk,khv->bhv", ctx, w_uv)
+    y = linear(y.reshape(b, 1, h * dv).to(x.dtype), p["o"], backend)
+    return y, {"c": cc, "k_pe": pc}

@@ -1,9 +1,11 @@
 """Model API of the port: ``build_model(cfg, device)`` -> :class:`ModelAPI`.
 
-Checked against ``repro/models/model.py`` for the dense decoder-only
-family (RMSNorm, SwiGLU or GELU MLPs, full or sliding-window GQA layers,
-a tied or untied head):
-``prefill(params, tokens, s_max, plen)`` -> (last logits, caches),
+Checked against ``repro/models/model.py`` for the decoder-only dense and
+MoE families (RMSNorm, SwiGLU or GELU MLPs, MoE MLPs with shared experts,
+full or sliding-window GQA or MLA layers, leading dense layers, a tied or
+untied head, the vision stub's patch prefix):
+``prefill(params, tokens, s_max, plen, patches=None)`` -> (last logits,
+caches),
 ``decode_step(params, token, caches, pos, active)`` -> (logits, caches)
 with per-row ``pos``/``active``, ``decode_chunk(params, tokens, caches,
 pos, nvalid, active, gated)`` (``make_decode_chunk``) and
@@ -67,18 +69,13 @@ def make_decode_chunk(decode_step: Callable) -> Callable:
 
 #: (what a config asks for, the reference module the port lacks for it)
 _MISSING = (
-    (lambda c: c.family == "moe" or getattr(c, "n_experts", 0),
-     "MoE MLPs (repro/models/moe.py)"),
-    (lambda c: getattr(c, "attn_type", "gqa") == "mla",
-     "MLA attention (repro/models/attention.py mla_*)"),
     (lambda c: c.family in ("ssm", "hybrid") or any(
         k in ("mamba", "mlstm", "slstm") for k in c.pattern),
      "SSM blocks (repro/models/ssm.py)"),
     (lambda c: c.family == "encdec" or getattr(c, "n_enc_layers", 0),
      "the encoder-decoder family (repro/models/encdec.py)"),
-    (lambda c: getattr(c, "frontend", ""),
-     "the audio/vision frontends (repro/models/transformer.py "
-     "_embed_tokens)"),
+    (lambda c: getattr(c, "frontend", "") not in ("", "vision_stub"),
+     "the audio frontend (repro/models/encdec.py)"),
     (lambda c: c.norm != "rmsnorm", "layernorm models"),
     (lambda c: c.act not in ("swiglu", "gelu"), "MLP activations other "
      "than SwiGLU and GELU"),
@@ -88,11 +85,12 @@ _MISSING = (
 class ModelAPI:
     def __init__(self, cfg, device=None):
         missing = [what for test, what in _MISSING if test(cfg)]
-        if missing or cfg.family != "dense":
+        if missing or cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense decoder-only models "
-                f"(RMSNorm, SwiGLU or GELU, full or sliding-window GQA, tied "
-                f"or untied head); not yet ported: "
+                f"{cfg.name}: the port serves dense and MoE decoder-only "
+                f"models (RMSNorm, SwiGLU or GELU, full or sliding-window GQA "
+                f"or MLA, tied or untied head, vision patches); not yet "
+                f"ported: "
                 f"{', '.join(missing) or 'family ' + repr(cfg.family)}")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -107,12 +105,16 @@ class ModelAPI:
                                 self.device if device is None else device)
 
     def prefill(self, params, tokens, s_max: Optional[int] = None, plen=None,
-                backend: Optional[str] = None):
+                backend: Optional[str] = None, patches=None):
+        """``patches`` [B, n_frontend_tokens, D]: a vision model's patch
+        embeddings, prepended (``plen`` and ``s_max`` count them)."""
         tokens = self._ids(tokens)
+        if patches is not None:
+            patches = torch.as_tensor(patches, device=self.device)
         return tf.lm_prefill(params, tokens, self.cfg,
                              s_max or tokens.shape[1],
                              plen=None if plen is None else self._ids(plen),
-                             backend=backend)
+                             backend=backend, patches=patches)
 
     def decode_step(self, params, token, caches, pos, active=None,
                     backend: Optional[str] = None):

@@ -1,12 +1,21 @@
-"""Decoder-only LM: embed -> layers -> final norm -> tied or untied head.
+"""Decoder-only LM: embed (with a vision prefix) -> leading dense layers ->
+layers -> final norm -> tied or untied head.
 
 Checked against ``repro/models/transformer.py`` (``lm_prefill`` with
 per-row ``plen``, ``lm_decode_step`` with per-row ``pos``/``active``,
-``lm_init_cache``, ``_head_logits`` and ``lm_init``'s distributions).
-Layers are a Python list of per-layer param dicts (``params["blocks"][i]``)
-instead of the reference's stacked scan arrays; layer ``i`` is of kind
-``cfg.pattern[i % len(cfg.pattern)]`` (slot ``i % len(pattern)`` of
-superblock ``i // len(pattern)`` in the reference's layout).
+``lm_init_cache``, ``_head_logits``, ``_embed_tokens``, ``_run_first``
+and ``lm_init``'s distributions).  Layers are a Python list of per-layer
+param dicts (``params["blocks"][i]``) instead of the reference's stacked
+scan arrays; block layer ``i`` is of kind ``cfg.pattern[i %
+len(cfg.pattern)]`` (slot ``i % len(pattern)`` of superblock ``i //
+len(pattern)`` in the reference's layout) and has an MoE MLP where
+``cfg.moe_for_slot`` says so.  deepseek's leading dense layers keep the
+reference's top-level keys ``first{i}`` and run first, each with its own
+cache: the cache list is the ``first`` layers' caches, then the blocks'.
+A vision model's ``patches`` [B, n_frontend_tokens, D] go through
+``patch_proj`` and are prepended to the token embeddings; a packed
+``patch_proj`` dispatches through ``sme_apply`` (the reference cannot
+prefill one, ROADMAP R5).
 
 Compute dtype follows ``cfg.dtype`` (bf16 or f32); params stay f32 and are
 cast at use, as in the reference, except the tied head, which runs in f32
@@ -26,72 +35,121 @@ import torch
 
 from ..core.backend import sme_apply
 from .blocks import block_decode, block_prefill, init_block_cache
-from .common import rmsnorm
+from .common import linear, rmsnorm
 
-__all__ = ["compute_dtype", "layer_kinds", "init_layer", "lm_init",
-           "lm_init_cache", "lm_prefill", "lm_decode_step"]
+__all__ = ["compute_dtype", "layer_slots", "init_layer", "lm_init",
+           "lm_init_cache", "lm_prefill", "lm_decode_step", "model_layers"]
 
 
 def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def layer_kinds(cfg) -> list:
-    """Slot kind of every layer: ``pattern[i % len(pattern)]``."""
+def layer_slots(cfg) -> list:
+    """(kind, use_moe) of every layer in cache order: the
+    ``first_dense_layers`` (``attn``, dense MLP), then block layer ``i``
+    of kind ``pattern[i % len(pattern)]``."""
     pat = cfg.pattern
-    return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+    body = cfg.n_layers - cfg.first_dense_layers
+    return [("attn", False)] * cfg.first_dense_layers + [
+        (pat[i % len(pat)], cfg.moe_for_slot(i % len(pat)))
+        for i in range(body)]
 
 
-def init_layer(cfg, rng: np.random.Generator) -> dict:
+def model_layers(params, cfg) -> list:
+    """Every layer's params in cache order: ``first{i}``, then blocks."""
+    return [params[f"first{i}"] for i in range(cfg.first_dense_layers)] \
+        + list(params["blocks"])
+
+
+def _lin(rng, d_in, d_out, bias=False, std=None):
+    w = rng.standard_normal((d_in, d_out), dtype=np.float32)
+    p = {"w": w * np.float32(std if std is not None else 1.0 / np.sqrt(d_in))}
+    if bias:
+        p["b"] = np.zeros(d_out, np.float32)
+    return p
+
+
+def init_layer(cfg, rng: np.random.Generator, use_moe: bool = False) -> dict:
     """One layer's f32 numpy params, with the reference init's
-    distributions: N(0, 1/fan_in) weights, zero biases, unit norms; a GELU
-    MLP has biased ``wi``/``wo`` and no ``wg``."""
+    distributions: N(0, 1/fan_in) weights (the router's std 0.02), zero
+    biases, unit norms; a GELU MLP has biased ``wi``/``wo`` and no
+    ``wg``; MoE experts are stacked [E, D, F] (``wo`` [E, F, D])."""
     d, hd, h, kv, ff = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    if cfg.attn_type == "mla":
+        dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+        mix = {"kv_down": _lin(rng, d, cfg.kv_lora + dr),
+               "kv_up": _lin(rng, cfg.kv_lora, h * (dn + dv)),
+               "o": _lin(rng, h * dv, d)}
+        if cfg.q_lora:
+            mix["q_down"] = _lin(rng, d, cfg.q_lora)
+            mix["q_up"] = _lin(rng, cfg.q_lora, h * (dn + dr))
+        else:
+            mix["q"] = _lin(rng, d, h * (dn + dr))
+    else:
+        mix = {"q": _lin(rng, d, h * hd, cfg.qkv_bias),
+               "k": _lin(rng, d, kv * hd, cfg.qkv_bias),
+               "v": _lin(rng, d, kv * hd, cfg.qkv_bias),
+               "o": _lin(rng, h * hd, d)}
+    if use_moe:
+        e, f = cfg.n_experts, cfg.expert_dff
 
-    def lin(d_in, d_out, bias=False):
-        w = rng.standard_normal((d_in, d_out), dtype=np.float32)
-        p = {"w": w * np.float32(1.0 / np.sqrt(d_in))}
-        if bias:
-            p["b"] = np.zeros(d_out, np.float32)
-        return p
-
-    return {
-        "norm1": {"w": np.ones(d, np.float32)},
-        "mix": {"q": lin(d, h * hd, cfg.qkv_bias),
-                "k": lin(d, kv * hd, cfg.qkv_bias),
-                "v": lin(d, kv * hd, cfg.qkv_bias),
-                "o": lin(h * hd, d)},
-        "norm2": {"w": np.ones(d, np.float32)},
-        "mlp": ({"wi": lin(d, ff), "wg": lin(d, ff), "wo": lin(ff, d)}
-                if cfg.act == "swiglu" else
-                {"wi": lin(d, ff, True), "wo": lin(ff, d, True)}),
-    }
+        def stack(k, n):
+            w = rng.standard_normal((e, k, n), dtype=np.float32)
+            return w * np.float32(1.0 / np.sqrt(k))
+        mlp = {"router": _lin(rng, d, e, std=0.02), "wi": stack(d, f),
+               "wg": stack(d, f), "wo": stack(f, d)}
+        if cfg.n_shared_experts:
+            fs = f * cfg.n_shared_experts
+            mlp["shared"] = {"wi": _lin(rng, d, fs), "wg": _lin(rng, d, fs),
+                             "wo": _lin(rng, fs, d)}
+    elif cfg.act == "swiglu":
+        mlp = {"wi": _lin(rng, d, ff), "wg": _lin(rng, d, ff),
+               "wo": _lin(rng, ff, d)}
+    else:
+        mlp = {"wi": _lin(rng, d, ff, True), "wo": _lin(rng, ff, d, True)}
+    return {"norm1": {"w": np.ones(d, np.float32)}, "mix": mix,
+            "norm2": {"w": np.ones(d, np.float32)}, "mlp": mlp}
 
 
 def lm_init(cfg, rng: np.random.Generator) -> dict:
-    """Whole-model f32 numpy params (embed ~ N(0, 1); an untied
-    ``lm_head`` [D, V] ~ N(0, 0.02^2), drawn after the layers)."""
+    """Whole-model f32 numpy params (embed ~ N(0, 1); the leading dense
+    layers, the block layers, then an untied ``lm_head`` [D, V] ~ N(0,
+    0.02^2) and a vision model's ``patch_proj`` [D, D])."""
     params = {
         "embed": {"w": rng.standard_normal((cfg.vocab, cfg.d_model),
                                            dtype=np.float32)},
         "final_norm": {"w": np.ones(cfg.d_model, np.float32)},
-        "blocks": [init_layer(cfg, rng) for _ in range(cfg.n_layers)],
     }
+    slots = layer_slots(cfg)
+    nf = cfg.first_dense_layers
+    for i in range(nf):
+        params[f"first{i}"] = init_layer(cfg, rng)
+    params["blocks"] = [init_layer(cfg, rng, moe) for _, moe in slots[nf:]]
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": rng.standard_normal(
             (cfg.d_model, cfg.vocab), dtype=np.float32) * np.float32(0.02)}
+    if cfg.frontend == "vision_stub":
+        params["patch_proj"] = _lin(rng, cfg.d_model, cfg.d_model)
     return params
 
 
 def lm_init_cache(cfg, batch: int, s_max: int, device) -> list:
     return [init_block_cache(cfg, kind, batch, s_max, compute_dtype(cfg),
-                             device) for kind in layer_kinds(cfg)]
+                             device) for kind, _ in layer_slots(cfg)]
 
 
-def _embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_tokens(params, cfg, tokens: torch.Tensor,
+                  patches: Optional[torch.Tensor] = None,
+                  backend: Optional[str] = None) -> torch.Tensor:
     """Gather the rows first, then cast: only B x S rows, never the whole
-    [V, D] table, go to the compute dtype."""
-    x = params["embed"]["w"][tokens].to(compute_dtype(cfg))
+    [V, D] table, go to the compute dtype.  ``patches`` [B, F, D] (a
+    vision model's) go through ``patch_proj`` and come first."""
+    dt = compute_dtype(cfg)
+    x = params["embed"]["w"][tokens].to(dt)
+    if cfg.frontend == "vision_stub" and patches is not None:
+        x = torch.cat([linear(patches.to(dt), params["patch_proj"],
+                              backend), x], dim=1)
     return x * (cfg.d_model ** 0.5)
 
 
@@ -113,15 +171,17 @@ def _head_logits(params, cfg, xl: torch.Tensor,
 
 
 def lm_prefill(params, tokens: torch.Tensor, cfg, s_max: int, plen=None,
-               backend: Optional[str] = None):
-    """tokens [B, S] -> (logits [B, V] at each row's last valid position,
-    per-layer caches over ``s_max`` slots).  ``plen`` [B] marks each row's
-    valid prefix of a right-padded batch."""
-    x = _embed_tokens(params, cfg, tokens)
+               backend: Optional[str] = None,
+               patches: Optional[torch.Tensor] = None):
+    """tokens [B, S] (after ``patches`` [B, F, D] for a vision model) ->
+    (logits [B, V] at each row's last valid position, per-layer caches
+    over ``s_max`` slots).  ``plen`` [B] marks each row's valid prefix of
+    a right-padded batch, frontend tokens included."""
+    x = _embed_tokens(params, cfg, tokens, patches, backend)
     caches = []
-    for p, kind in zip(params["blocks"], layer_kinds(cfg)):
+    for p, (kind, moe) in zip(model_layers(params, cfg), layer_slots(cfg)):
         x, c = block_prefill(p, x, cfg, kind, s_max, plen=plen,
-                             backend=backend)
+                             backend=backend, use_moe=moe)
         caches.append(c)
     x = rmsnorm(x, params["final_norm"])
     if plen is None:
@@ -139,9 +199,10 @@ def lm_decode_step(params, token: torch.Tensor, caches: list, pos, cfg,
     may write their cache slot.  Caches are updated in place."""
     x = _embed_tokens(params, cfg, token)
     new = []
-    for p, c, kind in zip(params["blocks"], caches, layer_kinds(cfg)):
+    for p, c, (kind, moe) in zip(model_layers(params, cfg), caches,
+                                 layer_slots(cfg)):
         x, c = block_decode(p, x, c, pos, cfg, kind, active=active,
-                            backend=backend)
+                            backend=backend, use_moe=moe)
         new.append(c)
     x = rmsnorm(x, params["final_norm"])
     return _head_logits(params, cfg, x[:, -1], backend), new

@@ -1,12 +1,12 @@
 """Continuous batching over an open request stream.
 
 Checked against ``repro/serve/engine.py`` (DESIGN.md §6, §11, §12) without
-its mesh and encoder-decoder/frontend branches: the port serves the dense
-decoder-only family (full and sliding-window layers) on one device, from a
-param tree or from a compiled ``.smez`` artifact
-(:meth:`ServeEngine.from_artifact`).  ``bm`` scopes
-``core.backend.use_block`` around every model call (v3's decode
-threshold).
+its mesh and encoder-decoder branches: the port serves the decoder-only
+dense and MoE families (full and sliding-window GQA layers, MLA, leading
+dense layers, the vision frontend) on one device, from a param tree or
+from a compiled ``.smez`` artifact (:meth:`ServeEngine.from_artifact`).
+``bm`` scopes ``core.backend.use_block`` around every model call (v3's
+decode threshold).
 
 * ``slots`` sequences decode together, each with its own cache row; a
   request joins by writing its prefill cache into a free row and leaves by
@@ -19,7 +19,14 @@ threshold).
 * **Chunked prefill**: a prompt longer than ``chunk_len`` prefills its
   first ``chunk_len`` tokens in the admission window; the rest are scored
   ``chunk_len`` per engine step inside the same ``decode_chunk`` call that
-  decodes the running rows, so a long prompt never stalls decode.
+  decodes the running rows, so a long prompt never stalls decode.  An MoE
+  model's routing follows this schedule: the tail's decode passes run at
+  capacity 1 per row and drop nothing, a one-shot prefill may drop.
+* **Frontend** (``cfg.frontend``, the vision stub): frontend tokens exist
+  only in the one-shot program, so there is no chunked prefill and no
+  prefix cache; each prompt is admitted whole behind ``n_frontend_tokens``
+  zero bf16 ``patches`` per row, its ``plen`` and first position count
+  them, and ``PromptTooLong`` says so.
 * **One ``decode_chunk`` call per engine step** however mixed the batch:
   each row brings a quota (1 to decode, up to ``chunk_len`` prompt tokens,
   ``spec_len + 1`` gated positions to verify a draft) and rows past their
@@ -46,8 +53,9 @@ threshold).
   whole into a side-slab row of the entry; a later prompt with the same
   token ids restores both instead of recomputing.  Leaves are classified
   by probing ``api.init_cache`` on the ``meta`` device at ``s_max`` and
-  ``2 * s_max``; where a leaf fits neither class the engine serves
-  without the cache, as the reference does.
+  ``2 * s_max`` (MLA's compressed ``c``/``k_pe`` are paged); where a leaf
+  fits neither class the engine serves without the cache, as the
+  reference does.
 * **Preemption** of a still-prefilling row, per-request temperature,
   ``max_new_tokens`` and eos, streaming callbacks (``Request.on_token``).
 * Counters, gauges and histograms live in the process registry
@@ -184,8 +192,14 @@ class ServeEngine:
             raise ValueError(f"page_tokens must be >= 1, got {page_tokens}")
         self.chunk_len = chunk_len
         self.page_tokens = page_tokens
-        #: per-admission one-shot prefill budget
-        self._c = min(chunk_len, s_max)
+        cfg = api.cfg
+        #: frontend tokens prepended to every prompt (vision stub)
+        self._front = cfg.n_frontend_tokens if cfg.frontend else 0
+        #: chunked prefill re-scores the prompt tail through decode steps;
+        #: frontend tokens exist only in the one-shot program
+        self._chunk_prefill = not cfg.frontend
+        #: per-admission one-shot prefill budget; the whole prompt otherwise
+        self._c = min(chunk_len, s_max) if self._chunk_prefill else s_max
         #: per-slot prompt tokens already scored (a slot is *prefilling*
         #: while this is < len(prompt): no output yet)
         self._pf_next = np.zeros(slots, np.int64)
@@ -327,7 +341,7 @@ class ServeEngine:
         self._t_enq: Dict[int, float] = {}     # id(req) -> enqueue ts
         self._last_tok_t = np.zeros(slots)     # last token ts per slot
 
-        if prefix_cache:
+        if prefix_cache and self._chunk_prefill:
             if self._c % page_tokens:
                 raise ValueError(
                     f"prefix caching needs the chunk boundary ({self._c}) "
@@ -506,21 +520,25 @@ class ServeEngine:
         r = self.active[i]
         return r is not None and int(self._pf_next[i]) < len(r.prompt)
 
-    def _check_len(self, req: Request) -> None:
-        """Raise PromptTooLong when the first decoded token could not fit
-        the cache ring."""
-        if len(req.prompt) >= self.s_max:
+    def _prefill_len(self, req: Request) -> int:
+        """Prefill length (prompt and frontend tokens); PromptTooLong when
+        the first decoded token could not fit the cache ring."""
+        plen = len(req.prompt) + self._front
+        if plen >= self.s_max:
+            front = (f" + {self._front} frontend tokens" if self._front
+                     else "")
             raise PromptTooLong(
-                f"request {req.rid}: prompt length {len(req.prompt)} must be "
-                f"< s_max={self.s_max}: the first decoded token would "
-                f"overflow the cache ring")
+                f"request {req.rid}: prefill length {plen} ({len(req.prompt)}"
+                f" prompt tokens{front}) must be < s_max={self.s_max}: the "
+                f"first decoded token would overflow the cache ring")
+        return plen
 
     def add_request(self, req: Request) -> bool:
         """Admit ``req`` now.  False when no slot is free; PromptTooLong
         when the prompt cannot fit the cache ring."""
         self._mark_enqueue(req)
         try:
-            self._check_len(req)
+            self._prefill_len(req)
         except PromptTooLong:
             self._reject(req)
             raise
@@ -548,7 +566,7 @@ class ServeEngine:
             while self._queue and len(window) < free:
                 req = self._queue.popleft()
                 try:
-                    self._check_len(req)
+                    self._prefill_len(req)
                 except PromptTooLong:
                     self._reject(req)
                     continue
@@ -603,11 +621,17 @@ class ServeEngine:
                 return
         tok_lens = [len(r.prompt) for r in reqs]
         feed = [min(n, self._c) for n in tok_lens]
+        # the scored prefix: the fed tokens behind any frontend tokens
+        plens = [self._front + n for n in feed]
         b = len(reqs)
         pad_to = _prompt_bucket(max(feed), self.s_max)
         toks = np.zeros((b, pad_to), np.int64)
         for i, r in enumerate(reqs):
             toks[i, :feed[i]] = r.prompt[:feed[i]]
+        patches = None
+        if self._front:
+            patches = torch.zeros((b, self._front, self.api.cfg.d_model),
+                                  dtype=torch.bfloat16, device=self.device)
         tr = obs.enabled()
         t_pf = self.tracer.now()
         if tr:
@@ -618,7 +642,8 @@ class ServeEngine:
         with use_block(self.bm):
             logits, pre = self.api.prefill(
                 self.params, toks, s_max=self.s_max,
-                plen=np.array(feed, np.int64), backend=self.backend)
+                plen=np.array(plens, np.int64), backend=self.backend,
+                patches=patches)
         temps = np.array([r.temperature for r in reqs], np.float32)
         first = self._sample(logits, temps).cpu().numpy()
         t_first = self.tracer.now()
@@ -634,7 +659,7 @@ class ServeEngine:
         for i, req in enumerate(reqs):
             full_fed = feed[i] == tok_lens[i]
             if tr:
-                self.tracer.event("admit", rid=req.rid, plen=feed[i],
+                self.tracer.event("admit", rid=req.rid, plen=plens[i],
                                   chunked=not full_fed)
             if full_fed:
                 tok = int(first[i])
@@ -654,7 +679,7 @@ class ServeEngine:
             for full, row in zip(self.caches, pre):
                 for name in full:
                     full[name][slot] = row[name][i]
-            self.pos[slot] = feed[i]
+            self.pos[slot] = plens[i]
             self._pf_next[slot] = feed[i]
             self.active[slot] = req
             self._last_tok_t[slot] = t_first

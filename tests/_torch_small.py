@@ -34,3 +34,43 @@ def small_models(backend="all", seed=1):
         port_dense=from_reference(dense, device="cpu"),
         port_packed=from_reference(jax.tree.map(np.asarray, packed),
                                    device="cpu"))
+
+
+_FAMILY = {}
+
+
+def family_models(arch, seed=3, **over):
+    """One arch of the MoE/vision slice at ``ref_scale_down(**over)``:
+    reference config/API/params (dense, and packed for v1, v2 and v3 from
+    one compression), the port's API and the same params carried across,
+    on the CPU.  Cached per (arch, seed, overrides)."""
+    key = (arch, seed, tuple(sorted(over.items())))
+    if key not in _FAMILY:
+        cfg = ref_scale_down(REF_ARCHS[arch], **over)
+        api = ref_build_model(cfg)
+        dense = jax.tree.map(np.asarray, api.init_params(jax.random.key(seed)))
+        dense["embed"]["w"] = dense["embed"]["w"] * np.float32(0.05)
+        packed = jax.tree.map(np.asarray, ref_convert(dense, squeeze=1,
+                                                      backend="all"))
+        _FAMILY[key] = types.SimpleNamespace(
+            cfg=cfg, api=api, dense=dense, packed=packed,
+            port_api=build_model(scale_down(ARCHS[arch], **over),
+                                 device="cpu"),
+            port_dense=from_reference(dense, device="cpu"),
+            port_packed=from_reference(packed, device="cpu"))
+    return _FAMILY[key]
+
+
+def dequantized(tree, *path):
+    """``tree`` (numpy, reference layout) with the packed leaf at ``path``
+    replaced by its dense f32 weight (the reference's ``sme_dequant_jnp``):
+    what the reference can serve where it cannot take a packed leaf."""
+    from repro.core.integrate import sme_dequant_jnp
+    out = jax.tree.map(lambda a: a, tree)
+    node = out
+    for k in path[:-1]:
+        node = node[k]
+    node[path[-1]] = np.asarray(sme_dequant_jnp(
+        jax.tree.map(jax.numpy.asarray, node[path[-1]]),
+        dtype=jax.numpy.float32))
+    return out

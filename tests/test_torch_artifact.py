@@ -363,3 +363,25 @@ def test_spec_depth_auto_plans_v3_and_refuses_the_rest(monkeypatch, capsys):
         with pytest.raises(SystemExit, match="spec-depth auto"):
             serve.main(["--small", "--device", "cpu", "--spec-depth", "auto",
                         "--requests", "1", "--max-new", "2", *argv])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b"])
+def test_reference_moe_artifact_serves_reference_tokens(arch, tmp_path):
+    """A reference-written ``.smez`` of a small MoE tree (stacked expert
+    leaves, deepseek's ``first0``) boots through ``from_artifact`` and
+    serves the reference model-API loop's greedy tokens (one-shot, as the
+    loop; the loop on the reference's ``xla`` backend)."""
+    from _torch_small import family_models
+    fm = family_models(arch, d_model=128, expert_dff=128, dtype="float32")
+    path = tmp_path / "moe.smez"
+    ref_compile(fm.dense, out=path, backend="v3", error_budget=0.06,
+                extra=dict(EXTRA, arch=arch))
+    params, plan, _ = ref_load(path)
+    assert any(k.startswith("blocks/slot0/mlp/w") for k in plan.layers)
+    want = _reference_greedy(fm, jax.tree.map(np.asarray, params), "xla")
+    eng = ServeEngine.from_artifact(fm.port_api, path, slots=3, s_max=S_MAX,
+                                    device="cpu", chunk_len=S_MAX)
+    assert eng.stats["backend"] == "v3"
+    wi = eng.params["blocks"][0]["mlp"]["wi"]
+    assert tuple(wi["sme_codes"].shape[:1]) == (4,)
+    assert _port_tokens(eng) == want

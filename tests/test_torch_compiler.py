@@ -212,3 +212,59 @@ def test_planned_conversion_byte_equal(backend):
     if backend == "v3":
         assert port["moe"]["wi"]["sme_draft_planes"].shape == (2,)
     assert not isinstance(port["tiny"]["w"], dict)
+
+
+def _moe_tree(arch):
+    """A reference-layout dense tree of ``arch`` at 256 wide: stacked
+    expert leaves [1, 4, 256, 128] (lead ``(n_super, E)``); deepseek's
+    unstacked ``first0`` MLP [256, 512] made structured-sparse, so the
+    planner reorders it."""
+    import jax
+    from repro.configs import ARCHS as REF_ARCHS, scale_down as ref_sd
+    from repro.models import build_model as ref_build
+    cfg = ref_sd(REF_ARCHS[arch], d_model=256, d_ff=512, expert_dff=128,
+                 dtype="float32")
+    tree = jax.tree.map(np.asarray,
+                        ref_build(cfg).init_params(jax.random.key(2)))
+    if "first0" in tree:
+        tree["first0"]["mlp"]["wi"]["w"] = structured_sparse(256, 512) \
+            .astype(np.float32)
+    return tree
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("backend", ["auto", "v3"])
+def test_moe_tree_plan_and_pack_byte_equal(arch, backend):
+    """MoE trees through the port's layout and back: the plan JSON is the
+    reference's byte for byte (stacked ``(n_super, E)`` expert leaves
+    planned on their first slice, never reordered; deepseek's ``first0``
+    reordered), and the planned conversion packs the same bytes,
+    ``sme_perm`` and per-expert ``sme_draft_planes`` included."""
+    from repro_torch.convert import from_reference, to_reference
+    tree = _moe_tree(arch)
+    ours = to_reference(from_reference(tree, device="cpu"))
+    ref = RPL.plan_model(tree, error_budget=0.06, backend=backend)
+    plan = PPL.plan_model(ours, error_budget=0.06, backend=backend)
+    assert plan.to_json() == ref.to_json()
+    wi = plan.layers["blocks/slot0/mlp/wi"]
+    assert wi.n_slices == 4 and not wi.reorder
+    r = RI.convert_params_to_sme(tree, plan=plan)
+    p = PI._convert(ours, plan=plan)
+    ra, pa = _leaves(r), _leaves(p)
+    assert [k for k, _ in ra] == [k for k, _ in pa]
+    for (k, a), (_, b) in zip(ra, pa):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert a.tobytes() == b.tobytes(), k
+    assert p["blocks"]["slot0"]["mlp"]["wi"]["sme_codes"].shape[:2] == (1, 4)
+    if backend == "v3":
+        assert p["blocks"]["slot0"]["mlp"]["wo"]["sme_draft_planes"].shape \
+            == (1, 4)
+    if arch.startswith("deepseek"):
+        assert plan.layers["first0/mlp/wi/w"].reorder
+        assert "sme_perm" in p["first0"]["mlp"]["wi"]["w"]
+
+
+def _leaves(tree):
+    import jax
+    return jax.tree_util.tree_leaves_with_path(tree)
