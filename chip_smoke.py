@@ -31,12 +31,13 @@
    Before them the card tests (``pytest -m gpu tests/test_torch_cuda.py``,
    in a child process on the same build) must all pass.  From the start
    a pool of :data:`PACK_WORKERS` host processes at the lowest CPU
-   priority draws and packs the weights of phases 6 and 7 (gemma3-12b,
-   then mixtral-8x7b, deepseek-v2-lite-16b and llava-next-34b), beside
+   priority draws and packs the weights of phases 6-8 (gemma3-12b, then
+   mixtral-8x7b, deepseek-v2-lite-16b and llava-next-34b, then
+   xlstm-1.3b and jamba-v0.1-52b), beside
    the card tests and phases 2-5, and is paused for every timed launch,
    profiled window, serving and engine run; each later phase waits for
    its model.
-3. Serving: qwen1.5-0.5b at full width, its depth cut to 8 of 24 layers
+3. Serving: qwen1.5-0.5b at full width, its depth cut to 4 of 24 layers
    (:data:`QWEN_LAYERS`; random weights from a numpy seed, every
    attention/MLP weight packed once to v1, v2 and v3)
    serves the same 8 requests three times through ``ServeEngine(slots=4,
@@ -59,26 +60,26 @@
    four times: v3 with spec, chunking and the prefix cache; spec off;
    prefix cache off; ``auto`` (v2).  Each run must complete every
    request, stream token events equal to ``out_tokens``, launch only its
-   backend's kernels, 56 per model pass (7 per layer), and add up its
-   spec counters; v3's draft passes must launch the decode kernel (56 per
+   backend's kernels, 28 per model pass (7 per layer), and add up its
+   spec counters; v3's draft passes must launch the decode kernel (28 per
    draft step);
    the greedy tokens of the four runs must be identical.  Prints ms per
    engine step by kind (chunked, spec, decode), draft and verify ms per
    round, acceptance, tokens/s, TTFT per request, prefix hits and
    snapshots, and the decode kernel's ms per layer at the draft depth.
 5. Compile: the offline compiler on the same full-width weights, dense,
-   in the reference's layout (8 layers stacked per leaf): ``plan_model``
+   in the reference's layout (4 layers stacked per leaf): ``plan_model``
    at budget 0.06 and ``compile_model`` into a ``.smez`` in a temporary
    directory under ``auto`` (the plan's per-leaf settings, backends,
    crossbar reduction, seconds and megabytes are printed), booted by
    ``ServeEngine.from_artifact`` (its seconds beside the serving phase's
    inline packing) and serving the serving phase's 8 requests: only the
-   plan's kernels, 56 launches per pass; one prefill window's logits
+   plan's kernels, 28 launches per pass; one prefill window's logits
    within tolerance of the ``torch`` backend (f32) and of the plain
    versions (bf16); where every leaf is planned (8, 3, 1) the tokens must
    equal the serving phase's auto run bitwise.  Then the same under
    ``v3`` and the engine workload twice, with ``spec_depth="auto"`` and
-   without: every draft pass launches the decode kernel 56 times, every
+   without: every draft pass launches the decode kernel 28 times, every
    draft dispatch resolves its layer's plan depth (never full
    precision), and the greedy tokens of the two runs are identical.
    Last, malformed operand lists (``rowid`` past the row tiles, ``nnz``
@@ -133,15 +134,38 @@
    window as above, and the engine with 2 requests admitted whole in one
    prefill whose ``plen`` counts the 576 frontend tokens (no chunked step,
    no prefix cache).
-8. Prints the compile, gemma and slice readings as JSON, the kernels JSON
-   line (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
+8. The recurrent family at full width (``recurrent_phase``):
+   xlstm-1.3b (d_model 2048, 4 heads; mLSTM d_in 4096 in heads of 1024,
+   sLSTM heads of 512 and an FFN of 2730; untied head 2048x50304) cut to
+   one superblock (7 mLSTM, 1 sLSTM: 0.31 B packed weights) and
+   jamba-v0.1-52b (d_model 4096, 32 heads, GQA kv 8, d_ff 14336, Mamba
+   d_in 8192, state 16, conv 4, dt rank 256; untied head 4096x65536) cut
+   to slots 0 (Mamba) and 4 (attention) of its superblock, both with dense
+   MLPs (0.77 B), packed to v2 and v3 by the pool; the dense mixer leaves
+   (mLSTM's q/k/v, sLSTM's r, Mamba's conv, A_log, D) from a numpy seed.
+   Kernel rows on the models' own operands (mLSTM up 2048x8192 and down
+   4096x2048, sLSTM ff_wi 2048x2730, Mamba in_proj 4096x16384, x_proj
+   8192x288, dt_w 256x8192, out_proj 8192x4096) at M = 4 and 512, as in
+   phase 6.  One-shot serving (4 slots, s_max 2048) of 4 prompts of
+   400-600 tokens under auto (v2) and v3: only the backend's kernels, 19
+   (xLSTM) and 15 (Jamba) per pass, equal tokens; f32 prefill logits v2
+   == v3 bitwise and within 5e-5 of the ``torch`` backend; a profiled
+   window; the ms of the Python time loops (sLSTM's, Mamba's) beside
+   their layers' prefill.  The engine on v3 (``chunk_len`` 32,
+   ``page_tokens`` 16, prefix cache, ``spec_len`` 4) with spec and
+   without (equal tokens), two prompts sharing 256 tokens (a hit that
+   restores the recurrent side rows, and for Jamba the attention's
+   pages); every recurrent leaf classified side, Jamba's K/V paged.
+9. Prints the compile, gemma, slice and recurrent readings as JSON, the
+   kernels JSON line (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
    M = 8 in the top-level keys, every M a kernel ran at under ``at_m``;
    v3-decode adds ``draft_depth``, the draft passes' ``draft_launches``
    and ``draft_ms`` / ``draft_full_ms`` per layer on the model's own
    operands; ``artifact_launches`` counts the compile phase's runs,
    ``gemma_launches`` gemma's serving and engine runs, ``gemma`` its
    kernel rows per shape and M, per call; ``slice_launches`` and
-   ``slice`` the same for phase 7; every number measured in this run but
+   ``slice`` the same for phase 7, ``recurrent_launches`` and
+   ``recurrent`` for phase 8; every number measured in this run but
    ``bound_ms``), the card line and, last, ``{"ok": true,
    "device": {...}}``.  Any failed check raises first; the pool's
    processes are stopped either way.
@@ -183,11 +207,11 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 #: embedding std of the random serving model: small enough that the layers,
 #: not just the tied head's echo of the last prompt token, set the tokens
 EMBED_STD = 0.05
-#: qwen1.5-0.5b's depth in the serving, engine and compile phases: 8 of its
-#: 24 layers, so that the whole script, the gemma3-12b, MoE and vision
-#: phases included, stays well inside its time limit (the kernel phase
+#: qwen1.5-0.5b's depth in the serving, engine and compile phases: 4 of its
+#: 24 layers, so that the whole script, the gemma3-12b, MoE, vision and
+#: recurrent phases included, stays inside its time limit (the kernel phase
 #: runs every width)
-QWEN_LAYERS = 8
+QWEN_LAYERS = 4
 
 
 def card_line() -> str:
@@ -234,6 +258,19 @@ def free_card() -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def mismatch(a: torch.Tensor, b: torch.Tensor) -> str:
+    """Where two tensors that must be bitwise equal part: how many
+    elements, the largest finite difference, NaNs on each side and the
+    first differing index (for a failure's message)."""
+    ne = a != b
+    d = (a.double() - b.double()).abs()
+    d = d[torch.isfinite(d)]
+    return (f"{int(ne.sum())} of {a.numel()} elements differ, max |diff| "
+            f"{float(d.max()) if d.numel() else float('nan'):.3e}, NaN "
+            f"{int(a.isnan().sum())}/{int(b.isnan().sum())}, first at "
+            f"{ne.nonzero()[:1].tolist()}")
 
 
 #: pauses the packing pool, if one runs, for a measurement: device timings,
@@ -747,7 +784,7 @@ def serve_phase(dev, card):
     cfg = qwen_config()
     print(f"serve: qwen1.5-0.5b at full width, depth cut from 24 layers to "
           f"{cfg.n_layers} (this script's time limit holds the gemma3-12b, "
-          f"MoE and vision phases too)", flush=True)
+          f"MoE, vision and recurrent phases too)", flush=True)
     params, pack_s = build_model_params(dev, cfg)
     print(f"serve: packed {cfg.n_layers} layers x 7 linears to v1, v2 and "
           f"v3 in {pack_s:.1f}s", flush=True)
@@ -782,7 +819,9 @@ def serve_phase(dev, card):
                                 backend=be)[0] for be in ("v1", "v2", "v3")}
         check(bool(torch.equal(lk["v1"], lk["v2"]))
               and bool(torch.equal(lk["v1"], lk["v3"])),
-              f"{dtype} prefill logits differ between v1, v2 and v3")
+              f"{dtype} prefill logits differ between v1, v2 and v3 (v1 "
+              f"vs v2: {mismatch(lk['v1'], lk['v2'])}; v1 vs v3: "
+              f"{mismatch(lk['v1'], lk['v3'])})")
         for be, logits in lk.items():
             with plain_kernels():
                 lp, _ = api_d.prefill(params, toks, s_max=256, plen=plen,
@@ -1672,7 +1711,7 @@ def oracle_weight(hp, cols):
     t = -(-cols // 128)
     return smeweight_from_param({
         "sme_codes": hp["sme_codes"][:, :t], "sme_rowexp":
-        hp["sme_rowexp"][:, :t], "sme_sign": hp["sme_sign"][:, :cols // 8],
+        hp["sme_rowexp"][:, :t], "sme_sign": hp["sme_sign"][:, :-(-cols // 8)],
         "sme_scale": hp["sme_scale"][:, :cols], "sme_tilesq":
         hp["sme_tilesq"][:, :t], "sme_nbits": hp["sme_nbits"],
         "sme_squeezed": hp["sme_squeezed"], "sme_window": hp["sme_window"]})
@@ -1725,6 +1764,14 @@ def kernel_rows(dev, shapes, card, seed):
         valid = torch.arange(last.shape[1], device=dev)[None] < nnz3[:, None]
         planes, groups = int(nnz3.sum()), int(((last == 1) & valid).sum())
         occ = int(a1[4].sum())
+        # the multiply-adds per row of x that the product needs: each
+        # occupied tile's real rows times its real columns (a ragged K or
+        # N pads its last tiles, which carry no work)
+        rowid, nnz1 = a1[3].long(), a1[4]
+        slot = torch.arange(rowid.shape[1], device=dev)[None] < nnz1[:, None]
+        real_rows = ((K - rowid * 128).clamp(0, 128) * slot).sum(1)
+        real_cols = (N - torch.arange(nt, device=dev) * 128).clamp(0, 128)
+        macs = int((real_rows * real_cols).sum())
         w32 = sme_dequant(p, torch.float32)
         w16 = w32.to(torch.bfloat16)
         for m in ms:
@@ -1768,13 +1815,12 @@ def kernel_rows(dev, shapes, card, seed):
                 if name.startswith("sme_spmm_planes"):
                     nbytes = (m * K * 4 + planes * 2048 + groups * (2048 + 512)
                               + nt * 128 * 4 + m * N * 4)
-                    flops = 2.0 * m * 128 * 128 * groups
                 else:
                     tile = 16384 + 2048 + 512 if name == "sme_spmm" \
                         else 12288 + 512
                     nbytes = (m * K * 4 + occ * tile + occ * 4 + nt * 4
                               + m * N * 4)
-                    flops = 2.0 * m * 128 * 128 * occ
+                flops = 2.0 * m * macs
                 bound, by = bound_of(nbytes, flops)
                 print(f"kernel {name:22s} {label:22s} M={m:3d}: "
                       f"{ms_ * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
@@ -1874,7 +1920,8 @@ def gemma_phase(dev, card, packed):
                                  plen=plen, backend=backend)[0]
     lk = {be: logits(be) for be in ("v2", "v3")}
     check(bool(torch.equal(lk["v2"], lk["v3"])),
-          "gemma f32 prefill logits differ between v2 and v3")
+          "gemma f32 prefill logits differ between v2 and v3 ("
+          f"{mismatch(lk['v2'], lk['v3'])})")
     check(bool(torch.isfinite(lk["v2"]).all())
           and lk["v2"].shape == (4, cfg.vocab), "gemma logits")
     for what, other in (("torch backend", logits("torch")),
@@ -2201,11 +2248,16 @@ def slice_logits(api32, params, toks, plen, label, patches=None):
     """f32 prefill logits of one window under v2 and v3 (bitwise equal)
     and the ``torch`` backend (within :data:`TOL_SLICE`).  Returns the
     relative difference."""
-    lk = {be: api32.prefill(params, toks, s_max=SLICE_ONE_SHOT["s_max"],
-                            plen=plen, backend=be, patches=patches)[0]
-          for be in ("v2", "v3", "torch")}
-    check(bool(torch.equal(lk["v2"], lk["v3"])),
-          f"{label}: f32 prefill logits differ between v2 and v3")
+    def logits(be):
+        return api32.prefill(params, toks, s_max=SLICE_ONE_SHOT["s_max"],
+                             plen=plen, backend=be, patches=patches)[0]
+    lk = {be: logits(be) for be in ("v2", "v3", "torch")}
+    if not torch.equal(lk["v2"], lk["v3"]):
+        # tell a result that varies from call to call from a stable one
+        again = {be: torch.equal(logits(be), lk[be]) for be in ("v2", "v3")}
+        check(False, f"{label}: f32 prefill logits differ between v2 and "
+              f"v3 ({mismatch(lk['v2'], lk['v3'])}; a second call "
+              f"reproduces v2: {again['v2']}, v3: {again['v3']})")
     check(bool(torch.isfinite(lk["v2"]).all())
           and lk["v2"].shape == (len(plen), api32.cfg.vocab),
           f"{label}: logits non-finite or misshapen")
@@ -2494,6 +2546,330 @@ def vision_phase(dev, card, packed):
     return rows, launches, out
 
 
+# ---------------------------------------------------------------------------
+# the recurrent family: xlstm-1.3b and jamba-v0.1-52b at full width
+
+#: the recurrent models, in phase order
+RECURRENT = ("xlstm", "jamba")
+#: their full depth, for the log
+RECURRENT_DEPTH = {"xlstm": 48, "jamba": 32}
+#: launches of one model pass: xLSTM 2 per mLSTM layer (up, down; the
+#: gates are 4 wide), 4 for the sLSTM layer, 1 head; Jamba 4 Mamba, 4
+#: attention, 3 + 3 MLP, 1 head
+RECURRENT_PER_PASS = {"xlstm": 19, "jamba": 15}
+RECURRENT_ENGINE = dict(slots=4, s_max=2048, chunk_len=32, page_tokens=16,
+                        spec_len=4)
+#: the recurrent kernel rows: (model, label, weight, K, N); the ragged
+#: widths are ff_wi's 2730 (21.3 tiles), x_proj's 288 (2.25) and dt_w's K
+#: of 256 (two row tiles)
+RECURRENT_SHAPES = (
+    ("xlstm", "mLSTM up 2048x8192", "b0/up", 2048, 8192),
+    ("xlstm", "mLSTM down 4096x2048", "b0/down", 4096, 2048),
+    ("xlstm", "sLSTM ff_wi 2048x2730", "b7/ff_wi", 2048, 2730),
+    ("jamba", "in_proj 4096x16384", "b0/in_proj", 4096, 16384),
+    ("jamba", "x_proj 8192x288", "b0/x_proj", 8192, 288),
+    ("jamba", "dt_w 256x8192", "b0/dt_w", 256, 8192),
+    ("jamba", "out_proj 8192x4096", "b0/out_proj", 8192, 4096))
+#: the kernel rows' M: the one-shot decode batch and a prefill block
+RECURRENT_MS = (4, 512)
+
+
+def recurrent_config(key):
+    """xlstm-1.3b cut to one superblock (7 mLSTM, 1 sLSTM); jamba-v0.1-52b
+    cut to slots 0 (Mamba) and 4 (attention) of its superblock, both with
+    the dense MLP they have in the published model."""
+    from repro_torch.configs import ARCHS
+    if key == "xlstm":
+        return dataclasses.replace(ARCHS["xlstm-1.3b"], n_layers=8)
+    return dataclasses.replace(ARCHS["jamba-v0.1-52b"], n_layers=2,
+                               block_pattern=("mamba", "attn"),
+                               moe_pattern=(0, 0))
+
+
+def recurrent_leaves(cfg):
+    """Per layer, (leaf, shape, init, std) of its params but the norms:
+    the mixer's (a recurrent kind's is the model's own
+    ``transformer.ssm_mix_spec``, attention's is q, k, v, o) and, with a
+    ``d_ff``, the dense MLP's (``mlp/wi``, ``mlp/wg``, ``mlp/wo``); as
+    ``ssm_mix_spec`` gives them."""
+    from repro_torch.models.transformer import layer_slots, ssm_mix_spec
+    d, ff = cfg.d_model, cfg.d_ff
+    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    attn = [("q", (d, qd)), ("k", (d, kvd)), ("v", (d, kvd)), ("o", (qd, d))]
+    mlp = [("mlp/wi", (d, ff)), ("mlp/wg", (d, ff)), ("mlp/wo", (ff, d))]
+    return [(ssm_mix_spec(cfg, kind) if kind != "attn" else
+             [(n, sh, "linear", None) for n, sh in attn])
+            + [(n, sh, "linear", None) for n, sh in (mlp if ff else [])]
+            for kind, _ in layer_slots(cfg)]
+
+
+def packed_leaf(shape, init) -> bool:
+    """A linear of at least 128 x 128 is packed (the eligibility rule); at
+    full width every linear of the recurrent models is but mLSTM's gates,
+    which are 4 wide."""
+    return init == "linear" and min(shape) >= 128
+
+
+def recurrent_tasks(key, offset):
+    """The pool's tasks for one recurrent model, largest first: every packed
+    weight (``b{layer}/<leaf>``, std 1/sqrt(K)) and the head's slabs, for
+    v2 and v3 (all three formats for the kernel rows' weights)."""
+    cfg = recurrent_config(key)
+    rows = {name for model, _, name, _, _ in RECURRENT_SHAPES if model == key}
+    named = [(f"b{i}/{n}", sh, std if std is not None else sh[0] ** -0.5)
+             for i, leaves in enumerate(recurrent_leaves(cfg))
+             for n, sh, init, std in leaves if packed_leaf(sh, init)]
+    ns = head_slabs(cfg)
+    named += [(f"head/{j}", (cfg.d_model, cfg.vocab // ns), HEAD_STD)
+              for j in range(ns)]
+    tasks = [(name, SEED * 1000 + offset + i, shape, std,
+              "all" if name in rows else ("v2", "v3"))
+             for i, (name, shape, std) in enumerate(named)]
+    return sorted(tasks, key=lambda t: -t[2][0] * t[2][1])
+
+
+def recurrent_params(dev, key, cfg, got):
+    """The packed model on the card from the pool's results, the leaves
+    that stay dense drawn from a numpy seed with the model's own init,
+    unit norms, the head's slabs joined, the embedding drawn on the card;
+    and host copies of the kernel rows' weights."""
+    from repro_torch.core.integrate import to_torch
+    from repro_torch.models.transformer import ssm_leaf
+    rows = {name: got[name] for model, _, name, _, _ in RECURRENT_SHAPES
+            if model == key}
+    rng = np.random.default_rng(SEED + 13)
+    ones = np.ones(cfg.d_model, np.float32)
+    tree = {"final_norm": {"w": ones}, "blocks": []}
+    for i, leaves in enumerate(recurrent_leaves(cfg)):
+        mix, mlp = {}, {}
+        for n, sh, init, std in leaves:
+            leaf = {"w": got.pop(f"b{i}/{n}")} if packed_leaf(sh, init) \
+                else ssm_leaf(rng, sh, init, std)
+            if n.startswith("mlp/"):
+                mlp[n[4:]] = leaf
+            else:
+                mix[n] = leaf
+        block = {"norm1": {"w": ones}, "mix": mix}
+        if mlp:
+            block.update(norm2={"w": ones}, mlp=mlp)
+        tree["blocks"].append(block)
+    slabs = [got.pop(f"head/{j}") for j in range(head_slabs(cfg))]
+    check(len({float(p["sme_scale"][0, 0]) for p in slabs}) == 1,
+          f"{cfg.name}: head slabs have different scales")
+    tree["lm_head"] = {"w": join_columns(slabs)}
+    del slabs
+    check(not got, f"{cfg.name}: packed weights left over: {sorted(got)}")
+    params = to_torch(tree, dev)
+    del tree
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params["embed"] = {"w": torch.randn((cfg.vocab, cfg.d_model),
+                                        generator=gen, device=dev)
+                       * EMBED_STD}
+    torch.cuda.synchronize()
+    return params, rows
+
+
+def recurrent_workload(key, vocab):
+    """4 greedy requests of 400-600-token prompts, 16 new tokens; the first
+    two share :data:`SLICE_SHARED` tokens, and the engine submits the
+    second once the first has scored them (a prefix-cache hit).  Returns
+    (prompts, (first wave, second wave, ready))."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED + 14 + len(key))
+    lens = rng.integers(*SLICE_PROMPTS, size=4)
+    prompts = [rng.integers(0, vocab, int(n)) for n in lens]
+    prompts[1][:SLICE_SHARED] = prompts[0][:SLICE_SHARED]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    a = reqs[0]
+
+    def ready(eng, _):
+        slot = next((i for i, r in enumerate(eng.active) if r is a), None)
+        return slot is not None and eng._pf_next[slot] >= SLICE_SHARED
+    return prompts, ([a] + reqs[2:], [reqs[1]], ready)
+
+
+#: the Python time loop of each recurrent kind's prefill (in models/ssm.py)
+TIME_LOOPS = {"mamba": "_selective_scan", "slstm": "_slstm_scan"}
+
+
+def time_loops(dev, params, cfg, toks, plen, card):
+    """ms of the one-shot prefill's Python time loops (Mamba's selective
+    scan, sLSTM's recurrence) inside their layer's prefill: the layer's
+    ``*_apply`` on a random input of the prefill window's shape and its
+    rows' prompt lengths, with its loop wrapped between two
+    synchronizations, so that one call gives the layer's ms and its
+    loop's; the medians of 3 calls after a warm one, and the loop's share
+    of each call."""
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import layer_slots
+    b, s = toks.shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    pl = torch.as_tensor(plen, device=dev)
+    out = {}
+    for i, (kind, _) in enumerate(layer_slots(cfg)):
+        if kind not in TIME_LOOPS or kind in out:
+            continue
+        p, name = params["blocks"][i]["mix"], TIME_LOOPS[kind]
+        loop, layer = getattr(ssm, name), getattr(ssm, f"{kind}_apply")
+        spans = []
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = loop(*a, **kw)
+            torch.cuda.synchronize()
+            spans.append(1e3 * (time.perf_counter() - t0))
+            return y
+        calls = []
+        setattr(ssm, name, timed)
+        try:
+            with quiet():
+                for _ in range(4):
+                    spans.clear()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    layer(p, x, cfg, plen=pl, backend="v2")
+                    torch.cuda.synchronize()
+                    calls.append((1e3 * (time.perf_counter() - t0),
+                                  sum(spans), len(spans)))
+        finally:
+            setattr(ssm, name, loop)
+        calls = calls[1:]
+        check(all(c[2] == 1 for c in calls),
+              f"{cfg.name}: {kind} prefill ran its time loop other than "
+              "once")
+        layer_ms = statistics.median(c[0] for c in calls)
+        loop_ms = statistics.median(c[1] for c in calls)
+        share = statistics.median(c[1] / c[0] for c in calls)
+        out[kind] = dict(layer_ms=layer_ms, loop_ms=loop_ms,
+                         loop_share=share, steps=s)
+        print(f"recurrent[{cfg.name}]: {kind} layer prefill {b} x {s} "
+              f"{layer_ms:.1f} ms, of which its Python time loop ({s} "
+              f"steps) {loop_ms:.1f} ms, measured inside the same calls "
+              f"(share {share:.3f}) | {card}", flush=True)
+    return out
+
+
+def recurrent_phase(dev, card, key, packed):
+    """A recurrent model at full width: its kernel rows; one-shot serving
+    under auto (v2) and v3 (equal tokens, :data:`RECURRENT_PER_PASS`
+    launches per pass); f32 prefill logits; a profiled window; the Python
+    time loops' ms; the engine on v3 with spec and without, and without
+    the prefix cache (equal tokens: a prefix hit restores the recurrent
+    side rows and, for Jamba, the attention's pages as recomputing the
+    prefix leaves them).  Returns the kernel rows, launches per kernel and
+    readings."""
+    from repro_torch.core.integrate import sme_operand_bytes, to_torch
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import layer_slots
+    t_phase = time.perf_counter()
+    cfg = recurrent_config(key)
+    label = f"recurrent[{cfg.name}]"
+    print(f"{label}: full width (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"d_ff {cfg.d_ff}, SSM state {cfg.ssm_state}, expand "
+          f"{cfg.ssm_expand}, vocab {cfg.vocab}); depth cut from "
+          f"{RECURRENT_DEPTH[key]} layers to {cfg.n_layers}: "
+          f"{[k for k, _ in layer_slots(cfg)]}", flush=True)
+    got, pack_s, wait_s = packed
+    params, rows_host = recurrent_params(dev, key, cfg, got)
+    del got
+    ob = sme_operand_bytes(params)
+    per_pass = packed_linears(params)
+    check(per_pass == RECURRENT_PER_PASS[key],
+          f"{label}: {per_pass} packed linears, want "
+          f"{RECURRENT_PER_PASS[key]}")
+    print(f"{label}: {ob['weights']} packed weights, {per_pass} launches "
+          f"per pass, v2 {ob['v2'] / ob['weights']:.4f} B and v3 "
+          f"{ob['v3'] / ob['weights']:.4f} B per weight; packed on the host "
+          f"by the pool: {pack_s:.1f}s from its start, {wait_s:.1f}s waited "
+          f"here; card memory {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB | {card}", flush=True)
+    rows = kernel_rows(dev, [
+        (f"{key} {lab}", to_torch(rows_host[name], dev),
+         oracle_weight(rows_host[name], min(N, ORACLE_COLS)), K, N,
+         RECURRENT_MS)
+        for model, lab, name, K, N in RECURRENT_SHAPES if model == key],
+        card, SEED + 15)
+    del rows_host
+    out = {"weights": ob["weights"], "pack_s": pack_s, "pack_wait_s": wait_s,
+           "card_gib": torch.cuda.memory_allocated() / 2 ** 30,
+           "launches_per_pass": per_pass}
+    api = build_model(cfg, device=dev)
+    prompts, _ = recurrent_workload(key, cfg.vocab)
+    launches = {name: 0 for name in KERNELS}
+    tokens = {}
+    for backend in ("auto", "v3"):
+        tokens[backend], counts = serve_run(
+            api, params, prompts, backend, card, engine_kw=SLICE_ONE_SHOT,
+            label=f"{label} {backend}")
+        for k in launches:
+            launches[k] += counts[k]
+    check(tokens["auto"] == tokens["v3"], f"{label}: v2 and v3 tokens differ")
+    print(f"{label}: one-shot tokens of auto (v2) and v3 identical; distinct "
+          f"tokens per request: "
+          + ", ".join(f"{i}:{len(set(t))}" for i, t in
+                      enumerate(tokens["v3"])), flush=True)
+    toks, plen = prefill_window(prompts, SLICE_ONE_SHOT["s_max"])
+    api32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    out["logits_rel_torch"] = slice_logits(api32, params, toks, plen, label)
+    del api32
+    torch.cuda.empty_cache()
+    profile_window(api, params, prompts, card, "auto",
+                   engine_kw=SLICE_ONE_SHOT)
+    out["loops"] = time_loops(dev, params, cfg, toks, plen, card)
+
+    depth, deepest, _, _ = choose_spec_depth(params)
+    runs = {}
+    for name, spec, prefix in (("spec", depth, True),
+                               ("spec off", None, True),
+                               ("spec off, prefix off", None, False)):
+        _, w = recurrent_workload(key, cfg.vocab)
+        r = runs[name] = engine_run(api, params, "v3", spec, prefix,
+                                    engine_kw=RECURRENT_ENGINE, waves=w)
+        for k in launches:
+            launches[k] += r["launches"][k]
+        out[f"engine_{name.replace(',', '').replace(' ', '_')}"
+            "_tokens_per_s"] = check_engine(
+            r, per_pass, 0, f"{label} engine[{name}]", card,
+            RECURRENT_ENGINE["spec_len"] if spec else 0)
+        m = r["eng"]._m
+        check(not prefix or (m["prefix_hits"].value >= 1
+                             and m["prefix_side_rows"].value >= 1),
+              f"{label} engine[{name}]: no prefix hit, or no side rows in "
+              "its snapshots")
+    greedy = {name: [q.out_tokens for q in r["reqs"]]
+              for name, r in runs.items()}
+    check(greedy["spec"] == greedy["spec off"],
+          f"{label}: engine tokens with spec and without differ")
+    # the hit's restored side rows (and Jamba's pages) against recomputing
+    # the shared prefix: the same schedule with the prefix cache off
+    check(greedy["spec off"] == greedy["spec off, prefix off"],
+          f"{label}: engine tokens with a prefix hit != without the cache")
+    eng = runs["spec"]["eng"]
+    kinds = {k: tuple(sorted((n, "paged" if v else "side")
+                             for n, v in eng._paged[i].items()))
+             for i, (k, _) in enumerate(layer_slots(cfg))}
+    check(all(not any(eng._paged[i].values()) if k != "attn"
+              else all(eng._paged[i].values())
+              for i, (k, _) in enumerate(layer_slots(cfg))),
+          f"{label}: cache leaves misclassified: {eng._paged}")
+    paged = any(any(k.values()) for k in eng._paged)
+    print(f"{label}: cache leaves per layer kind {kinds}; the prefix hit "
+          f"restored {'side rows and pages' if paged else 'side rows only'}"
+          f"; engine tokens with spec == without == without the prefix "
+          f"cache; draft depth {depth} of {deepest}", flush=True)
+    del params, runs, eng
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{label}: phase {out['phase_s']:.1f}s", flush=True)
+    return rows, launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2521,7 +2897,9 @@ def main() -> int:
     # the qwen phases; each later phase waits for its own model's
     packer = Packer({"gemma": gemma_tasks(gemma_config()),
                      **{key: slice_tasks(key, 100000 * (i + 1))
-                        for i, key in enumerate(SLICE)}})
+                        for i, key in enumerate(SLICE)},
+                     **{key: recurrent_tasks(key, 100000 * (i + 4))
+                        for i, key in enumerate(RECURRENT)}})
     try:
         card_tests()
         flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
@@ -2547,6 +2925,16 @@ def main() -> int:
             for name in KERNELS:
                 slice_rows[name].update(rows_k.get(name, {}))
                 slice_launches[name] += launches_k[name]
+        rec_rows = {name: {} for name in KERNELS}
+        rec_launches = {name: 0 for name in KERNELS}
+        rec_out = {}
+        for key in RECURRENT:
+            rows_k, launches_k, rec_out[key] = recurrent_phase(
+                dev, card, key, packer.wait(key))
+            free_card()
+            for name in KERNELS:
+                rec_rows[name].update(rows_k.get(name, {}))
+                rec_launches[name] += launches_k[name]
     finally:
         packer.close()
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2578,10 +2966,13 @@ def main() -> int:
         # their kernel rows (expert and ragged shapes)
         row["slice_launches"] = slice_launches[name]
         row["slice"] = slice_rows[name]
+        # the recurrent phase's main paths and its kernel rows
+        row["recurrent_launches"] = rec_launches[name]
+        row["recurrent"] = rec_rows[name]
         rows.append(row)
     # qwen times are per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls
     print(json.dumps({"compile": compiled, "gemma": gemma,
-                      "slice": slice_out}))
+                      "slice": slice_out, "recurrent": rec_out}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Config registry of the port (the architectures ported so far)."""
 from .base import ModelConfig, scale_down
-from . import (deepseek_v2_lite, gemma3_12b, llava_next_34b, mixtral_8x7b,
-               phi4_mini, qwen15_05b, qwen2_05b)
+from . import (deepseek_v2_lite, gemma3_12b, jamba_v01, llava_next_34b,
+               mixtral_8x7b, phi4_mini, qwen15_05b, qwen2_05b, xlstm_13b)
 
 ARCHS = {
     "gemma3-12b": gemma3_12b.CONFIG,
@@ -11,6 +11,8 @@ ARCHS = {
     "llava-next-34b": llava_next_34b.CONFIG,
     "deepseek-v2-lite-16b": deepseek_v2_lite.CONFIG,
     "mixtral-8x7b": mixtral_8x7b.CONFIG,
+    "jamba-v0.1-52b": jamba_v01.CONFIG,
+    "xlstm-1.3b": xlstm_13b.CONFIG,
 }
 
 __all__ = ["ModelConfig", "scale_down", "ARCHS"]

@@ -3,11 +3,11 @@
 Checked against ``repro/configs/base.py``: same field names and defaults
 for every field the ported paths read (sliding-window local/global
 layouts, the GELU MLP, MLA attention, MoE MLPs with shared experts and
-leading dense layers, the vision frontend's prefix), and the same
-``scale_down`` rules for them, so a config built by either package
-describes the same model (``tests/test_torch_model.py``,
-``test_torch_family.py`` and ``test_torch_moe.py`` compare the two field
-by field).
+leading dense layers, the vision frontend's prefix, the Mamba and xLSTM
+blocks' state, conv and expansion), and the same ``scale_down`` rules for
+them, so a config built by either package describes the same model
+(``tests/test_torch_model.py``, ``test_torch_family.py`` and
+``test_torch_moe.py`` compare the two field by field).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ __all__ = ["ModelConfig", "scale_down"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe
+    family: str                     # dense | moe | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,7 +33,8 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     swa_window: int = 0             # 0 = full attention (all layers)
     # per-superblock layer layout; empty -> n_layers x one "attn" slot
-    block_pattern: Tuple[str, ...] = ()   # attn | attn_local | attn_global
+    # attn | attn_local | attn_global | mamba | mlstm | slstm
+    block_pattern: Tuple[str, ...] = ()
     # --- MLA (deepseek) ---
     kv_lora: int = 0
     q_lora: int = 0
@@ -48,6 +49,10 @@ class ModelConfig:
     moe_pattern: Tuple[int, ...] = ()     # per slot: 1 = MoE MLP, 0 = dense
     first_dense_layers: int = 0           # leading dense blocks (deepseek)
     capacity_factor: float = 1.25
+    # --- SSM (mamba / xlstm) ---
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
     frontend: str = ""                    # "" | vision_stub
     n_frontend_tokens: int = 0            # patch embeddings prepended
     act: str = "swiglu"             # swiglu | gelu
@@ -85,7 +90,7 @@ def scale_down(cfg: ModelConfig, **overrides) -> ModelConfig:
     the fields above: the leading dense layers and one superblock, 64
     wide, 4 heads of 16, vocab 256, a window of at most 8, at most 4
     experts of 64 with top-2, an MLA cache of 32 with rope/nope/v heads of
-    8/16/16, 8 frontend tokens)."""
+    8/16/16, an SSM state of at most 8, 8 frontend tokens)."""
     mla = cfg.attn_type == "mla"
     small = dict(
         n_layers=cfg.first_dense_layers + len(cfg.pattern), d_model=64,
@@ -99,6 +104,7 @@ def scale_down(cfg: ModelConfig, **overrides) -> ModelConfig:
         nope_head_dim=16 if mla else cfg.nope_head_dim,
         v_head_dim=16 if mla else cfg.v_head_dim,
         swa_window=min(cfg.swa_window, 8) if cfg.swa_window else 0,
+        ssm_state=min(cfg.ssm_state, 8),
         n_frontend_tokens=8 if cfg.frontend else 0,
         name=cfg.name + "-smoke",
     )

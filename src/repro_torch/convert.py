@@ -9,7 +9,10 @@ reference's scan runs them), the top-level leaves (``embed``,
 ``final_norm``, an untied ``lm_head``, a vision model's ``patch_proj``,
 deepseek's leading dense layers ``first{i}``) as they are, every leaf a
 torch tensor on ``device``.  Stacked expert leaves ``[n_super, E, D,
-F]`` become each layer's ``[E, D, F]``, dense or packed.  Packed leaves
+F]`` become each layer's ``[E, D, F]``, dense or packed; so do the
+recurrent mixers' leaves (q/k/v ``[n_super, NH, dh, dh]``, sLSTM's r
+``[n_super, 4, NH, dh, dh]``, ``A_log``, ``conv_w``, ``D``, the packed
+projections).  Packed leaves
 are carried byte for byte (their padded plane-list length included), so
 both packages then compute the same function; a compiler's per-layer
 draft depth (``sme_draft_planes``, read under ``use_spec_depth("plan")``)

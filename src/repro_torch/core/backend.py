@@ -285,7 +285,12 @@ def _v3_decode_impl(x2d, ops, scale, qscale, *, n: int,
                                ops["rowscale"], colscale.reshape(nt, bn),
                                ops["rowid"], ops["shift"], ops["last"],
                                ops["nnz"], plane_depth=plane_depth)
-    return y[:m, :n]
+    y = y[:m, :n]
+    # on the CPU a strided view of a ragged N takes other elementwise loops
+    # downstream (silu's vectorized exp against its scalar one), which
+    # round differently from the other paths' contiguous outputs; a CUDA
+    # elementwise kernel computes the same either way, so no copy there
+    return y.contiguous() if y.device.type == "cpu" else y
 
 
 class SpmmV3Backend(SMEBackend):

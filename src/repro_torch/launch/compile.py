@@ -9,12 +9,13 @@ as the reference does.  Full width by default; ``--small`` is the
 2-layer, 128-wide config of the CPU tests; ``--d-model``/``--d-ff``/
 ``--head-dim``/``--vocab`` scale the config down as the reference's
 flags do (``--small`` rounds its 2 layers up to whole superblocks: 6
-for gemma3-12b's 5:1 local/global pattern; an MoE model's experts are
-128 wide, so they pack).  ``--arch`` takes any of the port's ``ARCHS``
-(mixtral-8x7b, deepseek-v2-lite-16b and llava-next-34b included); an
-untied ``lm_head``, stacked experts, deepseek's ``first0`` and a vision
-``patch_proj`` are planned and packed like every other linear.  Compiling runs on the host (numpy); no card is
-needed.
+for gemma3-12b's 5:1 local/global pattern, 8 for xlstm-1.3b's and
+jamba-v0.1-52b's; an MoE model's experts are 128 wide, so they pack;
+xLSTM keeps ``d_ff`` 0).  ``--arch`` takes any of the port's ``ARCHS``
+(the MoE, vision and recurrent models included); an untied ``lm_head``,
+stacked experts, deepseek's ``first0``, a vision ``patch_proj`` and the
+recurrent blocks' projections are planned and packed like every other
+linear.  Compiling runs on the host (numpy); no card is needed.
 
     PYTHONPATH=src python -m repro_torch.launch.compile --small \\
         --out build/small.smez [--budget 0.06] \\
@@ -63,6 +64,8 @@ def scaled_config(args):
         if args.small:
             p = len(cfg.pattern)
             small = dict(SMALL, n_layers=-(-SMALL["n_layers"] // p) * p)
+            if not cfg.d_ff:
+                small["d_ff"] = 0        # xLSTM: no MLP half
             if cfg.n_experts:
                 # experts past the 128 floor, so they pack
                 small["expert_dff"] = 128
@@ -73,7 +76,7 @@ def scaled_config(args):
 def model_dims(cfg) -> dict:
     """The dims an artifact records and a server checks (the reference's
     five, and the window, layer pattern, MLP and head of the dense
-    family, the experts, MLA cache and frontend tokens)."""
+    family, the experts, MLA cache, frontend tokens and SSM state)."""
     return {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
             "n_layers": cfg.n_layers, "head_dim": cfg.hd,
             "swa_window": cfg.swa_window,
@@ -81,7 +84,8 @@ def model_dims(cfg) -> dict:
             "tie_embeddings": cfg.tie_embeddings,
             "n_experts": cfg.n_experts, "expert_dff": cfg.expert_dff,
             "kv_lora": cfg.kv_lora,
-            "n_frontend_tokens": cfg.n_frontend_tokens}
+            "n_frontend_tokens": cfg.n_frontend_tokens,
+            "ssm_state": cfg.ssm_state, "ssm_expand": cfg.ssm_expand}
 
 
 def main(argv=None):

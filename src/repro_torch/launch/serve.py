@@ -2,7 +2,7 @@
 
 Checked against ``repro/launch/serve.py`` (its flags but ``--mesh`` and
 ``--host-devices``).  ``--arch`` takes any of the port's ``ARCHS`` (the
-dense family: qwen1.5-0.5b, qwen2-0.5b, phi4-mini-3.8b, gemma3-12b).
+dense, MoE, vision and recurrent families).
 Weights come from a numpy generator seeded by ``--seed`` (the reference
 init's distributions), or from a compiled ``.smez`` (``--artifact``, made
 by ``repro_torch.launch.compile`` or the reference's compiler; its arch and

@@ -1,9 +1,10 @@
 """Model API of the port: ``build_model(cfg, device)`` -> :class:`ModelAPI`.
 
-Checked against ``repro/models/model.py`` for the decoder-only dense and
-MoE families (RMSNorm, SwiGLU or GELU MLPs, MoE MLPs with shared experts,
-full or sliding-window GQA or MLA layers, leading dense layers, a tied or
-untied head, the vision stub's patch prefix):
+Checked against ``repro/models/model.py`` for the decoder-only dense,
+MoE, SSM and hybrid families (RMSNorm, SwiGLU or GELU MLPs, MoE MLPs with
+shared experts, full or sliding-window GQA or MLA layers, Mamba, mLSTM
+and sLSTM layers, leading dense layers, a tied or untied head, the vision
+stub's patch prefix):
 ``prefill(params, tokens, s_max, plen, patches=None)`` -> (last logits,
 caches),
 ``decode_step(params, token, caches, pos, active)`` -> (logits, caches)
@@ -69,9 +70,6 @@ def make_decode_chunk(decode_step: Callable) -> Callable:
 
 #: (what a config asks for, the reference module the port lacks for it)
 _MISSING = (
-    (lambda c: c.family in ("ssm", "hybrid") or any(
-        k in ("mamba", "mlstm", "slstm") for k in c.pattern),
-     "SSM blocks (repro/models/ssm.py)"),
     (lambda c: c.family == "encdec" or getattr(c, "n_enc_layers", 0),
      "the encoder-decoder family (repro/models/encdec.py)"),
     (lambda c: getattr(c, "frontend", "") not in ("", "vision_stub"),
@@ -85,12 +83,12 @@ _MISSING = (
 class ModelAPI:
     def __init__(self, cfg, device=None):
         missing = [what for test, what in _MISSING if test(cfg)]
-        if missing or cfg.family not in ("dense", "moe"):
+        if missing or cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense and MoE decoder-only "
-                f"models (RMSNorm, SwiGLU or GELU, full or sliding-window GQA "
-                f"or MLA, tied or untied head, vision patches); not yet "
-                f"ported: "
+                f"{cfg.name}: the port serves dense, MoE, SSM and hybrid "
+                f"decoder-only models (RMSNorm, SwiGLU or GELU, full or "
+                f"sliding-window GQA or MLA, Mamba, mLSTM and sLSTM blocks, "
+                f"tied or untied head, vision patches); not yet ported: "
                 f"{', '.join(missing) or 'family ' + repr(cfg.family)}")
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -34,11 +34,13 @@ import numpy as np
 import torch
 
 from ..core.backend import sme_apply
-from .blocks import block_decode, block_prefill, init_block_cache
+from .blocks import SSM_KINDS, block_decode, block_prefill, init_block_cache
 from .common import linear, rmsnorm
+from .ssm import mamba_dims, mlstm_dims
 
-__all__ = ["compute_dtype", "layer_slots", "init_layer", "lm_init",
-           "lm_init_cache", "lm_prefill", "lm_decode_step", "model_layers"]
+__all__ = ["compute_dtype", "layer_slots", "ssm_mix_spec", "ssm_leaf",
+           "init_layer", "lm_init", "lm_init_cache", "lm_prefill",
+           "lm_decode_step", "model_layers"]
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -70,13 +72,73 @@ def _lin(rng, d_in, d_out, bias=False, std=None):
     return p
 
 
-def init_layer(cfg, rng: np.random.Generator, use_moe: bool = False) -> dict:
+def _normal(rng, shape, std) -> np.ndarray:
+    return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+
+def ssm_mix_spec(cfg, kind: str) -> list:
+    """(leaf, shape, init, std) of a recurrent mixer's params in draw
+    order, with the reference's ``mamba_init``/``mlstm_init``/
+    ``slstm_init`` distributions: ``init`` is ``linear`` (a ``{"w"}``
+    leaf, std 1/sqrt(fan_in) where ``std`` is None), ``normal``,
+    ``zeros`` or ``ones``."""
+    d = cfg.d_model
+    if kind == "mamba":
+        d_in, dt_rank, n = mamba_dims(cfg)
+        return [("in_proj", (d, 2 * d_in), "linear", None),
+                ("conv_w", (cfg.ssm_conv, d_in), "normal", 0.2),
+                ("conv_b", (d_in,), "zeros", None),
+                ("x_proj", (d_in, dt_rank + 2 * n), "linear", None),
+                ("dt_w", (dt_rank, d_in), "linear", None),
+                ("dt_bias", (d_in,), "normal", 0.1),
+                ("A_log", (d_in, n), "normal", 0.5),
+                ("D", (d_in,), "ones", None),
+                ("out_proj", (d_in, d), "linear", None)]
+    if kind == "mlstm":
+        d_in, nh, dh = mlstm_dims(cfg)
+        return [("up", (d, 2 * d_in), "linear", None),
+                *((k, (nh, dh, dh), "normal", dh ** -0.5) for k in "qkv"),
+                ("ig", (d_in, nh), "linear", 0.02),
+                ("fg", (d_in, nh), "linear", 0.02),
+                ("norm_w", (d_in,), "ones", None),
+                ("down", (d_in, d), "linear", None)]
+    nh = cfg.n_heads
+    dh, f = d // nh, (4 * d) // 3
+    return [("wx", (d, 4 * d), "linear", None),
+            ("r", (4, nh, dh, dh), "normal", 0.5 / dh ** 0.5),
+            ("b", (4, d), "zeros", None),
+            ("ff_wi", (d, f), "linear", None),
+            ("ff_wg", (d, f), "linear", None),
+            ("ff_wo", (f, d), "linear", None)]
+
+
+def ssm_leaf(rng: np.random.Generator, shape, init: str, std):
+    """One leaf of :func:`ssm_mix_spec`, drawn from ``rng``."""
+    if init == "linear":
+        return _lin(rng, *shape, std=std)
+    if init == "normal":
+        return _normal(rng, shape, std)
+    return (np.zeros if init == "zeros" else np.ones)(shape, np.float32)
+
+
+def _ssm_mix(cfg, rng: np.random.Generator, kind: str) -> dict:
+    """A recurrent mixer's f32 numpy params (:func:`ssm_mix_spec`)."""
+    return {name: ssm_leaf(rng, shape, init, std)
+            for name, shape, init, std in ssm_mix_spec(cfg, kind)}
+
+
+def init_layer(cfg, rng: np.random.Generator, use_moe: bool = False,
+               kind: str = "attn") -> dict:
     """One layer's f32 numpy params, with the reference init's
     distributions: N(0, 1/fan_in) weights (the router's std 0.02), zero
     biases, unit norms; a GELU MLP has biased ``wi``/``wo`` and no
-    ``wg``; MoE experts are stacked [E, D, F] (``wo`` [E, F, D])."""
+    ``wg``; MoE experts are stacked [E, D, F] (``wo`` [E, F, D]); a
+    recurrent ``kind`` takes :func:`_ssm_mix`'s mixer; no ``norm2``/``mlp``
+    without an MoE or a ``d_ff``."""
     d, hd, h, kv, ff = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    if cfg.attn_type == "mla":
+    if kind in SSM_KINDS:
+        mix = _ssm_mix(cfg, rng, kind)
+    elif cfg.attn_type == "mla":
         dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
         mix = {"kv_down": _lin(rng, d, cfg.kv_lora + dr),
                "kv_up": _lin(rng, cfg.kv_lora, h * (dn + dv)),
@@ -91,6 +153,7 @@ def init_layer(cfg, rng: np.random.Generator, use_moe: bool = False) -> dict:
                "k": _lin(rng, d, kv * hd, cfg.qkv_bias),
                "v": _lin(rng, d, kv * hd, cfg.qkv_bias),
                "o": _lin(rng, h * hd, d)}
+    layer = {"norm1": {"w": np.ones(d, np.float32)}, "mix": mix}
     if use_moe:
         e, f = cfg.n_experts, cfg.expert_dff
 
@@ -103,13 +166,14 @@ def init_layer(cfg, rng: np.random.Generator, use_moe: bool = False) -> dict:
             fs = f * cfg.n_shared_experts
             mlp["shared"] = {"wi": _lin(rng, d, fs), "wg": _lin(rng, d, fs),
                              "wo": _lin(rng, fs, d)}
+    elif not ff:
+        return layer
     elif cfg.act == "swiglu":
         mlp = {"wi": _lin(rng, d, ff), "wg": _lin(rng, d, ff),
                "wo": _lin(rng, ff, d)}
     else:
         mlp = {"wi": _lin(rng, d, ff, True), "wo": _lin(rng, ff, d, True)}
-    return {"norm1": {"w": np.ones(d, np.float32)}, "mix": mix,
-            "norm2": {"w": np.ones(d, np.float32)}, "mlp": mlp}
+    return {**layer, "norm2": {"w": np.ones(d, np.float32)}, "mlp": mlp}
 
 
 def lm_init(cfg, rng: np.random.Generator) -> dict:
@@ -125,7 +189,8 @@ def lm_init(cfg, rng: np.random.Generator) -> dict:
     nf = cfg.first_dense_layers
     for i in range(nf):
         params[f"first{i}"] = init_layer(cfg, rng)
-    params["blocks"] = [init_layer(cfg, rng, moe) for _, moe in slots[nf:]]
+    params["blocks"] = [init_layer(cfg, rng, moe, kind)
+                        for kind, moe in slots[nf:]]
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": rng.standard_normal(
             (cfg.d_model, cfg.vocab), dtype=np.float32) * np.float32(0.02)}

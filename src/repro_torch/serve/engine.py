@@ -2,8 +2,9 @@
 
 Checked against ``repro/serve/engine.py`` (DESIGN.md §6, §11, §12) without
 its mesh and encoder-decoder branches: the port serves the decoder-only
-dense and MoE families (full and sliding-window GQA layers, MLA, leading
-dense layers, the vision frontend) on one device, from a param tree or
+dense, MoE, SSM and hybrid families (full and sliding-window GQA layers,
+MLA, leading dense layers, Mamba, mLSTM and sLSTM layers, the vision
+frontend) on one device, from a param tree or
 from a compiled ``.smez`` artifact (:meth:`ServeEngine.from_artifact`).
 ``bm`` scopes ``core.backend.use_block`` around every model call (v3's
 decode threshold).
@@ -43,17 +44,20 @@ decode threshold).
   spans ``s_max``) the draft writes its K/V in place, only at positions
   >= each row's ``pos``; attention reads positions ``<= pos`` and every
   step writes its position before reading it, so no draft value is ever
-  read.  A *side* leaf (a sliding-window ring shorter than ``s_max``)
-  would lose positions ``pos + d - W`` that the verify step still reads,
-  so it is copied before the draft and put back after it (the reference
-  drafts on a throwaway copy of every leaf).
+  read.  A *side* leaf (a sliding-window ring shorter than ``s_max``,
+  or a recurrent state: Mamba's conv window and ``h``, mLSTM's and
+  sLSTM's) would lose what the verify step still reads, so it is copied
+  before the draft and put back after it (the reference drafts on a
+  throwaway copy of every leaf).
 * **Prefix cache** (``prefix_cache``): at every ``chunk_len`` boundary a
   prefilling row's cache is snapshotted: its paged leaves into refcounted
   device page pools (``serve/paged.py`` keeps the books), its side leaves
   whole into a side-slab row of the entry; a later prompt with the same
   token ids restores both instead of recomputing.  Leaves are classified
   by probing ``api.init_cache`` on the ``meta`` device at ``s_max`` and
-  ``2 * s_max`` (MLA's compressed ``c``/``k_pe`` are paged); where a leaf
+  ``2 * s_max`` (MLA's compressed ``c``/``k_pe`` are paged; a model of
+  recurrent layers alone, xLSTM, has no paged leaf: its snapshots are
+  side rows, their pages only the index's bookkeeping); where a leaf
   fits neither class the engine serves without the cache, as the
   reference does.
 * **Preemption** of a still-prefilling row, per-request temperature,
@@ -287,7 +291,8 @@ class ServeEngine:
             "prefix_side_rows": counter(
                 "serve_prefix_side_snapshots_total",
                 "prefix snapshots that also wrote a side-slab row (the "
-                "side leaves: sliding-window rings shorter than s_max)"),
+                "side leaves: sliding-window rings shorter than s_max, "
+                "recurrent states)"),
             "prefix_evictions": counter(
                 "serve_prefix_evictions_total",
                 "prefix entries evicted (LRU) to free pages or slots"),
@@ -354,7 +359,7 @@ class ServeEngine:
         """Split the cache leaves into *paged* (only the sequence dim 1
         scales with ``s_max``: K/V over every position) and *side* (shape
         independent of ``s_max``: a sliding-window ring of ``W < s_max``
-        slots), probing ``api.init_cache`` on the ``meta`` device at
+        slots, a recurrent state), probing ``api.init_cache`` on the ``meta`` device at
         ``s_max`` and ``2 * s_max``; None when a leaf fits neither.  The
         reference also probes at ``page_tokens`` and disables its prefix
         cache when a side leaf shrinks there (its side slab is an

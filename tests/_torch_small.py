@@ -38,9 +38,27 @@ def small_models(backend="all", seed=1):
 
 _FAMILY = {}
 
+#: the recurrent family's CPU size: the reference's own SME-eligible
+#: override (128 wide, so the projections pack; experts of 128)
+RECURRENT = {
+    "jamba-v0.1-52b": dict(d_model=128, d_ff=256, vocab=256, expert_dff=128,
+                           dtype="float32"),
+    "xlstm-1.3b": dict(d_model=128, d_ff=0, vocab=256, dtype="float32"),
+}
+#: the names of the reference's tuple states, in its order
+STATE_NAMES = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "h", "m")}
+
+
+def ref_state(kind, state):
+    """A reference recurrent state as the port's {name: numpy array}."""
+    if isinstance(state, dict):
+        return {k: np.asarray(v) for k, v in state.items()}
+    return {k: np.asarray(v) for k, v in zip(STATE_NAMES[kind], state)}
+
 
 def family_models(arch, seed=3, **over):
-    """One arch of the MoE/vision slice at ``ref_scale_down(**over)``:
+    """One arch of the MoE, vision or recurrent slice at
+    ``ref_scale_down(**over)``:
     reference config/API/params (dense, and packed for v1, v2 and v3 from
     one compression), the port's API and the same params carried across,
     on the CPU.  Cached per (arch, seed, overrides)."""

@@ -385,3 +385,36 @@ def test_reference_moe_artifact_serves_reference_tokens(arch, tmp_path):
     wi = eng.params["blocks"][0]["mlp"]["wi"]
     assert tuple(wi["sme_codes"].shape[:1]) == (4,)
     assert _port_tokens(eng) == want
+
+
+def test_reference_xlstm_artifact_serves_reference_tokens(tmp_path):
+    """A reference-written ``.smez`` of a small xlstm-1.3b tree (no MLP
+    half, 3-D q/k/v and r leaves dense, every projection packed) boots
+    through ``from_artifact`` and serves the reference model-API loop's
+    greedy tokens (one-shot: mLSTM's chunkwise prefill, then its
+    recurrent decode)."""
+    import types
+    from repro.configs import ARCHS as REF_ARCHS, scale_down as ref_sd
+    from repro.models import build_model as ref_build
+    from repro_torch.configs import ARCHS, scale_down
+    from repro_torch.models.model import build_model
+    from _torch_small import RECURRENT
+    over = RECURRENT["xlstm-1.3b"]
+    api = ref_build(ref_sd(REF_ARCHS["xlstm-1.3b"], **over))
+    dense = jax.tree.map(np.asarray, api.init_params(jax.random.key(3)))
+    dense["embed"]["w"] = dense["embed"]["w"] * np.float32(0.05)
+    path = tmp_path / "xlstm.smez"
+    ref_compile(dense, out=path, backend="v3", error_budget=0.06,
+                extra=dict(EXTRA, arch="xlstm-1.3b"))
+    params, plan, _ = ref_load(path)
+    assert "blocks/slot0/mix/up/w" in plan.layers
+    assert "blocks/slot7/mix/ff_wi/w" in plan.layers
+    want = _reference_greedy(types.SimpleNamespace(api=api),
+                             jax.tree.map(np.asarray, params), "xla")
+    port_api = build_model(scale_down(ARCHS["xlstm-1.3b"], **over),
+                           device="cpu")
+    eng = ServeEngine.from_artifact(port_api, path, slots=3, s_max=S_MAX,
+                                    device="cpu", chunk_len=S_MAX)
+    assert eng.stats["backend"] == "v3"
+    assert "mlp" not in eng.params["blocks"][0]
+    assert _port_tokens(eng) == want

@@ -268,3 +268,35 @@ def test_moe_tree_plan_and_pack_byte_equal(arch, backend):
 def _leaves(tree):
     import jax
     return jax.tree_util.tree_leaves_with_path(tree)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-v0.1-52b"])
+def test_recurrent_tree_plan_and_pack_byte_equal(arch, backend="v3"):
+    """The recurrent family's trees through the port's layout and back
+    (``to_reference(n_slots=8)``): the v3 plan JSON (draft depths
+    included) is the reference's byte for byte, with Mamba's, mLSTM's and
+    sLSTM's projections planned and their 3-D mixer leaves (q/k/v, r) and
+    gates left dense; the planned conversion packs the same bytes."""
+    import jax
+    from repro.configs import ARCHS as REF_ARCHS, scale_down as ref_sd
+    from repro.models import build_model as ref_build
+    from repro_torch.convert import from_reference, to_reference
+    from _torch_small import RECURRENT
+    cfg = ref_sd(REF_ARCHS[arch], **RECURRENT[arch])
+    tree = jax.tree.map(np.asarray,
+                        ref_build(cfg).init_params(jax.random.key(4)))
+    ours = to_reference(from_reference(tree, device="cpu"), n_slots=8)
+    ref = RPL.plan_model(tree, error_budget=0.06, backend=backend)
+    plan = PPL.plan_model(ours, error_budget=0.06, backend=backend)
+    assert plan.to_json() == ref.to_json()
+    planned = {k.split("/")[3] for k in plan.layers if k.startswith("blocks")}
+    assert planned >= ({"in_proj", "out_proj"} if arch.startswith("jamba")
+                       else {"up", "down", "wx", "ff_wi", "ff_wo"})
+    r = RI.convert_params_to_sme(tree, plan=plan)
+    p = PI._convert(ours, plan=plan)
+    ra, pa = _leaves(r), _leaves(p)
+    assert [k for k, _ in ra] == [k for k, _ in pa]
+    for (k, a), (_, b) in zip(ra, pa):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert a.tobytes() == b.tobytes(), k

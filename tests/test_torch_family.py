@@ -224,7 +224,6 @@ def test_packed_head_dispatch_matches_reference_kernel():
 
 
 @pytest.mark.parametrize("arch,missing", [
-    ("jamba-v0.1-52b", "SSM"), ("xlstm-1.3b", "SSM"),
     ("whisper-medium", "encoder-decoder"), ("whisper-medium", "audio")])
 def test_model_api_names_what_is_not_ported(arch, missing):
     with pytest.raises(NotImplementedError, match=missing):
