@@ -33,7 +33,7 @@
    a pool of :data:`PACK_WORKERS` host processes at the lowest CPU
    priority draws and packs the weights of phases 6-8 (gemma3-12b, then
    mixtral-8x7b, deepseek-v2-lite-16b and llava-next-34b, then
-   xlstm-1.3b and jamba-v0.1-52b), beside
+   xlstm-1.3b and jamba-v0.1-52b, then whisper-medium), beside
    the card tests and phases 2-5, and is paused for every timed launch,
    profiled window, serving and engine run; each later phase waits for
    its model.
@@ -156,7 +156,30 @@
    without (equal tokens), two prompts sharing 256 tokens (a hit that
    restores the recurrent side rows, and for Jamba the attention's
    pages); every recurrent leaf classified side, Jamba's K/V paged.
-9. Prints the compile, gemma, slice and recurrent readings as JSON, the
+9. The encoder-decoder family at full width (``encdec_phase``):
+   whisper-medium (d_model 1024, 16 heads MHA, d_ff 4096, vocab 51865,
+   LayerNorm, GELU, sinusoidal positions), depth cut from 24 + 24 to
+   :data:`WHISPER_LAYERS` encoder and as many decoder layers, every
+   linear and the head packed to v1, v2 and v3 by the pool (0.23 B
+   weights at 6 + 6, 53 M of them in the head).  Kernel rows on
+   the model's own operands (1024x1024, 1024x4096, 4096x1024 and the
+   ragged head 1024x51865) at M = 4 and 512, as in phase 6; the head at
+   M = 4 through ``decode_walk`` v2 == v3 bitwise and within 5e-5 of the
+   f64 oracle over every column.  One-shot serving (4 slots, s_max 2048)
+   of 4 prompts of 400-600 tokens behind the audio stub's zero frames,
+   one prefill per request, under auto (v2) and v3: only the backend's
+   kernels, 6 per encoder layer, 10 per decoder layer and the head per
+   prefill pass, 8 per decoder layer and the head per decode pass, equal
+   tokens; the prefill's ms split into encoder and decoder; f32 prefill
+   logits v1 == v2 == v3 bitwise and within 1e-3 of the ``torch``
+   backend and of the v2 and v3 plain versions; a profiled window (1
+   prefill, 5 decode steps).  The engine on v3 with spec (depth from the
+   decoder's plane occupancy) and without: every cache leaf paged, equal
+   tokens, equal to the one-shot run's; and a request admitted into the
+   slot a longer one used (its stale cross keys past the source) serves
+   a fresh engine's tokens.
+10. Prints the compile, gemma, slice, recurrent and encdec readings as
+   JSON, the
    kernels JSON line (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
    M = 8 in the top-level keys, every M a kernel ran at under ``at_m``;
    v3-decode adds ``draft_depth``, the draft passes' ``draft_launches``
@@ -165,7 +188,8 @@
    ``gemma_launches`` gemma's serving and engine runs, ``gemma`` its
    kernel rows per shape and M, per call; ``slice_launches`` and
    ``slice`` the same for phase 7, ``recurrent_launches`` and
-   ``recurrent`` for phase 8; every number measured in this run but
+   ``recurrent`` for phase 8, ``encdec_launches`` and ``encdec`` for
+   phase 9; every number measured in this run but
    ``bound_ms``), the card line and, last, ``{"ok": true,
    "device": {...}}``.  Any failed check raises first; the pool's
    processes are stopped either way.
@@ -723,7 +747,8 @@ def serve_run(api, params, prompts, backend, card, route=None, label=None,
     kernels they launch), by default :data:`RUNS`' entry for ``backend``;
     ``engine_kw``: the engine's settings (default :data:`ONE_SHOT`);
     ``decode_skip``: packed linears a decode pass does not launch (MLA's
-    ``kv_up``, read as a dequantized matrix at decode)."""
+    ``kv_up``, read as a dequantized matrix at decode; an enc-dec model's
+    encoder and cross K/V projections, which run at prefill only)."""
     from repro_torch.serve import Request, ServeEngine
     want, mine = route or RUNS[backend]
     label = label or backend
@@ -759,7 +784,8 @@ def serve_run(api, params, prompts, backend, card, route=None, label=None,
     check(all(launches[k] > 0 for k in mine),
           f"{label}: a kernel of the path never launched: {launches}")
     if "sme_spmm_planes_decode" in mine:
-        n3 = len(_v3_params(params))               # v3 linears per pass
+        # v3 linears of a decode pass
+        n3 = len(_v3_params(params)) - decode_skip
         check(launches["sme_spmm_planes_decode"]
               >= n3 * stats["decode_steps"],
               "v3 decode kernel does not cover every decode step")
@@ -916,13 +942,15 @@ def _v3_params(tree):
     return out
 
 
-def choose_spec_depth(params, coverage=DRAFT_COVERAGE):
-    """One draft depth for the whole model from its plane occupancy: the
-    smallest k whose top k planes per tile group keep ``coverage`` of the
-    magnitude mass (set bits x 2^shift, what truncation drops), capped
-    below the deepest group so the draft always truncates.  Returns (k,
-    deepest, kept mass share, kept plane share)."""
-    linears = _v3_params(params["blocks"])
+def choose_spec_depth(params, coverage=DRAFT_COVERAGE, layers="blocks"):
+    """One draft depth for the whole model from its plane occupancy (the
+    linears under ``params[layers]``: an enc-dec model's ``dec``, which
+    the draft runs): the smallest k whose top k planes per tile group
+    keep ``coverage`` of the magnitude mass (set bits x 2^shift, what
+    truncation drops), capped below the deepest group so the draft always
+    truncates.  Returns (k, deepest, kept mass share, kept plane
+    share)."""
+    linears = _v3_params(params[layers])
     dev = linears[0]["sme_v3_planes"].device
     lut = torch.tensor([bin(i).count("1") for i in range(256)],
                        dtype=torch.float64, device=dev)
@@ -2870,6 +2898,397 @@ def recurrent_phase(dev, card, key, packed):
     return rows, launches, out
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder family: whisper-medium at full width
+
+#: whisper-medium's depth here, the same for both stacks: 6 of the
+#: published model's 24 + 24.  At 24 + 24 (0.76 B weights packed by the
+#: pool) the script took 762 s on one card host and 1,185 s of its 1,200 s
+#: limit on a slower one, whose packing pool finished 80 s after Jamba's
+#: and whose phase 9 took 104 s; 6 + 6 packs 0.23 B
+WHISPER_LAYERS = 6
+#: the published depth of each stack, for the log
+WHISPER_DEPTH = 24
+ENCDEC_ONE_SHOT = dict(slots=4, s_max=2048, chunk_len=2048,
+                       prefix_cache=False)
+#: the engine: one request per admission window, whole prompts (an enc-dec
+#: model has no chunked prefill and no prefix cache)
+ENCDEC_ENGINE = dict(slots=4, s_max=2048, spec_len=4)
+#: whisper's kernel rows: (label, weight, K, N); the head's 51,865
+#: columns are 405.2 column tiles
+ENCDEC_ROWS = (("q 1024x1024", "e0/attn/q", 1024, 1024),
+               ("wi 1024x4096", "e0/mlp/wi", 1024, 4096),
+               ("wo 4096x1024", "e0/mlp/wo", 4096, 1024),
+               ("head 1024x51865", "head/0", 1024, 51865))
+#: the kernel rows' M: the one-shot decode batch and a prefill block
+ENCDEC_MS = (4, 512)
+
+
+def encdec_config():
+    """whisper-medium, both stacks :data:`WHISPER_LAYERS` deep."""
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS["whisper-medium"],
+                               n_layers=WHISPER_LAYERS,
+                               n_enc_layers=WHISPER_LAYERS)
+
+
+def encdec_linears(cfg):
+    """(name, (K, N), biased) of every packed weight but the head: per
+    encoder layer ``e{i}/attn/{q,k,v,o}`` and ``e{i}/mlp/{wi,wo}``, per
+    decoder layer ``d{i}/self/...``, ``d{i}/cross/...`` and
+    ``d{i}/mlp/...`` (self q/k/v and cross q biased with ``qkv_bias``,
+    the GELU MLP's both)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    bias = cfg.qkv_bias
+
+    def attn(prefix, kv, cross):
+        return [(f"{prefix}/q", (d, qd), bias),
+                (f"{prefix}/k", (d, kv), bias and not cross),
+                (f"{prefix}/v", (d, kv), bias and not cross),
+                (f"{prefix}/o", (qd, d), False)]
+
+    def mlp(prefix):
+        return [(f"{prefix}/wi", (d, ff), True),
+                (f"{prefix}/wo", (ff, d), True)]
+    out = []
+    for i in range(cfg.n_enc_layers):
+        out += attn(f"e{i}/attn", kvd, False) + mlp(f"e{i}/mlp")
+    for i in range(cfg.n_layers):
+        out += (attn(f"d{i}/self", kvd, False) + attn(f"d{i}/cross", qd, True)
+                + mlp(f"d{i}/mlp"))
+    return out
+
+
+def encdec_tasks(offset):
+    """The pool's tasks for whisper, largest first: every packed weight
+    (std 1/sqrt(K)) and the head, for v1, v2 and v3."""
+    cfg = encdec_config()
+    named = [(name, shape, shape[0] ** -0.5)
+             for name, shape, _ in encdec_linears(cfg)]
+    # one task: 53 M weights, under the slab size of the other heads
+    named.append(("head/0", (cfg.d_model, cfg.vocab), HEAD_STD))
+    tasks = [(name, SEED * 1000 + offset + i, shape, std, "all")
+             for i, (name, shape, std) in enumerate(named)]
+    return sorted(tasks, key=lambda t: -t[2][0] * t[2][1])
+
+
+def encdec_params(dev, cfg, got):
+    """The packed whisper model on the card from the pool's results: zero
+    biases, LayerNorms of unit weight and zero bias, the embedding drawn
+    on the card; and host copies of the kernel rows' weights."""
+    from repro_torch.core.integrate import to_torch
+    rows = {name: got[name] for _, name, _, _ in ENCDEC_ROWS}
+    d = cfg.d_model
+    norm = {"w": np.ones(d, np.float32), "b": np.zeros(d, np.float32)}
+    tree = {"enc_norm": norm, "dec_norm": norm, "enc": [], "dec": []}
+    layers = {}
+    for name, (_, n), biased in encdec_linears(cfg):
+        layer, part, leaf = name.split("/")
+        p = {"w": got.pop(name)}
+        if biased:
+            p["b"] = np.zeros(n, np.float32)
+        layers.setdefault(layer, {}).setdefault(part, {})[leaf] = p
+    for i in range(cfg.n_enc_layers):
+        tree["enc"].append({"norm1": norm, "norm2": norm, **layers[f"e{i}"]})
+    for i in range(cfg.n_layers):
+        tree["dec"].append({"norm1": norm, "norm2": norm, "norm3": norm,
+                            **layers[f"d{i}"]})
+    tree["lm_head"] = {"w": got.pop("head/0")}
+    del layers
+    check(not got, f"{cfg.name}: packed weights left over: {sorted(got)}")
+    params = to_torch(tree, dev)
+    del tree
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params["embed"] = {"w": torch.randn((cfg.vocab, d), generator=gen,
+                                        device=dev) * EMBED_STD}
+    torch.cuda.synchronize()
+    return params, rows
+
+
+def encdec_workload(vocab):
+    """4 greedy requests of 400-600-token prompts, 16 new tokens."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED + 17)
+    prompts = [rng.integers(0, vocab, int(n))
+               for n in rng.integers(*SLICE_PROMPTS, size=4)]
+    return prompts, [Request(rid=i, prompt=p, max_new_tokens=16)
+                     for i, p in enumerate(prompts)]
+
+
+def head_exact(dev, params, host, cfg, card):
+    """The ragged head (N = 51,865) through ``decode_walk`` at M = 4 (the
+    slots): f32 logits of v2 and v3 bitwise equal, each within
+    :data:`TOL_ORACLE` of the f64 oracle on the whole dequantized head."""
+    from repro_torch.core.backend import sme_apply
+    from repro_torch.core.sme import sme_matmul_ref_np
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    x = torch.randn((ENCDEC_ONE_SHOT["slots"], cfg.d_model), generator=gen,
+                    device=dev)
+    head = params["lm_head"]["w"]
+    y = {be: sme_apply(x, head, be, out_dtype=torch.float32)
+         for be in ("v2", "v3")}
+    check(bool(torch.equal(y["v2"], y["v3"])),
+          f"head: v2 and v3 logits differ ({mismatch(y['v2'], y['v3'])})")
+    ref = sme_matmul_ref_np(x.cpu().numpy(), oracle_weight(host, cfg.vocab))
+    got = y["v2"].cpu().numpy()
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    n = cfg.vocab % 128 or 128              # the last column tile's
+    tail = float(np.abs(got[:, -n:] - ref[:, -n:]).max() / np.abs(ref).max())
+    print(f"encdec: head {cfg.d_model}x{cfg.vocab} at M = {x.shape[0]}: v2 "
+          f"== v3 bitwise; oracle rel {rel:.2e} over every column, "
+          f"{tail:.2e} over the last column tile's {n} (tolerance "
+          f"{TOL_ORACLE:.0e}) | {card}", flush=True)
+    check(got.shape == ref.shape and rel <= TOL_ORACLE,
+          f"head: oracle rel {rel}")
+    return rel
+
+
+def prefill_split(api, params, prompt, card):
+    """ms of one request's prefill under v2 and v3 and of the encoder
+    inside the same call (``encdec_encode`` wrapped between two
+    synchronizations): medians of 3 calls after a warm one."""
+    from repro_torch.models import encdec as ed
+    dev, cfg = api.device, api.cfg
+    toks = np.asarray(prompt)[None]
+    frames = torch.zeros((1, max(len(prompt), 2), cfg.d_model),
+                         dtype=torch.bfloat16, device=dev)
+    encode, spans = ed.encdec_encode, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = encode(*a, **kw)
+        torch.cuda.synchronize()
+        spans.append(1e3 * (time.perf_counter() - t0))
+        return y
+    out = {}
+    ed.encdec_encode = timed
+    try:
+        for be in ("v2", "v3"):
+            calls = []
+            with quiet():
+                for _ in range(4):
+                    spans.clear()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    api.prefill(params, toks, s_max=2048, frames=frames,
+                                backend=be)
+                    torch.cuda.synchronize()
+                    calls.append((1e3 * (time.perf_counter() - t0),
+                                  sum(spans)))
+            full = statistics.median(c[0] for c in calls[1:])
+            enc = statistics.median(c[1] for c in calls[1:])
+            out[be] = dict(prefill_ms=full, encoder_ms=enc,
+                           decoder_ms=full - enc)
+            print(f"encdec: {be} prefill of {len(prompt)} tokens over "
+                  f"{frames.shape[1]} frames {full:.1f} ms, of which the "
+                  f"encoder {enc:.1f} ms and the decoder and head "
+                  f"{full - enc:.1f} ms (inside the same calls) | {card}",
+                  flush=True)
+    finally:
+        ed.encdec_encode = encode
+    return out
+
+
+def encdec_logits(api32, params, prompt, label):
+    """f32 prefill logits of one request (seeded random frames) under v1,
+    v2 and v3 (bitwise equal), against the ``torch`` backend and the v2
+    and v3 plain versions (within ``TOL_LOGITS["float32"]``).  Returns the
+    relative differences."""
+    dev, d = api32.device, api32.cfg.d_model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    frames = torch.randn((1, len(prompt), d), generator=gen, device=dev)
+    toks = np.asarray(prompt)[None]
+
+    def logits(be, plain=False):
+        with plain_kernels(blocks=True) if plain else \
+                contextlib.nullcontext():
+            return api32.prefill(params, toks, s_max=2048, frames=frames,
+                                 backend=be)[0]
+    lk = {be: logits(be) for be in ("v1", "v2", "v3")}
+    for be in ("v1", "v3"):
+        if not torch.equal(lk["v2"], lk[be]):
+            again = {b: torch.equal(logits(b), lk[b]) for b in ("v2", be)}
+            check(False, f"{label}: f32 prefill logits differ between v2 "
+                  f"and {be} ({mismatch(lk['v2'], lk[be])}; a second call "
+                  f"reproduces v2: {again['v2']}, {be}: {again[be]})")
+    check(bool(torch.isfinite(lk["v2"]).all())
+          and lk["v2"].shape == (1, api32.cfg.vocab),
+          f"{label}: logits non-finite or misshapen")
+    rel = {}
+    for name, other in (("torch", logits("torch")),
+                        ("v2 plain", logits("v2", True)),
+                        ("v3 plain", logits("v3", True))):
+        rel[name] = float((lk["v2"] - other).abs().max()
+                          / other.abs().max())
+        check(rel[name] <= TOL_LOGITS["float32"],
+              f"{label}: f32 logits vs {name} rel {rel[name]}")
+        check(int(lk["v2"].argmax()) == int(other.argmax()),
+              f"{label}: greedy token differs from {name}")
+    print(f"{label}: f32 prefill logits (1 x {toks.shape[1]} tokens over "
+          f"as many random frames) v1 == v2 == v3 bitwise; max rel diff vs "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (tolerance {TOL_LOGITS['float32']:.0e}); same greedy token",
+          flush=True)
+    return rel
+
+
+def reused_slot(api, params, prompts, card):
+    """R6 on the card: the longest prompt served first (2 tokens), then
+    the shortest in the slot it used, whose cross K/V keep the first's
+    keys past the second's source; the second's tokens equal a fresh
+    engine's.  Returns (tokens, launches per kernel)."""
+    from repro_torch.serve import Request, ServeEngine
+    long_, short = max(prompts, key=len), min(prompts, key=len)
+    runs = {}
+    zero_counts()
+    for name, first in (("reused", long_), ("fresh", None)):
+        eng = ServeEngine(api, params, backend="v3", device=api.device,
+                          **ENCDEC_ONE_SHOT)
+        if first is not None:
+            r0 = Request(rid=0, prompt=first, max_new_tokens=2)
+            eng.run([r0])
+            check(r0.outcome == "completed", "encdec: first request failed")
+        req = Request(rid=1, prompt=short, max_new_tokens=16)
+        eng.run([req])
+        check(req.outcome == "completed" and eng._src[0] == len(short),
+              f"encdec: the {name} request did not run in slot 0")
+        stale = eng.caches[0]["cross"]["k"][0, len(short):len(long_)]
+        runs[name] = (req.out_tokens, bool(stale.abs().sum() > 0))
+        del eng
+    launches = {name: fn.launches for name, fn in wrappers().items()}
+    check(runs["reused"][1] and not runs["fresh"][1],
+          "encdec: the reused slot holds no stale cross keys")
+    check(runs["reused"][0] == runs["fresh"][0],
+          "encdec: a slot reused after a longer request served other "
+          "tokens than a fresh one (R6)")
+    print(f"encdec: a {len(short)}-token request in the slot a "
+          f"{len(long_)}-token one used (its stale cross keys there, past "
+          f"the source) serves a fresh engine's tokens | {card}", flush=True)
+    return runs["fresh"][0], launches
+
+
+def encdec_phase(dev, card, packed):
+    """whisper-medium at full width: its kernel rows; the ragged head
+    exact; one-shot serving under auto (v2) and v3 (equal tokens, 6
+    launches per encoder layer, 10 per decoder layer and the head per
+    prefill pass, 8 per decoder layer and the head per decode pass); the
+    prefill split into encoder and decoder; f32 prefill
+    logits; a profiled window; the engine on v3 with spec and without
+    (equal tokens, equal to the one-shot run's); a reused slot.  Returns
+    the kernel rows, launches per kernel and readings."""
+    from repro_torch.core.integrate import sme_operand_bytes, to_torch
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    cfg = encdec_config()
+    label = f"encdec[{cfg.name}]"
+    print(f"{label}: full width (d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"MHA, d_ff {cfg.d_ff}, vocab {cfg.vocab}, LayerNorm, GELU, "
+          f"sinusoidal positions); depth cut from {WHISPER_DEPTH} + "
+          f"{WHISPER_DEPTH} layers to {cfg.n_enc_layers} encoder and "
+          f"{cfg.n_layers} decoder layers", flush=True)
+    got, pack_s, wait_s = packed
+    params, rows_host = encdec_params(dev, cfg, got)
+    del got
+    ob = sme_operand_bytes(params)
+    per_pass = packed_linears(params)
+    per_decode = 8 * cfg.n_layers + 1
+    check(per_pass == 6 * cfg.n_enc_layers + 10 * cfg.n_layers + 1,
+          f"{label}: {per_pass} packed linears")
+    skip = per_pass - per_decode
+    print(f"{label}: {ob['weights']} packed weights, {per_pass} launches per "
+          f"prefill pass, {per_decode} per decode pass; v1 "
+          f"{ob['v1'] / ob['weights']:.4f}, v2 {ob['v2'] / ob['weights']:.4f}"
+          f" and v3 {ob['v3'] / ob['weights']:.4f} B per weight; packed on "
+          f"the host by the pool: {pack_s:.1f}s from its start, "
+          f"{wait_s:.1f}s waited here; card memory "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB | {card}",
+          flush=True)
+    rows = kernel_rows(dev, [
+        (f"whisper {lab}", to_torch(rows_host[name], dev),
+         oracle_weight(rows_host[name], min(N, ORACLE_COLS)), K, N,
+         ENCDEC_MS) for lab, name, K, N in ENCDEC_ROWS], card, SEED + 18)
+    out = {"weights": ob["weights"], "pack_s": pack_s, "pack_wait_s": wait_s,
+           "card_gib": torch.cuda.memory_allocated() / 2 ** 30,
+           "launches_per_prefill_pass": per_pass,
+           "launches_per_decode_pass": per_decode,
+           "layers": [cfg.n_enc_layers, cfg.n_layers]}
+    out["head_oracle_rel"] = head_exact(dev, params, rows_host["head/0"],
+                                        cfg, card)
+    del rows_host
+    api = build_model(cfg, device=dev)
+    prompts, _ = encdec_workload(cfg.vocab)
+    launches = {name: 0 for name in KERNELS}
+    tokens = {}
+    for backend in ("auto", "v3"):
+        tokens[backend], counts = serve_run(
+            api, params, prompts, backend, card, engine_kw=ENCDEC_ONE_SHOT,
+            label=f"{label} {backend}", decode_skip=skip)
+        for k in launches:
+            launches[k] += counts[k]
+    check(tokens["auto"] == tokens["v3"], f"{label}: v2 and v3 tokens differ")
+    print(f"{label}: one-shot tokens of auto (v2) and v3 identical; distinct "
+          f"tokens per request: "
+          + ", ".join(f"{i}:{len(set(t))}" for i, t in
+                      enumerate(tokens["v3"])), flush=True)
+    out["prefill"] = prefill_split(api, params, prompts[0], card)
+    api32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    out["logits_rel"] = encdec_logits(api32, params, prompts[0], label)
+    del api32
+    torch.cuda.empty_cache()
+    profile_window(api, params, prompts[:1], card, "auto",
+                   engine_kw=ENCDEC_ONE_SHOT)
+
+    depth, deepest, _, _ = choose_spec_depth(params, layers="dec")
+    runs = {}
+    for name, spec in (("spec", depth), ("spec off", None)):
+        _, reqs = encdec_workload(cfg.vocab)
+        r = runs[name] = engine_run(api, params, "v3", spec, False,
+                                    engine_kw=ENCDEC_ENGINE,
+                                    waves=(reqs, [], lambda e, n: False))
+        for k in launches:
+            launches[k] += r["launches"][k]
+        check(r["prefill_passes"] == len(reqs),
+              f"{label} engine[{name}]: {r['prefill_passes']} prefills for "
+              f"{len(reqs)} requests")
+        out[f"engine_{name.replace(' ', '_')}_tokens_per_s"] = check_engine(
+            r, per_pass, skip, f"{label} engine[{name}]", card,
+            ENCDEC_ENGINE["spec_len"] if spec else 0)
+        m = r["eng"]._m
+        if spec:
+            out["spec_acceptance"] = (m["spec_accepted"].value
+                                      / m["spec_draft_tokens"].value)
+    greedy = {name: [q.out_tokens for q in r["reqs"]]
+              for name, r in runs.items()}
+    check(greedy["spec"] == greedy["spec off"],
+          f"{label}: engine tokens with spec and without differ")
+    check(greedy["spec off"] == tokens["v3"],
+          f"{label}: engine tokens differ from the one-shot run's")
+    eng = runs["spec"]["eng"]
+    check(all(all(k.values()) for k in eng._paged),
+          f"{label}: cache leaves misclassified: {eng._paged[0]}")
+    leaves = sorted(eng._paged[0])
+    del runs, eng
+    fresh, counts = reused_slot(api, params, prompts, card)
+    for k in launches:
+        launches[k] += counts[k]
+    short = min(range(4), key=lambda i: len(prompts[i]))
+    print(f"{label}: engine tokens with spec == without == one-shot; every "
+          f"cache leaf paged ({leaves}); draft depth "
+          f"{depth} of {deepest}; the reused-slot request's tokens "
+          f"{'==' if fresh == tokens['v3'][short] else '!='} its one-shot "
+          f"tokens (not required: other rows were live there)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{label}: phase {out['phase_s']:.1f}s", flush=True)
+    return rows, launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2899,7 +3318,8 @@ def main() -> int:
                      **{key: slice_tasks(key, 100000 * (i + 1))
                         for i, key in enumerate(SLICE)},
                      **{key: recurrent_tasks(key, 100000 * (i + 4))
-                        for i, key in enumerate(RECURRENT)}})
+                        for i, key in enumerate(RECURRENT)},
+                     "whisper": encdec_tasks(100000 * 6)})
     try:
         card_tests()
         flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
@@ -2935,6 +3355,9 @@ def main() -> int:
             for name in KERNELS:
                 rec_rows[name].update(rows_k.get(name, {}))
                 rec_launches[name] += launches_k[name]
+        enc_rows, enc_launches, enc_out = encdec_phase(
+            dev, card, packer.wait("whisper"))
+        free_card()
     finally:
         packer.close()
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2969,10 +3392,14 @@ def main() -> int:
         # the recurrent phase's main paths and its kernel rows
         row["recurrent_launches"] = rec_launches[name]
         row["recurrent"] = rec_rows[name]
+        # the encoder-decoder phase's main paths and its kernel rows
+        row["encdec_launches"] = enc_launches[name]
+        row["encdec"] = enc_rows[name]
         rows.append(row)
     # qwen times are per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls
     print(json.dumps({"compile": compiled, "gemma": gemma,
-                      "slice": slice_out, "recurrent": rec_out}))
+                      "slice": slice_out, "recurrent": rec_out,
+                      "encdec": enc_out}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
-"""Model configuration: the decoder-only subset of the reference's.
+"""Model configuration: the reference's, but for its benchmark shapes.
 
 Checked against ``repro/configs/base.py``: same field names and defaults
 for every field the ported paths read (sliding-window local/global
 layouts, the GELU MLP, MLA attention, MoE MLPs with shared experts and
 leading dense layers, the vision frontend's prefix, the Mamba and xLSTM
-blocks' state, conv and expansion), and the same ``scale_down`` rules for
+blocks' state, conv and expansion, the encoder-decoder family's encoder
+depth, LayerNorm and audio stub), and the same ``scale_down`` rules for
 them, so a config built by either package describes the same model
-(``tests/test_torch_model.py``, ``test_torch_family.py`` and
-``test_torch_moe.py`` compare the two field by field).
+(``tests/test_torch_model.py``, ``test_torch_family.py``,
+``test_torch_moe.py`` and ``test_torch_encdec.py`` compare the two field
+by field).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ __all__ = ["ModelConfig", "scale_down"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | hybrid | ssm
+    family: str                     # dense | moe | hybrid | ssm | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -53,10 +55,12 @@ class ModelConfig:
     ssm_state: int = 16
     ssm_conv: int = 4
     ssm_expand: int = 2
-    frontend: str = ""                    # "" | vision_stub
+    # --- enc-dec (whisper) ---
+    n_enc_layers: int = 0                 # 0 -> decoder-only
+    frontend: str = ""                    # "" | audio_stub | vision_stub
     n_frontend_tokens: int = 0            # patch embeddings prepended
     act: str = "swiglu"             # swiglu | gelu
-    norm: str = "rmsnorm"
+    norm: str = "rmsnorm"           # rmsnorm | layernorm
     tie_embeddings: bool = False
     dtype: str = "bfloat16"         # activation/compute dtype
 
@@ -71,7 +75,9 @@ class ModelConfig:
     @property
     def n_super(self) -> int:
         """Superblocks after the ``first_dense_layers``: block layer ``s *
-        len(pattern) + j`` is slot ``j`` of superblock ``s``."""
+        len(pattern) + j`` is slot ``j`` of superblock ``s``.
+        ``n_layers`` counts decoder layers only for an enc-dec model (its
+        encoder depth is ``n_enc_layers``)."""
         body = self.n_layers - self.first_dense_layers
         assert body % len(self.pattern) == 0, \
             (self.name, self.n_layers, self.pattern)
@@ -90,12 +96,16 @@ def scale_down(cfg: ModelConfig, **overrides) -> ModelConfig:
     the fields above: the leading dense layers and one superblock, 64
     wide, 4 heads of 16, vocab 256, a window of at most 8, at most 4
     experts of 64 with top-2, an MLA cache of 32 with rope/nope/v heads of
-    8/16/16, an SSM state of at most 8, 8 frontend tokens)."""
+    8/16/16, an SSM state of at most 8, 8 frontend tokens, at most 2
+    encoder layers; an enc-dec model's decoder depth counts its encoder
+    layers too, as the reference's does)."""
     mla = cfg.attn_type == "mla"
     small = dict(
-        n_layers=cfg.first_dense_layers + len(cfg.pattern), d_model=64,
+        n_layers=cfg.first_dense_layers + len(cfg.pattern)
+        + cfg.n_enc_layers, d_model=64,
         n_heads=4, n_kv_heads=max(1, min(cfg.n_kv_heads, 2)), head_dim=16,
         d_ff=128 if cfg.d_ff else 0, vocab=256,
+        n_enc_layers=min(cfg.n_enc_layers, 2),
         n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
         top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         expert_dff=64 if cfg.expert_dff else 0,

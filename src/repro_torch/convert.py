@@ -1,8 +1,9 @@
 """Carry param trees between the reference's layout and the port's.
 
-``from_reference`` takes the reference decoder-only LM's params as numpy
-arrays (``jax.tree.map(np.asarray, params)``), dense or already SME-packed
-with ``sme_*`` / ``sme_v3_*`` leaves, and returns the port's params: the
+``from_reference`` takes the reference's params as numpy arrays
+(``jax.tree.map(np.asarray, params)``), dense or already SME-packed with
+``sme_*`` / ``sme_v3_*`` leaves, and returns the port's params.  A
+decoder-only LM's: the
 stacked superblock arrays ``blocks["slot{j}"]`` split into one dict per
 layer (layer ``s * n_slots + j`` is slot ``j`` of superblock ``s``, as the
 reference's scan runs them), the top-level leaves (``embed``,
@@ -17,8 +18,11 @@ are carried byte for byte (their padded plane-list length included), so
 both packages then compute the same function; a compiler's per-layer
 draft depth (``sme_draft_planes``, read under ``use_spec_depth("plan")``)
 comes across as each layer's scalar (one per expert for stacked
-experts).  ``to_reference`` is the inverse: the layout the
-compiler plans, packs and persists.
+experts).  An encoder-decoder model's (whisper): the stacked ``enc``
+and ``dec`` layers split into per-layer lists, ``embed``, ``enc_norm``,
+``dec_norm`` and ``lm_head`` as they are.  Any other top-level key is
+refused.  ``to_reference`` is the inverse: the layout the compiler plans,
+packs and persists.
 """
 from __future__ import annotations
 
@@ -44,7 +48,29 @@ def _index(tree, i: int):
     return np.asarray(tree)[i]
 
 
+#: the top-level leaves of an encoder-decoder tree besides ``enc``/``dec``
+_ENCDEC_TOP = ("embed", "enc_norm", "dec_norm", "lm_head")
+
+
+def _encdec(tree) -> bool:
+    return "enc" in tree or "dec" in tree
+
+
+def _layers(stacked) -> list:
+    n = np.asarray(stacked["norm1"]["w"]).shape[0]
+    return [_index(stacked, i) for i in range(n)]
+
+
 def from_reference(tree: dict, device=None) -> dict:
+    if _encdec(tree):
+        extra = set(tree) - set(_ENCDEC_TOP) - {"enc", "dec"}
+        if extra or "enc" not in tree or "dec" not in tree:
+            raise NotImplementedError(
+                f"an encoder-decoder tree has enc, dec and "
+                f"{', '.join(_ENCDEC_TOP)}; got {sorted(tree)}")
+        out = {k: v for k, v in tree.items() if k in _ENCDEC_TOP}
+        out["enc"], out["dec"] = _layers(tree["enc"]), _layers(tree["dec"])
+        return to_torch(out, device)
     n_slots = len(tree["blocks"])
     extra = {k for k in tree if k != "blocks" and not _top(k)}
     if extra or set(tree["blocks"]) != {f"slot{j}" for j in range(n_slots)}:
@@ -64,9 +90,10 @@ def to_reference(params: dict, n_slots: int = 1) -> dict:
     """The inverse of :func:`from_reference`: the port's per-layer params
     (torch tensors or numpy arrays) as the reference's tree of numpy
     arrays, layers ``j, j + n_slots, ...`` stacked into
-    ``blocks["slot{j}"]`` (``n_slots = len(cfg.pattern)``).  The compiler
-    plans and packs this layout (one plan per stacked leaf, as the
-    reference does), so a ``.smez`` of either package serves in the
+    ``blocks["slot{j}"]`` (``n_slots = len(cfg.pattern)``), or an
+    encoder-decoder model's ``enc`` and ``dec`` layers each stacked.  The
+    compiler plans and packs this layout (one plan per stacked leaf, as
+    the reference does), so a ``.smez`` of either package serves in the
     other."""
     def host(t):
         return t.detach().cpu().numpy() if torch.is_tensor(t) \
@@ -81,6 +108,10 @@ def to_reference(params: dict, n_slots: int = 1) -> dict:
         if isinstance(t, dict):
             return {k: walk(v) for k, v in t.items()}
         return host(t)
+    if _encdec(params):
+        out = {k: walk(v) for k, v in params.items() if k in _ENCDEC_TOP}
+        out["enc"], out["dec"] = stack(*params["enc"]), stack(*params["dec"])
+        return out
     blocks = params["blocks"]
     if len(blocks) % n_slots:
         raise ValueError(f"{len(blocks)} layers are not whole superblocks of "

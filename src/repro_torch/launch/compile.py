@@ -2,9 +2,9 @@
 
 Checked against ``repro/launch/compile.py`` (its flags but ``--ckpt``:
 restoring a training checkpoint waits for the port's training).  The
-weights are the port's ``lm_init`` from a numpy generator seeded by
+weights are the port's ``init_params`` from a numpy generator seeded by
 ``--seed``, put into the reference's layout (``convert.to_reference``:
-every layer's leaf stacked), which the planner plans one leaf at a time,
+every layer's leaf stacked, an enc-dec model's ``enc`` and ``dec``), which the planner plans one leaf at a time,
 as the reference does.  Full width by default; ``--small`` is the
 2-layer, 128-wide config of the CPU tests; ``--d-model``/``--d-ff``/
 ``--head-dim``/``--vocab`` scale the config down as the reference's
@@ -12,9 +12,10 @@ flags do (``--small`` rounds its 2 layers up to whole superblocks: 6
 for gemma3-12b's 5:1 local/global pattern, 8 for xlstm-1.3b's and
 jamba-v0.1-52b's; an MoE model's experts are 128 wide, so they pack;
 xLSTM keeps ``d_ff`` 0).  ``--arch`` takes any of the port's ``ARCHS``
-(the MoE, vision and recurrent models included); an untied ``lm_head``,
-stacked experts, deepseek's ``first0``, a vision ``patch_proj`` and the
-recurrent blocks' projections are planned and packed like every other
+(the MoE, vision, recurrent and encoder-decoder models included); an
+untied ``lm_head``, stacked experts, deepseek's ``first0``, a vision
+``patch_proj``, the recurrent blocks' projections and whisper's encoder,
+cross-attention and head are planned and packed like every other
 linear.  Compiling runs on the host (numpy); no card is needed.
 
     PYTHONPATH=src python -m repro_torch.launch.compile --small \\
@@ -76,7 +77,8 @@ def scaled_config(args):
 def model_dims(cfg) -> dict:
     """The dims an artifact records and a server checks (the reference's
     five, and the window, layer pattern, MLP and head of the dense
-    family, the experts, MLA cache, frontend tokens and SSM state)."""
+    family, the experts, MLA cache, frontend tokens, SSM state and
+    encoder depth)."""
     return {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
             "n_layers": cfg.n_layers, "head_dim": cfg.hd,
             "swa_window": cfg.swa_window,
@@ -85,7 +87,8 @@ def model_dims(cfg) -> dict:
             "n_experts": cfg.n_experts, "expert_dff": cfg.expert_dff,
             "kv_lora": cfg.kv_lora,
             "n_frontend_tokens": cfg.n_frontend_tokens,
-            "ssm_state": cfg.ssm_state, "ssm_expand": cfg.ssm_expand}
+            "ssm_state": cfg.ssm_state, "ssm_expand": cfg.ssm_expand,
+            "n_enc_layers": cfg.n_enc_layers}
 
 
 def main(argv=None):
@@ -116,10 +119,10 @@ def main(argv=None):
     from repro_torch.compiler import compile_model, verify_artifact
     from repro_torch.convert import to_reference
     from repro_torch.core.integrate import sme_storage_summary
-    from repro_torch.models.transformer import lm_init
+    from repro_torch.models.model import init_params
 
     cfg = scaled_config(args)
-    params = to_reference(lm_init(cfg, np.random.default_rng(args.seed)),
+    params = to_reference(init_params(cfg, np.random.default_rng(args.seed)),
                           n_slots=len(cfg.pattern))
     out = args.out or f"{args.arch}.smez"
     backend = None if args.backend == "none" else args.backend

@@ -2,7 +2,9 @@
 
 Checked against ``repro/launch/serve.py`` (its flags but ``--mesh`` and
 ``--host-devices``).  ``--arch`` takes any of the port's ``ARCHS`` (the
-dense, MoE, vision and recurrent families).
+dense, MoE, vision, recurrent and encoder-decoder families; whisper's
+requests go in behind the audio stub's zero frames, which the engine
+builds).
 Weights come from a numpy generator seeded by ``--seed`` (the reference
 init's distributions), or from a compiled ``.smez`` (``--artifact``, made
 by ``repro_torch.launch.compile`` or the reference's compiler; its arch and
@@ -54,8 +56,7 @@ from repro_torch.core.integrate import (convert_params_to_sme,
                                         sme_storage_summary, to_torch)
 from repro_torch.launch.compile import (SMALL, add_scale_args, model_dims,
                                         scaled_config)
-from repro_torch.models.model import build_model
-from repro_torch.models.transformer import lm_init
+from repro_torch.models.model import build_model, init_params
 from repro_torch.serve import Request, ServeEngine
 
 __all__ = ["main", "SMALL"]
@@ -187,7 +188,7 @@ def main(argv=None):
               f"{len(plan.layers) if plan else 0} layers, backend "
               f"{eng.backend}) on {api.device}")
     else:
-        params = lm_init(cfg, rng)
+        params = init_params(cfg, rng)
         if args.sme:
             emit = args.backend if args.backend in ("v1", "v2", "v3") \
                 else None

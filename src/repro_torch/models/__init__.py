@@ -1,1 +1,2 @@
-"""Dense decoder-only LM of the port."""
+"""Models of the port: the decoder-only families and the encoder-decoder
+family (``model.build_model`` dispatches)."""

@@ -1,16 +1,24 @@
-"""Self-attention: GQA prefill over the whole prompt and decode of one
-token against a per-slot KV cache, with full or sliding-window (local)
-layers; and MLA (deepseek), whose cache holds the compressed ``c`` and
-the shared rope key ``k_pe``.
+"""Self-attention: GQA prefill over the whole prompt (causal, or
+bidirectional for an encoder) and decode of one token against a per-slot
+KV cache, with full or sliding-window (local) layers; MLA (deepseek),
+whose cache holds the compressed ``c`` and the shared rope key ``k_pe``;
+and the enc-dec decoder's cross-attention over the encoder states.
 
 Checked against ``repro/models/attention.py`` (``gqa_prefill``,
 ``gqa_decode``, ``blockwise_attention``, ``_decode_attend``,
 ``_ring_gather``, ``_masked_row_scatter``, ``_mla_q``, ``mla_prefill``,
-``mla_decode``).  The reference has no
-attention kernel, so this stays plain tensor code with the reference's
-math: flash-style online softmax over KV blocks in f32, and for a window
-``W`` shorter than the keys, one softmax per query block over the K/V slice
-``[start - W + 1, start + block_q)`` it can see.  A windowed layer's cache
+``mla_decode``, ``cross_kv``, ``cross_apply``, ``cross_decode``).  As in
+the reference, GQA applies RoPE whatever else gives positions (whisper's
+self-attention adds it to the sinusoidal embeddings); the cross
+projections do not.  ``cross_decode`` takes each row's source length, so
+that a cross cache longer than the source (the engine's, ``s_max`` long
+per slot) attends only its own keys; without it every key is attended,
+as in the reference, which has no such length (ROADMAP R6).  The
+reference has no attention kernel, so this stays plain tensor code with
+the reference's math: flash-style online softmax over KV blocks in f32,
+and for a window ``W`` shorter than the keys, one softmax per query
+block over the K/V slice ``[start - W + 1, start + block_q)`` it can
+see.  A windowed layer's cache
 is a ring of ``min(W, cache_len)`` slots; slot ``j`` at next position
 ``pos`` holds position ``pos - ((pos - j) mod ring)``.
 
@@ -39,21 +47,25 @@ from ..core.backend import cached_dequant
 from .common import apply_rope, linear, norm_pos_active
 
 __all__ = ["gqa_prefill", "gqa_decode", "mla_prefill", "mla_decode",
-           "blockwise_attention", "NEG_INF"]
+           "cross_kv", "cross_apply", "cross_decode", "blockwise_attention",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
 
-def _attend_block(q, k, qpos, kpos, scale, window: int = 0):
-    """Causal (and, with ``window``, local) scores of one (q-block,
-    k-block) tile: [B, KV, G, Bq, Bk]."""
+def _attend_block(q, k, qpos, kpos, scale, window: int = 0,
+                  causal: bool = True):
+    """Causal (bidirectional without ``causal``; local with ``window``)
+    scores of one (q-block, k-block) tile: [B, KV, G, Bq, Bk]."""
     b, bq, h, hd = q.shape
     kv = k.shape[2]
     qh = q.reshape(b, bq, kv, h // kv, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qh.float(), k.float()) * scale
-    mask = (qpos[:, None] >= kpos[None, :]) & (kpos[None, :] >= 0)
+    mask = kpos[None, :] >= 0
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
     if window:
-        mask &= qpos[:, None] - kpos[None, :] < window
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
     return torch.where(mask, s, torch.full_like(s, NEG_INF))
 
 
@@ -67,26 +79,26 @@ def _online_update(m, l, acc, s, v):
 
 
 def _window_block(qi, k, v, qpos, start: int, span: int, window: int,
-                  scale):
+                  scale, causal: bool = True):
     """One query block of a windowed layer against the K/V slice
     ``[start, start + span)`` it can see: one softmax, no online update
     (the reference's ``q_block`` of its windowed branch)."""
     ki, vi = k[:, start:start + span], v[:, start:start + span]
     kpos = start + torch.arange(span, device=qi.device)
-    s = _attend_block(qi, ki, qpos, kpos, scale, window)
+    s = _attend_block(qi, ki, qpos, kpos, scale, window, causal)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     acc = torch.einsum("bkgqs,bskd->bkgqd", p, vi.float())
     return acc / torch.clamp(p.sum(dim=-1)[..., None], min=1e-30)
 
 
-def blockwise_attention(q, k, v, *, q_offset: int = 0, window: int = 0,
-                        block_q: int = 512, block_k: int = 512
-                        ) -> torch.Tensor:
-    """Causal attention, local to the last ``window`` positions when
-    ``window`` > 0. q/k: [B, Sq|Sk, H|KV, hd], v: [B, Sk, KV, hd_v] ->
-    [B, Sq, H, hd_v], scaled by 1/sqrt(hd); ``q_offset`` is the absolute
-    position of q[0].  A window shorter
-    than the keys slices K/V per query block instead of scanning them."""
+def blockwise_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        window: int = 0, block_q: int = 512,
+                        block_k: int = 512) -> torch.Tensor:
+    """Causal attention (every key without ``causal``), local to the last
+    ``window`` positions when ``window`` > 0.  q/k: [B, Sq|Sk, H|KV, hd],
+    v: [B, Sk, KV, hd_v] -> [B, Sq, H, hd_v], scaled by 1/sqrt(hd);
+    ``q_offset`` is the absolute position of q[0].  A window shorter than
+    the keys slices K/V per query block instead of scanning them."""
     b, sq, h, hd = q.shape
     hd_v = v.shape[-1]
     sk, kvh = k.shape[1], k.shape[2]
@@ -104,7 +116,8 @@ def blockwise_attention(q, k, v, *, q_offset: int = 0, window: int = 0,
             qpos = q0 + torch.arange(block_q, device=dev)
             start = min(max(q0 - (window - 1), 0), sk - span)
             outs.append(_window_block(q[:, i * block_q:(i + 1) * block_q],
-                                      k, v, qpos, start, span, window, scale))
+                                      k, v, qpos, start, span, window, scale,
+                                      causal))
     else:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * block_k - sk))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * block_k - sk))
@@ -118,7 +131,7 @@ def blockwise_attention(q, k, v, *, q_offset: int = 0, window: int = 0,
                 idx = j * block_k + torch.arange(block_k, device=dev)
                 kpos = torch.where(idx < sk, idx, torch.full_like(idx, -1))
                 s = _attend_block(qi, k[:, j * block_k:(j + 1) * block_k],
-                                  qpos, kpos, scale, window)
+                                  qpos, kpos, scale, window, causal)
                 m, l, acc = _online_update(
                     m, l, acc, s, v[:, j * block_k:(j + 1) * block_k])
             outs.append(acc / torch.clamp(l[..., None], min=1e-30))
@@ -179,19 +192,19 @@ def _qkv(p, x, cfg, positions, backend):
 
 def gqa_prefill(p, x, cfg, cache_len: int = 0, plen=None,
                 backend: Optional[str] = None, window: int = 0,
-                block_q: int = 512, block_k: int = 512):
-    """Full-sequence causal self-attention (local to ``window`` positions
-    when it is > 0).  Returns (y, cache) with the cache holding, per row,
-    the last positions ``< plen[i]`` in ring order over ``min(window,
-    cache_len)`` slots (``cache_len`` without a window; None when
-    ``cache_len`` is 0)."""
+                causal: bool = True, block_q: int = 512, block_k: int = 512):
+    """Full-sequence causal self-attention (bidirectional without
+    ``causal``; local to ``window`` positions when it is > 0).  Returns
+    (y, cache) with the cache holding, per row, the last positions ``<
+    plen[i]`` in ring order over ``min(window, cache_len)`` slots
+    (``cache_len`` without a window; None when ``cache_len`` is 0)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg, positions, backend)
     g = cfg.n_heads // cfg.n_kv_heads
     kr, vr = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
-    y = blockwise_attention(q, kr, vr, window=window, block_q=block_q,
-                            block_k=block_k)
+    y = blockwise_attention(q, kr, vr, causal=causal, window=window,
+                            block_q=block_q, block_k=block_k)
     y = linear(y.reshape(b, s, -1), p["o"], backend)
     if not cache_len:
         return y, None
@@ -308,3 +321,38 @@ def mla_decode(p, x, cache, pos, cfg, active=None,
     y = torch.einsum("bhk,khv->bhv", ctx, w_uv)
     y = linear(y.reshape(b, 1, h * dv).to(x.dtype), p["o"], backend)
     return y, {"c": cc, "k_pe": pc}
+
+
+def cross_kv(p, enc, cfg, backend: Optional[str] = None) -> dict:
+    """The decoder's cross K/V over encoder states enc [B, T, D]: {"k",
+    "v"} [B, T, H, hd], no RoPE."""
+    b, t, _ = enc.shape
+    k = linear(enc, p["k"], backend).reshape(b, t, cfg.n_heads, cfg.hd)
+    v = linear(enc, p["v"], backend).reshape(b, t, cfg.n_heads, cfg.hd)
+    return {"k": k, "v": v}
+
+
+def cross_apply(p, x, kv, cfg, backend: Optional[str] = None,
+                block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """Cross-attention of x [B, S, D] over every key of ``kv``."""
+    b, s, _ = x.shape
+    q = linear(x, p["q"], backend).reshape(b, s, cfg.n_heads, cfg.hd)
+    y = blockwise_attention(q, kv["k"], kv["v"], causal=False,
+                            block_q=block_q, block_k=block_k)
+    return linear(y.reshape(b, s, -1), p["o"], backend)
+
+
+def cross_decode(p, x, kv, cfg, src_len=None,
+                 backend: Optional[str] = None) -> torch.Tensor:
+    """One step's cross-attention. x: [B, 1, D]; kv k/v: [B, T, H, hd];
+    ``src_len`` [B]: row ``i`` attends its first ``src_len[i]`` keys
+    (None: all ``T``)."""
+    b = x.shape[0]
+    q = linear(x, p["q"], backend).reshape(b, 1, cfg.n_heads, cfg.hd)
+    t = kv["k"].shape[1]
+    kpos = torch.arange(t, device=x.device).expand(b, t)
+    last = torch.full((b,), t, device=x.device) if src_len is None else \
+        torch.as_tensor(src_len, device=x.device).long().expand(b) - 1
+    y = _decode_attend(q, kv["k"], kv["v"], kpos, last, 0,
+                       1.0 / (cfg.hd ** 0.5))
+    return linear(y.reshape(b, 1, -1), p["o"], backend)

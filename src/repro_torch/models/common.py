@@ -1,22 +1,25 @@
 """Shared model building blocks on torch tensors.
 
-Checked against ``repro/models/common.py``: ``rmsnorm``, ``linear``,
-``mlp_apply`` (SwiGLU, or GELU with biased ``wi``/``wo`` and no ``wg``),
-``apply_rope`` and ``norm_pos_active`` compute the same functions in the
-same dtypes.  GELU is the tanh approximation, ``jax.nn.gelu``'s default.  SME-packed weights dispatch through
+Checked against ``repro/models/common.py``: ``rmsnorm``, ``layernorm``
+(with its bias, eps 1e-5), ``apply_norm``, ``linear``, ``mlp_apply``
+(SwiGLU, or GELU with biased ``wi``/``wo`` and no ``wg``), ``apply_rope``,
+``sinusoidal_pos`` (built in float64 numpy, then f32) and
+``norm_pos_active`` compute the same functions in the same dtypes.  GELU is the tanh approximation, ``jax.nn.gelu``'s default.  SME-packed weights dispatch through
 ``core.backend.sme_apply``; ``backend`` is passed down explicitly.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.backend import sme_apply
 
-__all__ = ["rmsnorm", "linear", "mlp_apply", "rope_freqs", "apply_rope",
-           "norm_pos_active"]
+__all__ = ["rmsnorm", "layernorm", "apply_norm", "linear", "mlp_apply",
+           "rope_freqs", "apply_rope", "sinusoidal_pos", "norm_pos_active"]
 
 
 def norm_pos_active(pos, active, b: int, device):
@@ -33,6 +36,22 @@ def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * p["w"].float()).to(dt)
+
+
+def layernorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) * w (+ b), in f32, cast back."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps) * p["w"].float()
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(dt)
+
+
+def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+    return rmsnorm(x, p) if kind == "rmsnorm" else layernorm(x, p)
 
 
 def linear(x: torch.Tensor, p: dict, backend: Optional[str] = None
@@ -72,3 +91,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_pos(seq: int, d: int, device=None) -> torch.Tensor:
+    """[seq, d] f32 table: sin of pos / 10000^(2i/d) in the first half,
+    cos in the second, computed in float64 as the reference does; kept
+    per (seq, d, device), as every decode step reads the ``s_max`` one.
+    Callers must not write into it."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(emb.astype(np.float32), device=device)

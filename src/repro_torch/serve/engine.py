@@ -1,11 +1,12 @@
 """Continuous batching over an open request stream.
 
 Checked against ``repro/serve/engine.py`` (DESIGN.md §6, §11, §12) without
-its mesh and encoder-decoder branches: the port serves the decoder-only
-dense, MoE, SSM and hybrid families (full and sliding-window GQA layers,
-MLA, leading dense layers, Mamba, mLSTM and sLSTM layers, the vision
-frontend) on one device, from a param tree or
-from a compiled ``.smez`` artifact (:meth:`ServeEngine.from_artifact`).
+its mesh: the port serves the decoder-only dense, MoE, SSM and hybrid
+families (full and sliding-window GQA layers, MLA, leading dense layers,
+Mamba, mLSTM and sLSTM layers, the vision frontend) and the
+encoder-decoder family (whisper, behind the audio stub) on one device,
+from a param tree or from a compiled ``.smez`` artifact
+(:meth:`ServeEngine.from_artifact`).
 ``bm`` scopes ``core.backend.use_block`` around every model call (v3's
 decode threshold).
 
@@ -28,6 +29,17 @@ decode threshold).
   prefix cache; each prompt is admitted whole behind ``n_frontend_tokens``
   zero bf16 ``patches`` per row, its ``plen`` and first position count
   them, and ``PromptTooLong`` says so.
+* **Encoder-decoder** (``api.encdec``): one request per admission window,
+  its whole prompt prefilled behind zero bf16 ``frames`` [1,
+  max(len(prompt), 2), D] (the audio stub), as in the reference.  Two
+  differences from the reference engine, both held to its model-API loop
+  (prefill, then ``decode_step`` from ``pos = len(prompt)``): each slot
+  records its source length and every decode step passes it to the
+  cross-attention, so that the keys past it in the slot's ``s_max``-long
+  cross K/V (zeros, or an earlier request's) are never attended (ROADMAP
+  R6); and the audio stub adds no decoder positions (R8).  The cross K/V
+  are paged leaves that decode only reads: a draft leaves them as they
+  are and copies nothing of them.
 * **One ``decode_chunk`` call per engine step** however mixed the batch:
   each row brings a quota (1 to decode, up to ``chunk_len`` prompt tokens,
   ``spec_len + 1`` gated positions to verify a draft) and rows past their
@@ -91,6 +103,23 @@ from ..device import resolve_device
 from .paged import PageAllocator, PrefixIndex
 
 __all__ = ["Request", "ServeEngine", "PromptTooLong"]
+
+
+def _leaves(layer: dict, prefix: str = ""):
+    """(name, tensor) of one layer's cache leaves; nested dicts' names
+    join with "/" (an enc-dec layer's ``self/k``, ``cross/v``)."""
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _leaf(layer: dict, name: str) -> torch.Tensor:
+    for k in name.split("/"):
+        layer = layer[k]
+    return layer
+
 
 #: engine label values in the process registry: one per engine instance
 _ENGINE_IDS = itertools.count()
@@ -197,11 +226,18 @@ class ServeEngine:
         self.chunk_len = chunk_len
         self.page_tokens = page_tokens
         cfg = api.cfg
-        #: frontend tokens prepended to every prompt (vision stub)
-        self._front = cfg.n_frontend_tokens if cfg.frontend else 0
+        self._encdec = api.encdec
+        #: frontend tokens prepended to every prompt (the vision stub's;
+        #: the audio stub's frames are the encoder's, not decoder
+        #: positions: ROADMAP R8)
+        self._front = cfg.n_frontend_tokens \
+            if cfg.frontend == "vision_stub" else 0
+        #: per-slot source length of an enc-dec request (its frames)
+        self._src = np.zeros(slots, np.int64)
         #: chunked prefill re-scores the prompt tail through decode steps;
-        #: frontend tokens exist only in the one-shot program
-        self._chunk_prefill = not cfg.frontend
+        #: frontend tokens and the encoder exist only in the one-shot
+        #: program
+        self._chunk_prefill = not cfg.frontend and not self._encdec
         #: per-admission one-shot prefill budget; the whole prompt otherwise
         self._c = min(chunk_len, s_max) if self._chunk_prefill else s_max
         #: per-slot prompt tokens already scored (a slot is *prefilling*
@@ -370,8 +406,8 @@ class ServeEngine:
         a2 = self.api.init_cache(self.slots, 2 * self.s_max, device="meta")
         out = []
         for l1, l2 in zip(a1, a2):
-            kinds = {}
-            for name, t1 in l1.items():
+            kinds, l2 = {}, dict(_leaves(l2))
+            for name, t1 in _leaves(l1):
                 diffs = [d for d in range(t1.dim())
                          if t1.shape[d] != l2[name].shape[d]]
                 if not diffs:
@@ -394,11 +430,11 @@ class ServeEngine:
         for layer, paged in zip(self.caches, self._paged):
             self._pool.append({name: torch.zeros(
                 (n_pages, P_) + tuple(t.shape[2:]), dtype=t.dtype,
-                device=self.device) for name, t in layer.items()
+                device=self.device) for name, t in _leaves(layer)
                 if paged[name]})
             self._side.append({name: torch.zeros(
                 (prefix_entries,) + tuple(t.shape[1:]), dtype=t.dtype,
-                device=self.device) for name, t in layer.items()
+                device=self.device) for name, t in _leaves(layer)
                 if not paged[name]})
         self._prefix = PrefixIndex(PageAllocator(n_pages), prefix_entries,
                                    P_)
@@ -567,8 +603,10 @@ class ServeEngine:
         admitted = 0
         while self._queue:
             free = len(self._free_slots())
+            # an enc-dec prefill is not ragged: one request per window
+            cap = min(1, free) if self._encdec else free
             window = []
-            while self._queue and len(window) < free:
+            while self._queue and len(window) < cap:
                 req = self._queue.popleft()
                 try:
                     self._prefill_len(req)
@@ -629,14 +667,23 @@ class ServeEngine:
         # the scored prefix: the fed tokens behind any frontend tokens
         plens = [self._front + n for n in feed]
         b = len(reqs)
-        pad_to = _prompt_bucket(max(feed), self.s_max)
+        # an enc-dec window is one request, prefilled at its own length
+        pad_to = max(feed) if self._encdec else \
+            _prompt_bucket(max(feed), self.s_max)
         toks = np.zeros((b, pad_to), np.int64)
         for i, r in enumerate(reqs):
             toks[i, :feed[i]] = r.prompt[:feed[i]]
-        patches = None
+        d_model = self.api.cfg.d_model
+        extra = {"plen": np.array(plens, np.int64)}
         if self._front:
-            patches = torch.zeros((b, self._front, self.api.cfg.d_model),
-                                  dtype=torch.bfloat16, device=self.device)
+            extra["patches"] = torch.zeros((b, self._front, d_model),
+                                           dtype=torch.bfloat16,
+                                           device=self.device)
+        if self._encdec:
+            src = max(max(tok_lens), 2)
+            extra = {"frames": torch.zeros((b, src, d_model),
+                                           dtype=torch.bfloat16,
+                                           device=self.device)}
         tr = obs.enabled()
         t_pf = self.tracer.now()
         if tr:
@@ -646,9 +693,8 @@ class ServeEngine:
                     self._m["qwait"].observe(t_pf - tq)
         with use_block(self.bm):
             logits, pre = self.api.prefill(
-                self.params, toks, s_max=self.s_max,
-                plen=np.array(plens, np.int64), backend=self.backend,
-                patches=patches)
+                self.params, toks, s_max=self.s_max, backend=self.backend,
+                **extra)
         temps = np.array([r.temperature for r in reqs], np.float32)
         first = self._sample(logits, temps).cpu().numpy()
         t_first = self.tracer.now()
@@ -682,8 +728,13 @@ class ServeEngine:
                     continue
             slot = self._free_slots()[0]
             for full, row in zip(self.caches, pre):
-                for name in full:
-                    full[name][slot] = row[name][i]
+                row = dict(_leaves(row))
+                for name, t in _leaves(full):
+                    # an enc-dec cross K/V fills the head of the slot's
+                    # s_max positions; decode reads no further (R6)
+                    t[slot, :row[name].shape[1]] = row[name][i]
+            if self._encdec:
+                self._src[slot] = src
             self.pos[slot] = plens[i]
             self._pf_next[slot] = feed[i]
             self.active[slot] = req
@@ -722,7 +773,7 @@ class ServeEngine:
         pos = self._dev(self.pos)
         act = self._dev(spec_rows, torch.bool)
         # unclassified leaves (self._paged None) are all kept
-        saved = [{name: t.clone() for name, t in layer.items()
+        saved = [{name: t.clone() for name, t in _leaves(layer)
                   if self._paged is None or not self._paged[i][name]}
                  for i, layer in enumerate(self.caches)]
         out = []
@@ -730,13 +781,13 @@ class ServeEngine:
             for _ in range(self.spec_len):
                 logits, self.caches = self.api.decode_step(
                     self.params, tok, self.caches, pos, act,
-                    backend=self.backend)
+                    backend=self.backend, **self._src_kw())
                 nxt = logits.argmax(dim=-1)
                 out.append(nxt)
                 tok, pos = nxt[:, None], pos + 1
         for layer, keep in zip(self.caches, saved):
             for name, t in keep.items():
-                layer[name].copy_(t)
+                _leaf(layer, name).copy_(t)
         return torch.stack(out).cpu().numpy()
 
     def step(self) -> None:
@@ -796,7 +847,7 @@ class ServeEngine:
         with use_block(self.bm):
             logits, live, self.caches = self.api.decode_chunk(
                 self.params, toks, self.caches, self.pos, quota, act, gated,
-                backend=self.backend)
+                backend=self.backend, **self._src_kw())
         emitted = self._sample(logits, temps).cpu().numpy()     # [K, B]
         live = live.cpu().numpy()                               # [K, B]
         del logits
@@ -862,6 +913,10 @@ class ServeEngine:
                              slots=self.slots, chunk=k, kind=kind,
                              prefilling=int(prefilling.sum()))
 
+    def _src_kw(self) -> dict:
+        """The decode calls' per-row source lengths (enc-dec only)."""
+        return {"src_len": self._src} if self._encdec else {}
+
     # ------------------------------------------------- speculative decode
     def _spec_rows(self) -> np.ndarray:
         """Rows that draft this round: active, fully prefilled, opted in,
@@ -907,11 +962,11 @@ class ServeEngine:
         P_ = self.page_tokens
         for layer, pool, side in zip(self.caches, self._pool, self._side):
             for name, pages in pool.items():
-                full = layer[name]
+                full = _leaf(layer, name)
                 full[slot, :n * P_] = pages[ids].reshape(
                     (n * P_,) + tuple(full.shape[2:]))
             for name, slab in side.items():
-                layer[name][slot] = slab[ent.entry_slot]
+                _leaf(layer, name)[slot] = slab[ent.entry_slot]
         self.pos[slot] = ent.length
         self._pf_next[slot] = ent.length
         self.active[slot] = req
@@ -941,11 +996,11 @@ class ServeEngine:
         P_ = self.page_tokens
         for layer, pool, side in zip(self.caches, self._pool, self._side):
             for name, pages in pool.items():
-                full = layer[name]
+                full = _leaf(layer, name)
                 pages[ids] = full[slot, f * P_:n * P_].reshape(
                     (n - f, P_) + tuple(full.shape[2:]))
             for name, slab in side.items():
-                slab[plan.entry.entry_slot] = layer[name][slot]
+                slab[plan.entry.entry_slot] = _leaf(layer, name)[slot]
         self._prefix.commit(plan)
         self._m["prefix_snapshots"].inc()
         if any(self._side):

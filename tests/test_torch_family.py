@@ -223,8 +223,10 @@ def test_packed_head_dispatch_matches_reference_kernel():
     _close(got.numpy(), ref)
 
 
-@pytest.mark.parametrize("arch,missing", [
-    ("whisper-medium", "encoder-decoder"), ("whisper-medium", "audio")])
-def test_model_api_names_what_is_not_ported(arch, missing):
+@pytest.mark.parametrize("arch,change,missing", [
+    ("qwen2-0.5b", dict(act="relu"), "MLP activations"),
+    ("gemma3-12b", dict(family="cnn"), "family 'cnn'")])
+def test_model_api_names_what_is_not_ported(arch, change, missing):
     with pytest.raises(NotImplementedError, match=missing):
-        build_model(ref_scale_down(REF_ARCHS[arch]), device="cpu")
+        build_model(dataclasses.replace(ref_scale_down(REF_ARCHS[arch]),
+                                        **change), device="cpu")
