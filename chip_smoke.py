@@ -34,7 +34,7 @@
    priority draws and packs the weights of phases 6-8 (gemma3-12b, then
    mixtral-8x7b, deepseek-v2-lite-16b and llava-next-34b, then
    xlstm-1.3b and jamba-v0.1-52b, then whisper-medium), beside
-   the card tests and phases 2-5, and is paused for every timed launch,
+   the card tests and phases 2-5b, and is paused for every timed launch,
    profiled window, serving and engine run; each later phase waits for
    its model.
 3. Serving: qwen1.5-0.5b at full width, its depth cut to 4 of 24 layers
@@ -85,6 +85,37 @@
    Last, malformed operand lists (``rowid`` past the row tiles, ``nnz``
    past the list) must raise ``ValueError`` on the host, and a launch on
    good operands must still succeed.
+5a. Training (``train_phase``, while the pool packs; paused only for the
+   timed window and the serving runs): ``launch/train.py``'s main path
+   in-process on qwen1.5-0.5b at full width, :data:`QWEN_LAYERS` deep,
+   20 steps of 8 x 256 ``lm_batches`` tokens (AdamW, cosine, async
+   checkpoints in a temporary directory), the latest checkpoint restored
+   bitwise equal to the live params and AdamW state, one step more at
+   ``--micro 2`` resumed from it; ms per step over a paused window of 5
+   steps, training tokens/s, peak GiB; an overfit of one 4 x 256 batch
+   for 30 steps (every loss finite, the last below half the first); the
+   params saved alone (``checkpoint.save``), compiled by ``compile
+   --ckpt`` under ``auto`` and ``v3`` (analytic plan, budget 0.0665: every
+   leaf (8, 3, 1)), booted by ``from_artifact`` and serving 4 prompts (the
+   first 64 tokens of each overfit row) for 32 greedy tokens through v2
+   and v3: only the backend's kernels, 28 launches per pass, identical
+   tokens, one prefill window's f32 logits v2 == v3 bitwise and within
+   1e-3 of the plain versions; the distinct tokens served and how many
+   equal the batch's continuation are printed, not gated.
+5b. The paper's CNNs (``cnn_phase``; the reference's CNN task,
+   ``benchmarks/_cnn_task.py``: ResNet widths (32, 64, 128, 128),
+   MobileNet (32, 64, 96, 128), 12x12 images, 512 to train at seed 0, 384
+   to test at seed 99, 60 AdamW steps): both nets trained on the card
+   (the pool paused for each training, whose seconds are a reading),
+   their float test accuracy and with every conv matrix SME-dequantized
+   (8, 3, 1), the crossbar counts (conventional, SME, squeezed 1) of
+   their conv matrices; every matrix the reference's converter would
+   pack (K and N >= 128: ResNet's stage-2 and stage-3 convs, K = 576 and
+   1,152, ``s3b0/proj``, MobileNet's ``ir3/pw2``) packed to v1, v2 and v3
+   and run on its real im2col activations through ``sme_apply`` at the
+   whole test set (the prefill walks) and one image (the decode walks):
+   v1 == v2 == v3 bitwise, within 5e-5 of the f64 oracle, each kernel
+   launched; then one kernel row per (K, N, M) as in phase 6.
 6. gemma3-12b (``gemma_phase``): full width (d_model 3840, 16 heads of
    240, GQA kv 8, d_ff 15360, vocab 262144, W = 1024, GELU, untied head),
    depth cut from 48 layers to one superblock (5 local layers, 1 global;
@@ -178,13 +209,16 @@
    tokens, equal to the one-shot run's; and a request admitted into the
    slot a longer one used (its stale cross keys past the source) serves
    a fresh engine's tokens.
-10. Prints the compile, gemma, slice, recurrent and encdec readings as
-   JSON, the
+10. Prints the compile, train, cnn, gemma, slice, recurrent and encdec
+   readings as JSON, the
    kernels JSON line (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
    M = 8 in the top-level keys, every M a kernel ran at under ``at_m``;
    v3-decode adds ``draft_depth``, the draft passes' ``draft_launches``
    and ``draft_ms`` / ``draft_full_ms`` per layer on the model's own
    operands; ``artifact_launches`` counts the compile phase's runs,
+   ``train_launches`` the train phase's serving runs, ``cnn_launches``
+   the CNN phase's conv matrices on their activations and ``cnn`` its
+   kernel rows per shape and M,
    ``gemma_launches`` gemma's serving and engine runs, ``gemma`` its
    kernel rows per shape and M, per call; ``slice_launches`` and
    ``slice`` the same for phase 7, ``recurrent_launches`` and
@@ -740,8 +774,8 @@ def packed_linears(tree) -> int:
 
 
 def serve_run(api, params, prompts, backend, card, route=None, label=None,
-              engine_kw=None, decode_skip=0):
-    """Serve one request of 16 new tokens per prompt once under
+              engine_kw=None, decode_skip=0, max_new=16):
+    """Serve one request of ``max_new`` new tokens per prompt once under
     ``backend``; returns (tokens, launches per kernel).  Counts are set to
     0 just before.  ``route``: (what the weights must resolve to, the
     kernels they launch), by default :data:`RUNS`' entry for ``backend``;
@@ -752,7 +786,7 @@ def serve_run(api, params, prompts, backend, card, route=None, label=None,
     from repro_torch.serve import Request, ServeEngine
     want, mine = route or RUNS[backend]
     label = label or backend
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     eng = ServeEngine(api, params, backend=backend, device=api.device,
                       **(engine_kw or ONE_SHOT))
@@ -773,7 +807,7 @@ def serve_run(api, params, prompts, backend, card, route=None, label=None,
           f"not {want}")
     check(stats["completed"] == len(reqs),
           f"completed {stats['completed']} of {len(reqs)}")
-    check(all(len(r.out_tokens) == 16 for r in reqs), "short outputs")
+    check(all(len(r.out_tokens) == max_new for r in reqs), "short outputs")
     check(all(launches[k] == 0 for k in launches if k not in mine),
           f"{label}: kernels of another backend launched: {launches}")
     want = per_pass * passes - decode_skip * stats["decode_steps"]
@@ -1508,6 +1542,387 @@ def compile_phase(dev, card, served):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"compile: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
     return out, launches
+
+
+# ------------------------------------------------------------- training
+#: the train phase (``launch/train.py`` in-process, qwen1.5-0.5b at full
+#: width and :data:`QWEN_LAYERS` deep): steps at ``--micro 1`` (its
+#: checkpoint every TRAIN_STEPS - 1 steps, so the last step is saved),
+#: then one at ``--micro 2`` resumed from it
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 256
+#: steps of the paused timing window (the trained model, fresh batches)
+TRAIN_TIMED = 5
+#: the overfit: one fixed batch, AdamW at a constant rate (clip 1.0)
+OVERFIT_BATCH, OVERFIT_STEPS, OVERFIT_LR = 4, 30, 1e-3
+#: the trained model served: the first PROMPT_TOKENS of each overfit row,
+#: MAX_NEW greedy tokens
+PROMPT_TOKENS, MAX_NEW = 64, 32
+#: ``compile --ckpt`` flags of the train phase: analytic planning (error
+#: bounds per candidate, no trial compressions), no reordering, and a
+#: budget just above the (8, 3, 1) candidate's bound (0.0664) and below
+#: the weighted error of moving qwen's smallest leaf to (6, 3, 1) (0.0673
+#: at full width), so ``auto`` and ``v3`` plan every leaf (8, 3, 1) and
+#: their artifacts hold the same weights (at other budgets the two
+#: backends' bytes price the candidates apart)
+TRAIN_COMPILE = ("--measure", "analytic", "--budget", "0.0665",
+                 "--no-reorder")
+
+
+def paused_s() -> float:
+    """Seconds the packing pool has been paused so far (0 without one)."""
+    return getattr(getattr(quiet, "__self__", None), "paused_s", 0.0)
+
+
+def same_tree(a, b, what):
+    """Every leaf of two trees (numpy or tensors) bitwise equal."""
+    from repro_torch.tree import flatten
+    fa, fb = flatten(a), flatten(b)
+    check(list(fa) == list(fb), f"{what}: leaf names differ")
+    for k in fa:
+        x, y = (t.detach().cpu().numpy() if torch.is_tensor(t)
+                else np.asarray(t) for t in (fa[k], fb[k]))
+        check(x.dtype == y.dtype and np.array_equal(x, y),
+              f"{what}: leaf {k} differs")
+    return len(fa)
+
+
+def train_phase(dev, card):
+    """Training on the card through ``launch/train.py``'s main path, a
+    bitwise checkpoint round trip, an overfit, then the trained params
+    saved alone, compiled with ``compile --ckpt`` under ``auto`` and
+    ``v3`` and served from both artifacts.  Returns the readings and the
+    serving runs' launches per kernel."""
+    import shutil
+    import tempfile
+    from repro_torch.data import lm_batches
+    from repro_torch.launch import compile as launch_compile
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import make_train_step
+    from repro_torch.convert import to_reference
+    t_phase, p_phase = time.perf_counter(), paused_s()
+    out, launches = {}, {name: 0 for name in KERNELS}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="train-"))
+    try:
+        argv = ["--arch", "qwen1.5-0.5b", "--n-layers", str(QWEN_LAYERS),
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--ckpt-dir", str(tmp / "run"),
+                "--ckpt-every", str(TRAIN_STEPS - 1)]
+        print(f"train: qwen1.5-0.5b at full width, {QWEN_LAYERS} of 24 "
+              f"layers, through launch/train.py: {TRAIN_STEPS} steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} (lm_batches, AdamW, cosine), "
+              f"async checkpoints", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = launch_train.main(argv + ["--steps", str(TRAIN_STEPS)])
+        out["train_s"] = time.perf_counter() - t0
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [run["losses"][i] for i in range(TRAIN_STEPS)]
+        check(all(np.isfinite(losses)), f"train losses {losses}")
+        out["losses"] = [losses[0], losses[-1]]
+        live = run["state_tree"](run["params"], run["opt_state"])
+        t0 = time.perf_counter()
+        saved = ckpt.restore(tmp / "run", None, live)
+        out["restore_s"] = time.perf_counter() - t0
+        n = same_tree(saved, live, "restored checkpoint vs live state")
+        del saved, live
+        print(f"train: {TRAIN_STEPS} steps in {out['train_s']:.1f}s, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak "
+              f"{out['peak_gib']:.2f} GiB; step {TRAIN_STEPS - 1}'s "
+              f"checkpoint restored in {out['restore_s']:.2f}s, {n} leaves "
+              f"(params, m, v) bitwise the live state | {card}", flush=True)
+        run2 = launch_train.main(argv + ["--steps", str(TRAIN_STEPS + 1),
+                                         "--micro", "2", "--resume"])
+        l2 = run2["losses"][TRAIN_STEPS]
+        check(run2["step0"] == TRAIN_STEPS and np.isfinite(l2),
+              f"--micro 2 --resume: step0 {run2['step0']}, loss {l2}")
+        print(f"train: resumed at step {TRAIN_STEPS} with --micro 2: loss "
+              f"{l2:.4f}", flush=True)
+        api, cfg, params = run2["api"], run2["cfg"], run2["params"]
+        del run, run2
+
+        # the step's time: a paused window of fresh batches
+        opt = adamw(OVERFIT_LR)
+        state = opt.init(params)
+        step = make_train_step(api.train_loss, opt, 1)
+        data = lm_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 5)
+        batches = [next(data) for _ in range(TRAIN_TIMED + 1)]
+        params, state, _ = step(params, state, 0, batches[0])
+        torch.cuda.synchronize()
+        with quiet():
+            t0 = time.perf_counter()
+            for i, b in enumerate(batches[1:]):
+                params, state, _ = step(params, state, i + 1, b)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / TRAIN_TIMED
+        out["step_ms"] = dt * 1e3
+        out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / dt
+        print(f"train: {out['step_ms']:.1f} ms per step of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} (forward, backward, AdamW; {TRAIN_TIMED} steps, "
+              f"pool paused) = {out['tokens_per_s']:.0f} training tokens/s "
+              f"| {card}", flush=True)
+
+        # the overfit: one fixed batch
+        fixed = next(lm_batches(cfg.vocab, OVERFIT_BATCH, TRAIN_SEQ,
+                                seed=SEED + 6))
+        opt = adamw(OVERFIT_LR)
+        state = opt.init(params)
+        step = make_train_step(api.train_loss, opt, 1)
+        fit = []
+        for i in range(OVERFIT_STEPS):
+            params, state, loss = step(params, state, i, fixed)
+            fit.append(float(loss))
+        del state
+        check(all(np.isfinite(fit)), f"overfit losses {fit}")
+        check(fit[-1] < fit[0] / 2, f"overfit: the loss went {fit[0]:.4f} "
+              f"-> {fit[-1]:.4f}, not below half")
+        out["overfit"] = [fit[0], fit[-1]]
+        print(f"train: overfit one {OVERFIT_BATCH} x {TRAIN_SEQ} batch for "
+              f"{OVERFIT_STEPS} steps: loss {fit[0]:.4f} -> {fit[-1]:.4f}",
+              flush=True)
+
+        # the params alone, compiled from the checkpoint under auto and v3
+        t0 = time.perf_counter()
+        ckpt.save(tmp / "params", OVERFIT_STEPS, to_reference(params))
+        out["save_s"] = time.perf_counter() - t0
+        del params
+        free_card()
+        print(f"train: params saved alone (checkpoint.save) in "
+              f"{out['save_s']:.2f}s", flush=True)
+        served = {}
+        prompts = [np.asarray(r[:PROMPT_TOKENS]) for r in fixed["tokens"]]
+        for be, want in (("auto", "v2"), ("v3", "v3")):
+            path = tmp / f"{be}.smez"
+            t0 = time.perf_counter()
+            plan = launch_compile.main(
+                ["--arch", "qwen1.5-0.5b", "--n-layers", str(QWEN_LAYERS),
+                 "--ckpt", str(tmp / "params"), "--backend", be, "--out",
+                 str(path), *TRAIN_COMPILE])
+            compile_s = time.perf_counter() - t0
+            check(all((lp.n_bits, lp.window, lp.squeeze, lp.backend)
+                      == (8, 3, 1, want) for lp in plan.layers.values()),
+                  f"compile --ckpt {be}: not every leaf (8, 3, 1) -> {want}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params = ServeEngine.from_artifact(api, path, **ONE_SHOT).params
+            torch.cuda.synchronize()
+            boot_s = time.perf_counter() - t0
+            print(f"train: compile --ckpt --backend {be}: {compile_s:.1f}s, "
+                  f"every leaf (8, 3, 1) -> {want}; booted in {boot_s:.2f}s",
+                  flush=True)
+            tokens, counts = serve_run(
+                api, params, prompts, be, card, label=f"trained {be}",
+                route=(want, KERNELS_OF[want]), max_new=MAX_NEW)
+            for k in launches:
+                launches[k] += counts[k]
+            served[be] = (params, tokens)
+            out[be] = dict(compile_s=compile_s, boot_s=boot_s)
+        check(served["auto"][1] == served["v3"][1],
+              "the trained artifacts served different tokens under v2 and v3")
+        toks, plen = prefill_window(prompts, ONE_SHOT["s_max"])
+        api32 = type(api)(dataclasses.replace(cfg, dtype="float32"), dev)
+        lk = {be: api32.prefill(p, toks, s_max=ONE_SHOT["s_max"],
+                                plen=plen)[0] for be, (p, _) in served.items()}
+        check(bool(torch.equal(lk["auto"], lk["v3"])),
+              f"trained f32 prefill logits differ between v2 and v3: "
+              f"{mismatch(lk['auto'], lk['v3'])}")
+        for be, (p, _) in served.items():
+            with plain_kernels():
+                lp = api32.prefill(p, toks, s_max=ONE_SHOT["s_max"],
+                                   plen=plen)[0]
+            check(bool(torch.isfinite(lk[be]).all())
+                  and lk[be].shape == (4, cfg.vocab), f"{be} logits")
+            diff = float((lk[be] - lp).abs().max() / lp.abs().max())
+            check(diff <= TOL_LOGITS["float32"],
+                  f"trained {be} logits vs plain: {diff}")
+            out[be]["logits_rel_plain"] = diff
+        tokens = served["v3"][1]
+        out["distinct"] = len({t for row in tokens for t in row})
+        out["matches"] = sum(int(t == fixed["tokens"][i][PROMPT_TOKENS + j])
+                             for i, row in enumerate(tokens)
+                             for j, t in enumerate(row))
+        print(f"train: v2 (auto) and v3 artifacts: identical tokens, f32 "
+              f"prefill logits v2 == v3 bitwise, vs the plain versions "
+              f"{out['auto']['logits_rel_plain']:.2e} / "
+              f"{out['v3']['logits_rel_plain']:.2e}; {out['distinct']} "
+              f"distinct tokens served, {out['matches']} of "
+              f"{len(tokens) * MAX_NEW} equal to the batch's continuation",
+              flush=True)
+        del served, lk
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["paused_s"] = paused_s() - p_phase
+    print(f"train: phase {out['phase_s']:.1f}s, the pool paused "
+          f"{out['paused_s']:.1f}s of it", flush=True)
+    return out, launches
+
+
+# -------------------------------------------------------------- the CNNs
+#: the reference's CNN task (``benchmarks/_cnn_task.py:22-24``, ``_train``
+#: and ``get_task``): widths, image size, 512 training images at seed 0,
+#: 384 test images at seed 99, 60 AdamW steps at lr 5e-3, cosine, warmup 10
+R_WIDTHS, M_WIDTHS, IMG = (32, 64, 128, 128), (32, 64, 96, 128), 12
+CNN_TRAIN, CNN_TEST, CNN_STEPS, CNN_LR = 512, 384, 60, 5e-3
+
+
+@contextlib.contextmanager
+def matmul_inputs(weights):
+    """Record the left operand of every matmul whose right operand is one
+    of ``weights`` ({name: tensor}): {name: [M, K] activations}."""
+    from torch.overrides import TorchFunctionMode
+    by_id = {id(w): name for name, w in weights.items()}
+    seen = {}
+
+    class Spy(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in ("matmul", "__matmul__") \
+                    and id(args[1]) in by_id:
+                seen[by_id[id(args[1])]] = args[0].reshape(
+                    -1, args[1].shape[0]).detach().clone()
+            return func(*args, **(kwargs or {}))
+    with Spy():
+        yield seen
+
+
+def cnn_phase(dev, card):
+    """The paper's CNNs trained on the card; their float and SME
+    accuracy and crossbar counts; every packable conv matrix through
+    v1, v2 and v3 on its real activations.  Returns the readings, the
+    kernel rows per shape and the launches of the activations' runs."""
+    import functools
+    from repro_torch.core import mapping
+    from repro_torch.core.backend import sme_apply, smeweight_from_param
+    from repro_torch.core.integrate import (pack_sme_param, sme_dequant,
+                                            to_torch)
+    from repro_torch.core.quant import quantize
+    from repro_torch.core.sme import sme_matmul_ref_np
+    from repro_torch.core.squeeze import squeeze_out
+    from repro_torch.data import image_task
+    from repro_torch.models import cnn
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten, unflatten_like
+    t_phase, p_phase = time.perf_counter(), paused_s()
+    x_tr, y_tr = (torch.as_tensor(a, device=dev)
+                  for a in image_task(CNN_TRAIN, size=IMG, seed=0))
+    x_te, y_te = (torch.as_tensor(a, device=dev)
+                  for a in image_task(CNN_TEST, size=IMG, seed=99))
+    nets = {"resnet": (cnn.resnet_init, cnn.resnet_apply, R_WIDTHS),
+            "mobilenet": (cnn.mobilenet_init, cnn.mobilenet_apply, M_WIDTHS)}
+    out, shapes, eligible = {}, [], {}
+    acts_launches = {name: 0 for name in KERNELS}
+    for i, (net, (init, apply, widths)) in enumerate(nets.items()):
+        apply = functools.partial(apply, widths=widths)
+        params = to_torch(init(np.random.default_rng(SEED + i),
+                               widths=widths), dev)
+        opt = adamw(cosine_schedule(CNN_LR, 10, CNN_STEPS))
+        state = opt.init(params)
+        step = make_train_step(
+            lambda p, b: cnn.cnn_loss(apply, p, b["x"], b["y"]), opt)
+        # its seconds are a reading: 60 steps of ~1,500 small launches
+        # each, which the packing pool's host load slows up to 10x
+        with quiet():
+            t0 = time.perf_counter()
+            for s in range(CNN_STEPS):
+                params, state, loss = step(params, state, s,
+                                           {"x": x_tr, "y": y_tr})
+            loss = float(loss)
+            train_s = time.perf_counter() - t0
+        check(np.isfinite(loss), f"{net}: loss {loss}")
+
+        def acc(p):
+            with torch.no_grad():
+                return float((apply(p, x_te).argmax(-1) == y_te).float()
+                             .mean())
+        mats = cnn.conv_weight_matrices(params)
+        # kernel operands only for the matrices the kernels run
+        packed = {k: pack_sme_param(w, backend="all" if min(w.shape) >= 128
+                                    else None) for k, w in mats}
+        flat = flatten(params)
+        deq = unflatten_like(params, [
+            sme_dequant(to_torch(packed[k], dev), torch.float32)
+            if k in packed else v for k, v in flat.items()])
+        a_float, a_sme = acc(params), acc(deq)
+        # all conv matrices, and those of >= 128 columns (the paper
+        # tables' ``min_cols=128``: the layers a 128-wide crossbar targets)
+        xbars = np.zeros((2, 3), np.int64)
+        for _, w in mats:
+            q = quantize(w, "sme", 8, 3)
+            n = np.array([mapping.conventional_crossbar_total(w.shape, 8),
+                          mapping.sme_crossbar_count(q.codes, 8),
+                          mapping.squeezed_crossbar_count(
+                              squeeze_out(q.codes, 8, 1))])
+            xbars[0] += n
+            xbars[1] += n * (w.shape[1] >= 128)
+        out[net] = dict(train_s=train_s, loss=loss, acc_float=a_float,
+                        acc_sme=a_sme, crossbars={
+                            sel: dict(zip(("conventional", "sme",
+                                           "squeezed1"), map(int, x)))
+                            for sel, x in zip(("all", "cols128"), xbars)})
+        print(f"cnn[{net}]: widths {widths}, {CNN_STEPS} AdamW steps on "
+              f"{CNN_TRAIN} images of {IMG}x{IMG} in {train_s:.1f}s, loss "
+              f"{loss:.4f}; test accuracy ({CNN_TEST} images) float "
+              f"{a_float:.4f}, every conv matrix SME-dequantized (8 bits, "
+              f"window 3, squeeze 1) {a_sme:.4f}; crossbars "
+              f"(conventional, SME, squeezed 1) of its {len(mats)} conv "
+              f"matrices {tuple(map(int, xbars[0]))}, of those with >= 128 "
+              f"columns {tuple(map(int, xbars[1]))} ("
+              f"{xbars[1, 0] / max(xbars[1, 2], 1):.2f}x) | {card}",
+              flush=True)
+
+        # every matrix the reference's converter would pack (K, N >= 128),
+        # on its real activations: the full test set and one image
+        weights = {k: w for k, w in flat.items()
+                   if k in packed and min(w.shape) >= 128}
+        with matmul_inputs(weights) as seen, torch.no_grad():
+            apply(params, x_te)
+        for k in weights:
+            p = to_torch(packed[k], dev)
+            K, N = weights[k].shape
+            x_all = seen[k]
+            one = x_all.shape[0] // CNN_TEST
+            smew = smeweight_from_param(packed[k])
+            for m, x in (("test set", x_all), ("one image", x_all[:one])):
+                zero_counts()
+                ys = {be: sme_apply(x, p, be, out_dtype=torch.float32)
+                      for be in ("v1", "v2", "v3")}
+                torch.cuda.synchronize()
+                for name in KERNELS:
+                    acts_launches[name] += wrappers()[name].launches
+                check(bool(torch.equal(ys["v1"], ys["v2"]))
+                      and bool(torch.equal(ys["v1"], ys["v3"])),
+                      f"cnn {net} {k} {m}: v1, v2, v3 differ: "
+                      f"{mismatch(ys['v1'], ys['v3'])}")
+                ref = sme_matmul_ref_np(x.cpu().numpy(), smew)
+                rel = float(np.abs(ys["v3"].cpu().numpy() - ref).max()
+                            / np.abs(ref).max())
+                check(rel <= TOL_ORACLE, f"cnn {net} {k} {m}: oracle {rel}")
+                print(f"cnn[{net}]: {k} {K}x{N} (K padded to "
+                      f"{-(-K // 128) * 128}), {m} (M = {x.shape[0]}): "
+                      f"v1 == v2 == v3 bitwise, oracle rel {rel:.2e}",
+                      flush=True)
+            eligible[f"{net} {k}"] = (p, smew, K, N, (one, x_all.shape[0]))
+        del params, state, deq
+    for name in KERNELS:
+        check(acts_launches[name] > 0,
+              f"cnn: {name} never launched on the conv matrices")
+    # one kernel row per shape (the first matrix of each (K, N, M))
+    seen_shapes = set()
+    for label, (p, smew, K, N, ms) in eligible.items():
+        if (K, N, ms) not in seen_shapes:
+            seen_shapes.add((K, N, ms))
+            shapes.append((f"cnn {label} {K}x{N}", p, smew, K, N, ms))
+    rows = kernel_rows(dev, shapes, card, SEED + 9)
+    out["matrices"] = len(eligible)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["paused_s"] = paused_s() - p_phase
+    print(f"cnn: {len(eligible)} conv matrices through v1, v2 and v3, "
+          f"launches {acts_launches}; phase {out['phase_s']:.1f}s, the pool "
+          f"paused {out['paused_s']:.1f}s of it", flush=True)
+    return rows, acts_launches, out
 
 
 # ------------------------------------------------------------ gemma3-12b
@@ -3331,6 +3746,10 @@ def main() -> int:
         free_card()
         compiled, artifact_launches = compile_phase(dev, card, served)
         free_card()
+        trained, train_launches = train_phase(dev, card)
+        free_card()
+        cnn_rows, cnn_launches, cnn_out = cnn_phase(dev, card)
+        free_card()
         gemma_rows, gemma_launches, gemma = gemma_phase(
             dev, card, packer.wait("gemma"))
         free_card()
@@ -3381,6 +3800,11 @@ def main() -> int:
             row.update(draft)
         # the compile phase's runs from the two artifacts
         row["artifact_launches"] = artifact_launches[name]
+        # the train phase's serving runs of the trained artifacts, and the
+        # CNN phase's conv matrices on their activations (rows per shape)
+        row["train_launches"] = train_launches[name]
+        row["cnn_launches"] = cnn_launches[name]
+        row["cnn"] = cnn_rows[name]
         # gemma3-12b's path (one-shot auto and v3, the engine twice) and
         # its kernel rows: per call at each shape and M
         row["gemma_launches"] = gemma_launches[name]
@@ -3397,7 +3821,8 @@ def main() -> int:
         row["encdec"] = enc_rows[name]
         rows.append(row)
     # qwen times are per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls
-    print(json.dumps({"compile": compiled, "gemma": gemma,
+    print(json.dumps({"compile": compiled, "train": trained, "cnn": cnn_out,
+                      "gemma": gemma,
                       "slice": slice_out, "recurrent": rec_out,
                       "encdec": enc_out}))
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,5 @@
 """Config registry of the port: every architecture of the reference's."""
-from .base import ModelConfig, scale_down
+from .base import SHAPES, SMOKE_SHAPE, ModelConfig, ShapeConfig, scale_down
 from . import (deepseek_v2_lite, gemma3_12b, jamba_v01, llava_next_34b,
                mixtral_8x7b, phi4_mini, qwen15_05b, qwen2_05b, whisper_medium,
                xlstm_13b)
@@ -17,4 +17,11 @@ ARCHS = {
     "xlstm-1.3b": xlstm_13b.CONFIG,
 }
 
-__all__ = ["ModelConfig", "scale_down", "ARCHS"]
+
+def get_smoke(name: str) -> ModelConfig:
+    """The reference's smoke config of ``name`` (``scale_down`` defaults)."""
+    return scale_down(ARCHS[name])
+
+
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "SMOKE_SHAPE",
+           "scale_down", "get_smoke", "ARCHS"]

@@ -1,4 +1,4 @@
-"""Model configuration: the reference's, but for its benchmark shapes.
+"""Model configuration and the benchmark input shapes.
 
 Checked against ``repro/configs/base.py``: same field names and defaults
 for every field the ported paths read (sliding-window local/global
@@ -9,14 +9,16 @@ depth, LayerNorm and audio stub), and the same ``scale_down`` rules for
 them, so a config built by either package describes the same model
 (``tests/test_torch_model.py``, ``test_torch_family.py``,
 ``test_torch_moe.py`` and ``test_torch_encdec.py`` compare the two field
-by field).
+by field).  ``ShapeConfig``, ``SHAPES`` and ``SMOKE_SHAPE`` are copies of
+the reference's, for ``train.pick_microbatches``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
-__all__ = ["ModelConfig", "scale_down"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "SMOKE_SHAPE",
+           "scale_down"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +91,26 @@ class ModelConfig:
         if not self.moe_pattern:
             return True
         return bool(self.moe_pattern[slot])
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """A benchmark input shape (the reference's): what
+    ``train.pick_microbatches`` sizes microbatches for."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+SMOKE_SHAPE = ShapeConfig("smoke", 32, 2, "train")
 
 
 def scale_down(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -22,7 +22,9 @@ experts).  An encoder-decoder model's (whisper): the stacked ``enc``
 and ``dec`` layers split into per-layer lists, ``embed``, ``enc_norm``,
 ``dec_norm`` and ``lm_head`` as they are.  Any other top-level key is
 refused.  ``to_reference`` is the inverse: the layout the compiler plans,
-packs and persists.
+packs and persists.  A CNN's tree (``models/cnn.py``) has the reference's
+layout in both packages: ``cnn_from_reference`` and ``cnn_to_reference``
+map its arrays to tensors on a device and back.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import torch
 
 from .core.integrate import to_torch
 
-__all__ = ["from_reference", "to_reference"]
+__all__ = ["from_reference", "to_reference", "cnn_from_reference",
+           "cnn_to_reference"]
 
 
 def _top(key: str) -> bool:
@@ -86,6 +89,29 @@ def from_reference(tree: dict, device=None) -> dict:
     return to_torch(out, device)
 
 
+def cnn_from_reference(tree: dict, device=None) -> dict:
+    """A CNN's reference params (numpy arrays) as the port's: the same
+    tree, every leaf a torch tensor on ``device``."""
+    return to_torch(tree, device)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def _walk(t):
+    """A dict tree with every leaf a numpy array."""
+    if isinstance(t, dict):
+        return {k: _walk(v) for k, v in t.items()}
+    return _host(t)
+
+
+def cnn_to_reference(params: dict) -> dict:
+    """The inverse of :func:`cnn_from_reference`: the same tree of numpy
+    arrays."""
+    return _walk(params)
+
+
 def to_reference(params: dict, n_slots: int = 1) -> dict:
     """The inverse of :func:`from_reference`: the port's per-layer params
     (torch tensors or numpy arrays) as the reference's tree of numpy
@@ -95,28 +121,20 @@ def to_reference(params: dict, n_slots: int = 1) -> dict:
     compiler plans and packs this layout (one plan per stacked leaf, as
     the reference does), so a ``.smez`` of either package serves in the
     other."""
-    def host(t):
-        return t.detach().cpu().numpy() if torch.is_tensor(t) \
-            else np.asarray(t)
-
     def stack(*layers):
         if isinstance(layers[0], dict):
             return {k: stack(*(d[k] for d in layers)) for k in layers[0]}
-        return np.stack([host(t) for t in layers])
+        return np.stack([_host(t) for t in layers])
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        return host(t)
     if _encdec(params):
-        out = {k: walk(v) for k, v in params.items() if k in _ENCDEC_TOP}
+        out = {k: _walk(v) for k, v in params.items() if k in _ENCDEC_TOP}
         out["enc"], out["dec"] = stack(*params["enc"]), stack(*params["dec"])
         return out
     blocks = params["blocks"]
     if len(blocks) % n_slots:
         raise ValueError(f"{len(blocks)} layers are not whole superblocks of "
                          f"{n_slots} slots")
-    out = {k: walk(v) for k, v in params.items() if _top(k)}
+    out = {k: _walk(v) for k, v in params.items() if _top(k)}
     out["blocks"] = {f"slot{j}": stack(*blocks[j::n_slots])
                      for j in range(n_slots)}
     return out

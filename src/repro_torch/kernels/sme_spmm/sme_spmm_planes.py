@@ -34,7 +34,17 @@ def sme_spmm_planes(x: torch.Tensor, planes: torch.Tensor, sign: torch.Tensor,
                     shift: torch.Tensor, last: torch.Tensor, nnz: torch.Tensor
                     ) -> torch.Tensor:
     """y [M, Nt*bn] f32, unscaled.  x: f32 [M, K_pad], M a multiple of 128
-    (the reference's M tile); the rest as ``SMEWeight.pack_plane_csc``."""
+    (the reference's M tile); the rest as ``SMEWeight.pack_plane_csc``.
+
+    Trust boundary: the operand lists must come from packing
+    (``SMEWeight.pack_*``, ``convert_params_to_sme``), from loading an
+    artifact, or through ``core.backend.validate_operands``.  The wrapper
+    checks only dtypes, shapes, devices and alignment (no host pass over
+    the lists on the hot path); a list it did not get that way (an
+    ``nnz`` outside ``[0, L]``, a tile group deeper than the planes a
+    launch stages, more groups in a column than the launch holds) may
+    ``__trap()`` on the card (``ordered_partials.cuh``), which leaves the
+    CUDA context unusable."""
     check_operands(x, planes, sign, rowscale, rowid, shift, last, nnz,
                    m_multiple=128)
     if x.device.type == "cpu":

@@ -45,7 +45,17 @@ def sme_spmm_planes_decode(x: torch.Tensor, planes: torch.Tensor,
                            nnz: torch.Tensor, *,
                            plane_depth: Optional[int] = None) -> torch.Tensor:
     """y [M, Nt*bn] f32, fully scaled.  x: f32 [M, K_pad], M a multiple of
-    8; colscale: f32 [Nt, bn]; the rest as ``SMEWeight.pack_plane_csc``."""
+    8; colscale: f32 [Nt, bn]; the rest as ``SMEWeight.pack_plane_csc``.
+
+    Trust boundary: the operand lists must come from packing
+    (``SMEWeight.pack_*``, ``convert_params_to_sme``), from loading an
+    artifact, or through ``core.backend.validate_operands``.  The wrapper
+    checks only dtypes, shapes, devices and alignment (no host pass over
+    the lists on the hot path); a list it did not get that way (an
+    ``nnz`` outside ``[0, L]``, a tile group deeper than the planes a
+    launch stages, more groups in a column than the launch holds) may
+    ``__trap()`` on the card (``ordered_partials.cuh``), which leaves the
+    CUDA context unusable."""
     check_operands(x, planes, sign, rowscale, rowid, shift, last, nnz,
                    m_multiple=8)
     nt, L, _, bn = planes.shape

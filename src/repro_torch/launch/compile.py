@@ -1,17 +1,24 @@
 """Offline model compiler CLI: plan -> reorder -> pack -> ``.smez``.
 
-Checked against ``repro/launch/compile.py`` (its flags but ``--ckpt``:
-restoring a training checkpoint waits for the port's training).  The
-weights are the port's ``init_params`` from a numpy generator seeded by
-``--seed``, put into the reference's layout (``convert.to_reference``:
-every layer's leaf stacked, an enc-dec model's ``enc`` and ``dec``), which the planner plans one leaf at a time,
-as the reference does.  Full width by default; ``--small`` is the
-2-layer, 128-wide config of the CPU tests; ``--d-model``/``--d-ff``/
+Checked against ``repro/launch/compile.py`` (its flags, ``--ckpt``
+included).  The weights are the port's ``init_params`` from a numpy
+generator seeded by ``--seed``, put into the reference's layout
+(``convert.to_reference``: every layer's leaf stacked, an enc-dec
+model's ``enc`` and ``dec``), which the planner plans one leaf at a time,
+as the reference does; ``--ckpt DIR`` restores DIR's latest checkpoint
+into that tree first (``train.checkpoint.restore``, leaves named by the
+reference's rule: ``embed/w``, ``blocks/slot0/mix/q/w``, ...), so a
+params checkpoint written by either package compiles.  A checkpoint of
+``launch/train.py`` holds ``params/...`` and ``opt/...`` and is refused
+by both compilers (ROADMAP R9): save the params alone to compile them.
+Full width by default; ``--small`` is the 2-layer, 128-wide config of the
+CPU tests; ``--d-model``/``--d-ff``/
 ``--head-dim``/``--vocab`` scale the config down as the reference's
 flags do (``--small`` rounds its 2 layers up to whole superblocks: 6
 for gemma3-12b's 5:1 local/global pattern, 8 for xlstm-1.3b's and
 jamba-v0.1-52b's; an MoE model's experts are 128 wide, so they pack;
-xLSTM keeps ``d_ff`` 0).  ``--arch`` takes any of the port's ``ARCHS``
+xLSTM keeps ``d_ff`` 0); ``--n-layers`` cuts the depth alone, at any
+width (whole superblocks).  ``--arch`` takes any of the port's ``ARCHS``
 (the MoE, vision, recurrent and encoder-decoder models included); an
 untied ``lm_head``, stacked experts, deepseek's ``first0``, a vision
 ``patch_proj``, the recurrent blocks' projections and whisper's encoder,
@@ -19,7 +26,7 @@ cross-attention and head are planned and packed like every other
 linear.  Compiling runs on the host (numpy); no card is needed.
 
     PYTHONPATH=src python -m repro_torch.launch.compile --small \\
-        --out build/small.smez [--budget 0.06] \\
+        --out build/small.smez [--budget 0.06] [--ckpt DIR] \\
         [--backend auto|v1|v2|v3|none] [--no-reorder] [--verify]
 
 The artifact then boots serving with zero per-boot packing:
@@ -30,6 +37,7 @@ The artifact then boots serving with zero per-boot packing:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import pathlib
 import time
 
@@ -51,11 +59,15 @@ def add_scale_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--d-ff", type=int, default=None)
     ap.add_argument("--head-dim", type=int, default=None)
     ap.add_argument("--vocab", type=int, default=None)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="depth (at any width): the leading dense layers "
+                         "and whole superblocks")
 
 
 def scaled_config(args):
     """``--arch`` at full width, or scaled down: ``--small``, or any dim
-    override (the reference's ``scale_down`` with those dims)."""
+    override (the reference's ``scale_down`` with those dims); then
+    ``--n-layers``."""
     over = {k: getattr(args, k) for k in ("d_model", "d_ff", "head_dim",
                                           "vocab")
             if getattr(args, k) is not None}
@@ -71,6 +83,13 @@ def scaled_config(args):
                 # experts past the 128 floor, so they pack
                 small["expert_dff"] = 128
         cfg = scale_down(cfg, **{**small, **over})
+    if args.n_layers is not None:
+        body = args.n_layers - cfg.first_dense_layers
+        if body <= 0 or body % len(cfg.pattern):
+            raise SystemExit(f"--n-layers {args.n_layers}: {cfg.name} takes "
+                             f"{cfg.first_dense_layers} leading layers and "
+                             f"whole superblocks of {len(cfg.pattern)}")
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     return cfg
 
 
@@ -97,6 +116,8 @@ def main(argv=None):
     add_scale_args(ap)
     ap.add_argument("--out", default=None,
                     help="artifact directory (default <arch>.smez)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint dir to compile (default: fresh init)")
     ap.add_argument("--budget", type=float, default=0.06,
                     help="global weighted relative-error budget")
     ap.add_argument("--backend", default="auto",
@@ -124,6 +145,9 @@ def main(argv=None):
     cfg = scaled_config(args)
     params = to_reference(init_params(cfg, np.random.default_rng(args.seed)),
                           n_slots=len(cfg.pattern))
+    if args.ckpt:
+        from repro_torch.train.checkpoint import restore
+        params = restore(args.ckpt, None, params)
     out = args.out or f"{args.arch}.smez"
     backend = None if args.backend == "none" else args.backend
     t0 = time.perf_counter()

@@ -1,11 +1,12 @@
 """One decoder layer: norm -> mixer -> residual -> norm -> MLP ->
 residual, of one slot kind.
 
-Checked against ``repro/models/blocks.py`` (``block_prefill``,
-``block_decode``, ``init_block_cache``): the mixer is attention or one of
-the recurrent blocks of ``models/ssm.py`` (``mamba``, ``mlstm``,
-``slstm``, whose caches are their f32 states, Mamba's conv window in the
-cache dtype); a layer without ``mlp`` (xLSTM, ``d_ff`` 0) has no MLP half.
+Checked against ``repro/models/blocks.py`` (``block_train``,
+``block_prefill``, ``block_decode``, ``init_block_cache``): the mixer is
+attention or one of the recurrent blocks of ``models/ssm.py`` (``mamba``,
+``mlstm``, ``slstm``, whose caches are their f32 states, Mamba's conv
+window in the cache dtype); a layer without ``mlp`` (xLSTM, ``d_ff`` 0)
+has no MLP half.
 Of the attention kinds, ``attn`` and
 ``attn_global`` attend every earlier position, ``attn_local`` the last
 ``cfg.swa_window`` (its cache a ring of ``min(swa_window, s_max)``
@@ -13,6 +14,9 @@ slots); MLA replaces GQA when ``cfg.attn_type == "mla"`` (its cache the
 compressed ``c`` [B, s_max, kv_lora] and ``k_pe`` [B, s_max, rope]).  The
 MLP is ``cfg.act`` (SwiGLU or GELU), or an MoE MLP where ``use_moe``
 (``cfg.moe_for_slot``), which a ragged prefill's ``plen`` reaches.
+``block_train`` is the prefill of every kind without a cache (a
+recurrent block's final state is dropped): the same function the
+reference's training block computes, differentiable by autograd.
 """
 from __future__ import annotations
 
@@ -25,8 +29,8 @@ from . import ssm
 from .common import mlp_apply, rmsnorm
 from .moe import moe_apply
 
-__all__ = ["ATTN_KINDS", "SSM_KINDS", "block_prefill", "block_decode",
-           "init_block_cache"]
+__all__ = ["ATTN_KINDS", "SSM_KINDS", "block_train", "block_prefill",
+           "block_decode", "init_block_cache"]
 
 ATTN_KINDS = ("attn", "attn_global", "attn_local")
 #: recurrent kind -> (prefill, decode, zero state)
@@ -67,6 +71,12 @@ def block_prefill(p, x, cfg, kind: str, cache_len: int, plen=None,
         y, cache = att.gqa_prefill(p["mix"], h, cfg, cache_len=cache_len,
                                    plen=plen, backend=backend, window=window)
     return _mlp_half(p, x + y, cfg, use_moe, backend, plen), cache
+
+
+def block_train(p, x, cfg, kind: str, use_moe: bool = False
+                ) -> torch.Tensor:
+    """One layer over the whole sequence, no cache: the training block."""
+    return block_prefill(p, x, cfg, kind, 0, use_moe=use_moe)[0]
 
 
 def block_decode(p, x, cache, pos, cfg, kind: str, active=None,

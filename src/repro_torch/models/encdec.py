@@ -2,9 +2,10 @@
 
 Checked against ``repro/models/encdec.py`` (``encdec_encode``,
 ``_dec_embed``, ``encdec_init_cache``, ``encdec_prefill``,
-``encdec_decode_step`` and ``encdec_init``'s distributions).  The audio
-frontend is a stub: ``frames`` [B, S_src, D] are precomputed frame
-embeddings.  A bidirectional encoder (sinusoidal positions, then
+``encdec_decode_step``, ``encdec_train_loss`` and ``encdec_init``'s
+distributions).  The audio frontend is a stub: ``frames`` [B, S_src, D]
+are precomputed frame embeddings.  A bidirectional encoder (sinusoidal
+positions, then
 LayerNorm -> self-attention -> LayerNorm -> GELU MLP per layer, then a
 final norm) gives the states the causal decoder's cross-attention reads;
 the decoder adds sinusoidal positions to its token embeddings and runs
@@ -22,7 +23,10 @@ goes through ``sme_apply`` with f32 output (the reference's ``x @ w``
 cannot take a packed head, ROADMAP R7), a dense one is ``x @ w`` in the
 compute dtype, then f32.  Decode takes each row's source length
 (``src_len``), so that a cross cache longer than the row's source is
-attended only over its own keys (ROADMAP R6).
+attended only over its own keys (ROADMAP R6).  Training
+(``encdec_train_loss``) runs the prefill's decoder layers without caches
+and scores them through ``transformer.chunked_ce_loss`` on the dense
+``lm_head``.
 """
 from __future__ import annotations
 
@@ -33,10 +37,11 @@ import torch
 
 from . import attention as att
 from .common import apply_norm, mlp_apply, norm_pos_active, sinusoidal_pos
-from .transformer import _head_logits, _lin, compute_dtype
+from .transformer import (_head_logits, _lin, chunked_ce_loss,
+                          compute_dtype, dense_only)
 
 __all__ = ["encdec_init", "encdec_encode", "encdec_init_cache",
-           "encdec_prefill", "encdec_decode_step"]
+           "encdec_prefill", "encdec_decode_step", "encdec_train_loss"]
 
 
 def _norm(cfg) -> dict:
@@ -132,19 +137,15 @@ def encdec_init_cache(cfg, batch: int, s_max: int, src_len: int,
             for _ in range(cfg.n_layers)]
 
 
-def encdec_prefill(params, tokens: torch.Tensor, frames: torch.Tensor, cfg,
-                   s_max: int, backend: Optional[str] = None,
-                   block_q: int = 512, block_k: int = 512):
-    """Encode ``frames``, then prefill the decoder on tokens [B, S] (not
-    ragged: every row is S long).  Returns (f32 logits [B, V] at the last
-    position, per-layer caches: self K/V over ``s_max`` slots, cross K/V
-    over the S_src encoder states)."""
-    enc = encdec_encode(params, frames, cfg, backend, block_q, block_k)
-    x = _dec_embed(params, tokens, cfg)
+def _decoder(params, x, enc, cfg, cache_len: int, backend, block_q: int,
+             block_k: int):
+    """The decoder layers over x [B, S, D] and the encoder states: (the
+    final-normed states, per-layer caches, self K/V over ``cache_len``
+    slots, None without one)."""
     caches = []
     for p in params["dec"]:
         a = apply_norm(x, p["norm1"], cfg.norm)
-        y, self_c = att.gqa_prefill(p["self"], a, cfg, cache_len=s_max,
+        y, self_c = att.gqa_prefill(p["self"], a, cfg, cache_len=cache_len,
                                     backend=backend, block_q=block_q,
                                     block_k=block_k)
         x = x + y
@@ -155,8 +156,36 @@ def encdec_prefill(params, tokens: torch.Tensor, frames: torch.Tensor, cfg,
         m = apply_norm(x, p["norm3"], cfg.norm)
         x = x + mlp_apply(m, p["mlp"], backend, cfg.act)
         caches.append({"self": self_c, "cross": ckv})
-    x = apply_norm(x, params["dec_norm"], cfg.norm)
+    return apply_norm(x, params["dec_norm"], cfg.norm), caches
+
+
+def encdec_prefill(params, tokens: torch.Tensor, frames: torch.Tensor, cfg,
+                   s_max: int, backend: Optional[str] = None,
+                   block_q: int = 512, block_k: int = 512):
+    """Encode ``frames``, then prefill the decoder on tokens [B, S] (not
+    ragged: every row is S long).  Returns (f32 logits [B, V] at the last
+    position, per-layer caches: self K/V over ``s_max`` slots, cross K/V
+    over the S_src encoder states)."""
+    enc = encdec_encode(params, frames, cfg, backend, block_q, block_k)
+    x, caches = _decoder(params, _dec_embed(params, tokens, cfg), enc, cfg,
+                         s_max, backend, block_q, block_k)
     return _head_logits(params, cfg, x[:, -1], backend), caches
+
+
+def encdec_train_loss(params, tokens: torch.Tensor, frames: torch.Tensor,
+                      labels: torch.Tensor, cfg,
+                      mask: Optional[torch.Tensor] = None,
+                      loss_chunk: int = 128) -> torch.Tensor:
+    """Mean cross-entropy of the decoder's next tokens over ``frames``."""
+    dense_only(params)
+    enc = encdec_encode(params, frames, cfg)
+    x, _ = _decoder(params, _dec_embed(params, tokens, cfg), enc, cfg, 0,
+                    None, 512, 512)
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return chunked_ce_loss(x, params["lm_head"]["w"], labels, mask,
+                           loss_chunk)
 
 
 def encdec_decode_step(params, token: torch.Tensor, caches: list, pos, cfg,

@@ -16,7 +16,10 @@ the reference does):
 (logits, caches) with per-row ``pos``/``active`` (and, enc-dec only, each
 row's source length, ROADMAP R6), ``decode_chunk(params, tokens, caches,
 pos, nvalid, active, gated)`` (``make_decode_chunk``) and
-``init_cache(batch, s_max, src_len=None)``.  Token and position inputs
+``init_cache(batch, s_max, src_len=None)`` and ``train_loss(params,
+batch)``, the scalar training loss of a batch dict (``tokens``,
+``labels``, optional ``mask``, ``patches`` or ``frames``, numpy or
+torch) on dense params, differentiable by autograd.  Token and position inputs
 may be numpy arrays; they are moved to the model's device.  ``backend``
 picks the SME backend for packed weights (None: the first of v2, v3, v1
 whose operands the weights carry, else torch).  Still refused: MLP
@@ -107,6 +110,23 @@ class ModelAPI:
 
     def _ids(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device).long()
+
+    def train_loss(self, params, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch`` (the reference's
+        ``train_loss``): ``tokens`` [B, S] and ``labels``, and ``mask``,
+        a vision model's ``patches`` or an enc-dec model's ``frames``
+        where given.  Dense params only."""
+        tokens, labels = self._ids(batch["tokens"]), self._ids(
+            batch["labels"])
+        opt = {k: torch.as_tensor(batch[k], device=self.device).float()
+               for k in ("mask", "patches", "frames") if k in batch}
+        if self.encdec:
+            return ed.encdec_train_loss(params, tokens, opt["frames"],
+                                        labels, self.cfg,
+                                        mask=opt.get("mask"))
+        return tf.lm_train_loss(params, tokens, labels, self.cfg,
+                                mask=opt.get("mask"),
+                                patches=opt.get("patches"))
 
     def init_cache(self, batch: int, s_max: int, device=None,
                    src_len: Optional[int] = None) -> list:

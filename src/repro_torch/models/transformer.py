@@ -3,10 +3,11 @@ layers -> final norm -> tied or untied head.
 
 Checked against ``repro/models/transformer.py`` (``lm_prefill`` with
 per-row ``plen``, ``lm_decode_step`` with per-row ``pos``/``active``,
-``lm_init_cache``, ``_head_logits``, ``_embed_tokens``, ``_run_first``
-and ``lm_init``'s distributions).  Layers are a Python list of per-layer
-param dicts (``params["blocks"][i]``) instead of the reference's stacked
-scan arrays; block layer ``i`` is of kind ``cfg.pattern[i %
+``lm_init_cache``, ``_head_logits``, ``_embed_tokens``, ``_run_first``,
+``lm_init``'s distributions, and for training ``_lm_head``,
+``chunked_ce_loss`` and ``lm_train_loss``).  Layers are a Python list
+of per-layer param dicts (``params["blocks"][i]``) instead of the
+reference's stacked scan arrays; block layer ``i`` is of kind ``cfg.pattern[i %
 len(cfg.pattern)]`` (slot ``i % len(pattern)`` of superblock ``i //
 len(pattern)`` in the reference's layout) and has an MoE MLP where
 ``cfg.moe_for_slot`` says so.  deepseek's leading dense layers keep the
@@ -25,6 +26,13 @@ one is ``xl @ head`` in the compute dtype, then f32.  Only a tied head is
 rescaled by 1/sqrt(D).  Two reference quirks are not copied (ROADMAP R2):
 the reference computes in f32 whenever its params are numpy arrays,
 whatever ``cfg.dtype`` says, and its caches are always bf16.
+
+Training (``lm_train_loss``) runs every layer as ``blocks.block_train``
+(the prefill without caches) and scores the final states through the
+chunked cross-entropy: the head's logits are built one sequence chunk at
+a time, each chunk under ``torch.utils.checkpoint``, so autograd keeps
+no [B, S, V] logits (the reference's reason for chunking).  Training is
+over dense weights: a packed (``sme_*``) leaf is refused.
 """
 from __future__ import annotations
 
@@ -32,15 +40,18 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.backend import sme_apply
-from .blocks import SSM_KINDS, block_decode, block_prefill, init_block_cache
+from .blocks import (SSM_KINDS, block_decode, block_prefill, block_train,
+                     init_block_cache)
 from .common import linear, rmsnorm
 from .ssm import mamba_dims, mlstm_dims
 
 __all__ = ["compute_dtype", "layer_slots", "ssm_mix_spec", "ssm_leaf",
            "init_layer", "lm_init", "lm_init_cache", "lm_prefill",
-           "lm_decode_step", "model_layers"]
+           "lm_decode_step", "model_layers", "chunked_ce_loss",
+           "lm_train_loss", "dense_only"]
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -271,3 +282,71 @@ def lm_decode_step(params, token: torch.Tensor, caches: list, pos, cfg,
         new.append(c)
     x = rmsnorm(x, params["final_norm"])
     return _head_logits(params, cfg, x[:, -1], backend), new
+
+
+def dense_only(params, path: str = "") -> None:
+    """Raise ``ValueError`` at the first SME-packed leaf of ``params``:
+    training differentiates dense weights, as in the reference."""
+    if isinstance(params, dict):
+        if "sme_codes" in params:
+            raise ValueError(
+                f"train_loss takes dense weights; {path or 'the tree'} is "
+                f"SME-packed (train on the dense tree, then compile it)")
+        for k, v in params.items():
+            dense_only(v, f"{path}/{k}" if path else str(k))
+    elif isinstance(params, (list, tuple)):
+        for i, v in enumerate(params):
+            dense_only(v, f"{path}/{i}")
+
+
+def _lm_head(params, cfg) -> torch.Tensor:
+    """The training head [D, V]: the tied table's transpose rescaled by
+    1/sqrt(D) (in f32, as the reference does), or the untied head."""
+    if cfg.tie_embeddings:
+        return params["embed"]["w"].T * (cfg.d_model ** -0.5)
+    return params["lm_head"]["w"]
+
+
+def _ce_chunk(hx, head_w, lx, mx):
+    logits = (hx @ head_w.to(hx.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lx[..., None])[..., 0]
+    return ((lse - gold) * mx).sum()
+
+
+def chunked_ce_loss(h, head_w, labels, mask, chunk: int = 128):
+    """h [B, S, D] -> the mean cross-entropy over ``mask``, the logits of
+    one ``chunk`` of positions at a time (recomputed in the backward)."""
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    remat = torch.is_grad_enabled() and (h.requires_grad
+                                         or head_w.requires_grad)
+    tot = cnt = 0
+    for c0 in range(0, s, chunk):
+        args = (h[:, c0:c0 + chunk], head_w, labels[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk])
+        tot = tot + (checkpoint(_ce_chunk, *args, use_reentrant=False)
+                     if remat else _ce_chunk(*args))
+        cnt = cnt + args[3].sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_train_loss(params, tokens: torch.Tensor, labels: torch.Tensor, cfg,
+                  mask: Optional[torch.Tensor] = None,
+                  patches: Optional[torch.Tensor] = None,
+                  loss_chunk: int = 128) -> torch.Tensor:
+    """Mean next-token cross-entropy of tokens [B, S] (after ``patches``
+    [B, F, D] for a vision model) against ``labels`` [B, L]; where the
+    states outnumber the labels (a vision prefix), the last L score."""
+    dense_only(params)
+    x = _embed_tokens(params, cfg, tokens, patches)
+    for p, (kind, moe) in zip(model_layers(params, cfg), layer_slots(cfg)):
+        x = block_train(p, x, cfg, kind, use_moe=moe)
+    x = rmsnorm(x, params["final_norm"])
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    if x.shape[1] != labels.shape[1]:
+        x = x[:, x.shape[1] - labels.shape[1]:]
+    return chunked_ce_loss(x, _lm_head(params, cfg), labels, mask,
+                           loss_chunk)

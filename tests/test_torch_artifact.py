@@ -216,6 +216,17 @@ def _bad_v1_groups(p):
     p.update({f"sme_v1_{k}": v for k, v in ops.items()})
 
 
+def _bad_v2_groups(p):
+    """v2's lists with more slots than row tiles in a column (L padded to
+    5)."""
+    from repro_torch.core.backend import get_backend
+    smew = sme_compress(np.random.default_rng(8).normal(0, 0.05, (384, 256)))
+    ops = get_backend("v2").pack_weight(smew, pad_to=5)
+    ops["rowid"][0, :4] = [0, 1, 2, 0]
+    ops["nnz"][0] = 4
+    p.update({f"sme_v2_{k}": v for k, v in ops.items()})
+
+
 def _first_inner(p):
     """A v3 slot inside a group (its predecessor's last == 0)."""
     j, l = np.argwhere(p["sme_v3_last"][:, :-1] == 0)[0]
@@ -261,6 +272,16 @@ MALFORMED = {
     "v3 shift 16": (
         "v3", lambda p: p["sme_v3_shift"].__setitem__((0, 0), 16), "shift"),
     "v3 group deeper than 16 planes": ("v3", _deep_group, "planes"),
+    # each condition that reaches a kernel's __trap() for every format
+    # that can carry it: nnz out of range (the walks' list scan), a group
+    # count past what the launch holds (decode_walk's cluster)
+    "v1 nnz < 0": ("v1", lambda p: p["sme_v1_nnz"].__setitem__(1, -2),
+                   "outside"),
+    "v2 nnz > L": ("v2", lambda p: p["sme_v2_nnz"].__setitem__(
+        0, p["sme_v2_rowid"].shape[1] + 1), "outside"),
+    "v3 nnz < 0": ("v3", lambda p: p["sme_v3_nnz"].__setitem__(0, -1),
+                   "outside"),
+    "v2 more groups than row tiles": ("v2", _bad_v2_groups, "tile groups"),
 }
 
 

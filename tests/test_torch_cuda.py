@@ -403,6 +403,80 @@ def test_head_shaped_weight_every_format_and_walk(cuda, m):
     assert _oracle_rel(y3[:, :1024], x, dense) <= TOL_ORACLE
 
 
+@pytest.mark.parametrize("m", [9, 3456])
+def test_padded_conv_shape_every_kernel(cuda, m):
+    """ResNet's first stage-2 conv matrix of the CNN task: K = 576 = 4.5
+    row tiles, padded with zeros to 640, N = 128; at one image (M = 9:
+    decode_walk and v3-decode) and the test set (M = 3456: tiled_walk and
+    v3-prefill).  Every kernel within 5e-5 of its plain version, v1 ≡ v2 ≡
+    v3 bitwise, within 5e-5 of the oracle over the real K."""
+    w = np.random.default_rng(23).normal(0, 1, (576, 128)) / 24.0
+    smew, a1, a2, a3 = _tile_csc(cuda, w, squeeze=1)
+    scale = float(smew.scale.reshape(-1)[0])
+    mp = -(-m // 8) * 8
+    x = torch.zeros((mp, 640), device=cuda)
+    x[:m, :576] = torch.as_tensor(np.random.default_rng(24).normal(
+        0, 1, (m, 576)), dtype=torch.float32, device=cuda)
+    x128 = torch.zeros((-(-mp // 128) * 128, 640), device=cuda)
+    x128[:mp] = x
+    y3 = sme_spmm_planes(x128, *a3)[:mp]
+    assert _rel(y3, sme_spmm_planes_plain(x128, *a3)[:mp]) <= 5e-5
+    y3 = y3 * scale * 2.0 ** -8
+    y1 = sme_spmm(x, *a1)
+    assert _rel(y1, sme_spmm_plain(x, *a1)) <= 5e-5
+    y2 = sme_spmm6(x, *a2)
+    assert _rel(y2, sme_spmm6_plain(x, *a2)) <= 5e-5
+    assert torch.equal(y1 * scale * 2.0 ** -8, y3)
+    assert torch.equal(y2 * scale * 2.0 ** -1, y3)
+    if 2 * mp <= 128:
+        cs = torch.full((1, 128), scale * 2.0 ** -8, device=cuda)
+        yd = sme_spmm_planes_decode(x, *a3[:3], cs, *a3[3:])
+        assert torch.equal(yd, y3)
+        assert _rel(yd, sme_spmm_planes_decode_plain(x, *a3[:3], cs,
+                                                     *a3[3:])) <= 5e-5
+    assert _oracle_rel(y3[:m], x[:m, :576], smew.dequant()) <= TOL_ORACLE
+
+
+def test_small_training_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """Three AdamW steps of the small qwen config (2 layers, 128 wide,
+    f32) on the card and on the CPU from the same numpy init and batches:
+    the losses agree within 1e-4, and so do the trained params (relative
+    to the largest magnitude)."""
+    from repro_torch.configs import ARCHS, scale_down
+    from repro_torch.core.integrate import to_torch
+    from repro_torch.data import lm_batches
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = scale_down(ARCHS["qwen1.5-0.5b"], d_model=128, d_ff=256,
+                     head_dim=32, n_heads=4, n_kv_heads=4, vocab=256,
+                     n_layers=2, dtype="float32")
+    init = init_params(cfg, np.random.default_rng(0))
+    data = lm_batches(cfg.vocab, 4, 32, seed=1)
+    batches = [next(data) for _ in range(3)]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        api = build_model(cfg, device=dev)
+        opt = adamw(cosine_schedule(3e-3, 1, 3), weight_decay=0.01)
+        params = to_torch(init, dev)
+        state = opt.init(params)
+        step = make_train_step(api.train_loss, opt, 1)
+        losses = []
+        for i, b in enumerate(batches):
+            params, state, loss = step(params, state, i, b)
+            losses.append(float(loss))
+        runs[dev.type] = (losses, [p.cpu() for p in tree_leaves(params)])
+    (lg, pg), (lc, pc) = runs["cuda"], runs["cpu"]
+    assert all(np.isfinite(lg))
+    for a, b in zip(lg, lc):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    top = max(float(p.abs().max()) for p in pc)
+    assert max(float((a - b).abs().max()) for a, b in zip(pg, pc)) \
+        <= 1e-4 * top
+
+
 def test_redesigned_wrappers_reject_unaligned_operands(cuda):
     _, args, cs = _operands(cuda)
     _, a1, a2, _ = _tile_csc(cuda, _pruned())

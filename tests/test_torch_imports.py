@@ -30,7 +30,10 @@ def test_port_import_leaves_jax_unloaded():
     import subprocess
     import sys
     code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.convert, repro_torch.kernels.build; "
+            "repro_torch.convert, repro_torch.kernels.build, "
+            "repro_torch.launch.train, repro_torch.launch.compile, "
+            "repro_torch.train.checkpoint, repro_torch.train.fault, "
+            "repro_torch.models.cnn, repro_torch.optim, repro_torch.data; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
