@@ -102,6 +102,20 @@
    tokens, one prefill window's f32 logits v2 == v3 bitwise and within
    1e-3 of the plain versions; the distinct tokens served and how many
    equal the batch's continuation are printed, not gated.
+5a'. Mesh serving (``mesh_phase``, inside the train phase, on its
+   trained artifacts): the four wrappers on two shards of 11 whole column
+   tiles of qwen's 1024x2816 equal the whole launch bitwise at M = 8 and
+   512; the 4 prompts served for 32 tokens from the v3 and the auto (v2)
+   artifact on the 1x1 mesh through an NCCL process group of world size
+   1 must give the train phase's tokens; then 4 spawned ranks share the
+   card over ``gloo`` (which carries CUDA tensors through host memory
+   itself: correctness, not speed) and serve the v3 artifact on meshes (2, 2)
+   and (1, 4) and the auto artifact on (2, 2): every rank's tokens must
+   equal 1x1's and rank 0's f32 prefill logits 1x1's bitwise.  Prints
+   whether ``gloo`` takes CUDA tensors natively, each rank's param
+   bytes against the 1x1 run's, ms per decode step (correctness only)
+   and the phase's seconds (budget 90 s; the pool paused while the
+   ranks serve).
 5b. The paper's CNNs (``cnn_phase``; the reference's CNN task,
    ``benchmarks/_cnn_task.py``: ResNet widths (32, 64, 128, 128),
    MobileNet (32, 64, 96, 128), 12x12 images, 512 to train at seed 0, 384
@@ -216,7 +230,8 @@
    v3-decode adds ``draft_depth``, the draft passes' ``draft_launches``
    and ``draft_ms`` / ``draft_full_ms`` per layer on the model's own
    operands; ``artifact_launches`` counts the compile phase's runs,
-   ``train_launches`` the train phase's serving runs, ``cnn_launches``
+   ``train_launches`` the train phase's serving runs, ``mesh_launches``
+   the mesh phase's (the 1x1 NCCL runs and every rank's), ``cnn_launches``
    the CNN phase's conv matrices on their activations and ``cnn`` its
    kernel rows per shape and M,
    ``gemma_launches`` gemma's serving and engine runs, ``gemma`` its
@@ -1750,6 +1765,10 @@ def train_phase(dev, card):
               f"distinct tokens served, {out['matches']} of "
               f"{len(tokens) * MAX_NEW} equal to the batch's continuation",
               flush=True)
+        out["mesh"], mesh_launches = mesh_phase(
+            dev, card, tmp, cfg, prompts,
+            {be: tokens for be, (_, tokens) in served.items()},
+            (toks, plen, lk))
         del served, lk
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1757,6 +1776,255 @@ def train_phase(dev, card):
     out["paused_s"] = paused_s() - p_phase
     print(f"train: phase {out['phase_s']:.1f}s, the pool paused "
           f"{out['paused_s']:.1f}s of it", flush=True)
+    return out, launches, mesh_launches
+
+
+# ---------------------------------------------------------------- the mesh
+#: the mesh phase's gloo runs: (the trained artifact's backend, (data,
+#: model)), each over the same four ranks sharing the one card
+MESH_RUNS = (("v3", (2, 2)), ("v3", (1, 4)), ("auto", (2, 2)))
+MESH_RANKS = 4
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(map(tree_bytes, tree.values()))
+    if isinstance(tree, (list, tuple)):
+        return sum(map(tree_bytes, tree))
+    return tree.numel() * tree.element_size()
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_serve(api, path, backend, mesh, prompts, max_new):
+    """Serve ``prompts`` once from the artifact at ``path`` on ``mesh``:
+    (tokens, the engine's stats, its params' bytes, launches per
+    kernel), the counts set to 0 just before the run."""
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine.from_artifact(api, path, mesh=mesh, backend=backend,
+                                    **ONE_SHOT)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    sync(mesh.device)
+    zero_counts()
+    with quiet():              # its ms per decode step is a reading
+        stats = eng.run(reqs, max_steps=200)
+        sync(mesh.device)
+    launches = {name: fn.launches for name, fn in wrappers().items()}
+    check(stats["completed"] == len(reqs) and eng.rank_mismatches == 0,
+          f"mesh {mesh.data}x{mesh.model} {backend}: completed "
+          f"{stats['completed']}, rank mismatches {eng.rank_mismatches}")
+    return ([r.out_tokens for r in reqs], stats, tree_bytes(eng.params),
+            launches, eng)
+
+
+def mesh_rank(rank, world, store, tmp, cfg, prompts, window, device,
+              max_new):
+    """One of the four gloo ranks on the one card: probe gloo's CUDA
+    collectives, then serve :data:`MESH_RUNS` from the trained artifacts
+    and compute the f32 prefill logits of ``window`` on each mesh; the
+    results go to ``tmp/mesh{rank}.pt``."""
+    import os
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.policy import use_policy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    tmp = pathlib.Path(tmp)
+    out = {"runs": {}}
+    x = torch.full((4,), float(rank), device=dev)
+    for what, fn in (("all_gather", lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x)),
+            ("broadcast", lambda: dist.broadcast(x, src=0))):
+        try:
+            fn()
+            out[what] = "native"
+        except Exception as e:                      # noqa: BLE001
+            out[what] = f"refused ({type(e).__name__}: {str(e)[:80]})"
+    api = build_model(cfg, device=dev)
+    api32 = build_model(dataclasses.replace(cfg, dtype="float32"), dev)
+    (tmp / f"ready{rank}").touch()
+    while not (tmp / "go").exists():
+        time.sleep(0.05)
+    for backend, shape in MESH_RUNS:
+        mesh = make_local_mesh(*shape, device=dev)
+        tokens, stats, nbytes, launches, eng = mesh_serve(
+            api, tmp / f"{backend}.smez", backend, mesh, prompts, max_new)
+        toks, plen = window
+        with use_policy(eng.policy):
+            logits = api32.prefill(eng.params, toks, s_max=ONE_SHOT["s_max"],
+                                   plen=plen)[0].cpu()
+        out["runs"][(backend, shape)] = dict(
+            tokens=tokens, bytes=nbytes, launches=launches,
+            backend=stats["backend"],
+            ms=stats["decode_s"] / stats["decode_steps"] * 1e3,
+            logits=logits if rank == 0 else None)
+        del eng
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["jax"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "repro"))
+    torch.save(out, tmp / f"mesh{rank}.pt")
+    dist.destroy_process_group()
+    os._exit(0)
+
+
+def shard_check(dev, card):
+    """The four wrappers on two shards of qwen's 1024x2816 (22 column
+    tiles, 11 per shard, as the mesh places them) against the whole
+    launch, bitwise, at M = 8 and 512 (comparison launches: not counted
+    as the path's)."""
+    from repro_torch.core.backend import sme_apply
+    from repro_torch.core.integrate import convert_params_to_sme
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import place_tree
+    w = np.random.default_rng(SEED + 9).standard_normal(
+        (1024, 2816), dtype=np.float32) * np.float32(1 / 32)
+    tree = convert_params_to_sme({"wi": {"w": w}}, squeeze=1, backend="all",
+                                 device="cpu")
+    meshes = [Mesh(1, 2, rank=r, device=dev, groups={"world": None})
+              for r in range(2)]
+    whole_w = place_tree(tree, Mesh(1, 1, device=dev))["wi"]["w"]
+    shards = [place_tree(tree, m)["wi"]["w"] for m in meshes]
+    wr = wrappers()
+    for m in (8, 512):
+        x = torch.as_tensor(np.random.default_rng(m).standard_normal(
+            (m, 1024), dtype=np.float32), device=dev)
+        for backend in ("v1", "v2", "v3"):
+            name = {"v1": "sme_spmm", "v2": "sme_spmm6"}.get(
+                backend, "sme_spmm_planes_decode" if m == 8
+                else "sme_spmm_planes")
+            n0 = wr[name].launches
+            whole = sme_apply(x, whole_w, backend)
+            got = torch.cat([sme_apply(x, sw, backend) for sw in shards],
+                            dim=-1)
+            check(wr[name].launches == n0 + 3, f"shard check: {name} "
+                  f"launched {wr[name].launches - n0} times, not 3")
+            check(bool(torch.equal(got, whole)),
+                  f"{name} at M = {m}: two shards of 11 column tiles differ "
+                  f"from the whole launch: {mismatch(got, whole)}")
+    print(f"mesh: the four kernels on two shards of qwen's 1024x2816 (11 "
+          f"of its 22 column tiles each) equal the whole launch bitwise at "
+          f"M = 8 and 512 | {card}", flush=True)
+
+
+def mesh_phase(dev, card, tmp, cfg, prompts, want, window):
+    """Mesh serving of the trained artifacts: the 1x1 mesh through an NCCL
+    group of world size 1 in this process, then :data:`MESH_RUNS` on four
+    gloo ranks sharing the card (correctness only: gloo carries CUDA
+    tensors through host memory).  Every rank's tokens must equal the
+    train phase's 1x1 tokens and rank 0's f32 prefill logits its logits
+    bitwise.  Returns the readings and the launches per kernel of every
+    mesh run (the ranks' summed)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    out, launches = {"runs": {}}, {name: 0 for name in KERNELS}
+    shard_check(dev, card)
+    api = build_model(cfg, device=dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/nccl", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device=dev)
+        one = {}
+        for be in ("v3", "auto"):
+            tokens, stats, one[be], counts, eng = mesh_serve(
+                api, tmp / f"{be}.smez", be, mesh, prompts, MAX_NEW)
+            del eng
+            check(tokens == want[be], f"mesh 1x1 over NCCL ({be}): tokens "
+                  f"differ from the train phase's serving")
+            for k in launches:
+                launches[k] += counts[k]
+            out["runs"][f"{be} 1x1 nccl"] = dict(
+                ms=stats["decode_s"] / stats["decode_steps"] * 1e3,
+                bytes=one[be])
+            print(f"mesh[1x1 {be}]: an NCCL group of world size 1 "
+                  f"({mesh.backend}): the train phase's tokens, "
+                  f"{out['runs'][f'{be} 1x1 nccl']['ms']:.2f} ms per decode "
+                  f"step, {one[be] / 2 ** 20:.1f} MiB of params | {card}",
+                  flush=True)
+    finally:
+        dist.destroy_process_group()
+    free_card()
+    store = tmp / "gloo"
+    ctx = torch.multiprocessing.start_processes(
+        mesh_rank, args=(MESH_RANKS, str(store), str(tmp), cfg, prompts,
+                         window[:2], str(dev), MAX_NEW),
+        nprocs=MESH_RANKS, join=False, start_method="spawn")
+    try:
+        while not all((tmp / f"ready{r}").exists()
+                      for r in range(MESH_RANKS)):
+            check(all(p.is_alive() for p in ctx.processes),
+                  "a mesh rank died before serving")
+            time.sleep(0.1)
+        t_ready = time.perf_counter()
+        # the pool pauses while the ranks serve: their ms are readings
+        with quiet():
+            (tmp / "go").touch()
+            while not ctx.join(timeout=1):
+                pass
+        serve_s = time.perf_counter() - t_ready
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(tmp / f"mesh{r}.pt", weights_only=False)
+             for r in range(MESH_RANKS)]
+    print(f"mesh: gloo on CUDA tensors here: all_gather "
+          f"{ranks[0]['all_gather']}, broadcast {ranks[0]['broadcast']}",
+          flush=True)
+    check(all(r[c] == "native" for r in ranks
+              for c in ("all_gather", "broadcast")),
+          "gloo refused a CUDA tensor: the ranks cannot share the card")
+    toks_w, plen_w, lk = window
+    for backend, shape in MESH_RUNS:
+        key = (backend, shape)
+        label = f"{backend} {shape[0]}x{shape[1]}"
+        runs = [r["runs"][key] for r in ranks]
+        for i, run in enumerate(runs):
+            check(run["tokens"] == want[backend],
+                  f"mesh {label}: rank {i}'s tokens differ from 1x1")
+            for k in launches:
+                launches[k] += run["launches"][k]
+        path = RUNS[backend][1]
+        check(all(sum(r["launches"][k] for r in runs) > 0 for k in path),
+              f"mesh {label}: a kernel of the path never launched")
+        got = runs[0]["logits"]
+        ref = lk[backend].cpu()
+        check(bool(torch.equal(got, ref)), f"mesh {label}: rank 0's f32 "
+              f"prefill logits differ from 1x1: {mismatch(got, ref)}")
+        ms = [run["ms"] for run in runs]
+        nbytes = [run["bytes"] for run in runs]
+        out["runs"][label] = dict(ms=ms, bytes=nbytes, bytes_1x1=one[backend],
+                                  launches={k: sum(r["launches"][k]
+                                                   for r in runs)
+                                            for k in KERNELS})
+        mib = ", ".join(f"{b / 2 ** 20:.1f}" for b in nbytes)
+        frac = ", ".join(f"{b / one[backend]:.3f}" for b in nbytes)
+        print(f"mesh[{label}]: 4 ranks, every rank's tokens == 1x1, rank "
+              f"0's f32 prefill logits == 1x1 bitwise; params per rank "
+              f"{mib} MiB against 1x1's {one[backend] / 2 ** 20:.1f} MiB "
+              f"({frac}); {', '.join(f'{t:.1f}' for t in ms)} ms per decode "
+              f"step (gloo, 4 ranks on one card: correctness only) | {card}",
+              flush=True)
+    check(all(r["jax"] == [] for r in ranks), "a mesh rank imported jax")
+    out["serve_s"] = serve_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh: phase {out['phase_s']:.1f}s of its 90 s budget "
+          f"({serve_s:.1f}s of gloo serving, the pool paused)", flush=True)
     return out, launches
 
 
@@ -3746,7 +4014,7 @@ def main() -> int:
         free_card()
         compiled, artifact_launches = compile_phase(dev, card, served)
         free_card()
-        trained, train_launches = train_phase(dev, card)
+        trained, train_launches, mesh_launches = train_phase(dev, card)
         free_card()
         cnn_rows, cnn_launches, cnn_out = cnn_phase(dev, card)
         free_card()
@@ -3803,6 +4071,9 @@ def main() -> int:
         # the train phase's serving runs of the trained artifacts, and the
         # CNN phase's conv matrices on their activations (rows per shape)
         row["train_launches"] = train_launches[name]
+        # the mesh phase's runs: the 1x1 mesh over NCCL in this process
+        # and the gloo ranks' meshes, summed over the ranks
+        row["mesh_launches"] = mesh_launches[name]
         row["cnn_launches"] = cnn_launches[name]
         row["cnn"] = cnn_rows[name]
         # gemma3-12b's path (one-shot auto and v3, the engine twice) and

@@ -35,8 +35,8 @@ import torch
 
 from .core.integrate import to_torch
 
-__all__ = ["from_reference", "to_reference", "cnn_from_reference",
-           "cnn_to_reference"]
+__all__ = ["from_reference", "split_reference", "to_reference",
+           "cnn_from_reference", "cnn_to_reference"]
 
 
 def _top(key: str) -> bool:
@@ -65,6 +65,13 @@ def _layers(stacked) -> list:
 
 
 def from_reference(tree: dict, device=None) -> dict:
+    return to_torch(split_reference(tree), device)
+
+
+def split_reference(tree: dict) -> dict:
+    """:func:`from_reference`'s tree with every leaf a numpy array (a view
+    of the stacked leaf where it is one: a memory-mapped artifact stays
+    mapped), for a caller that places the leaves itself."""
     if _encdec(tree):
         extra = set(tree) - set(_ENCDEC_TOP) - {"enc", "dec"}
         if extra or "enc" not in tree or "dec" not in tree:
@@ -73,7 +80,7 @@ def from_reference(tree: dict, device=None) -> dict:
                 f"{', '.join(_ENCDEC_TOP)}; got {sorted(tree)}")
         out = {k: v for k, v in tree.items() if k in _ENCDEC_TOP}
         out["enc"], out["dec"] = _layers(tree["enc"]), _layers(tree["dec"])
-        return to_torch(out, device)
+        return out
     n_slots = len(tree["blocks"])
     extra = {k for k in tree if k != "blocks" and not _top(k)}
     if extra or set(tree["blocks"]) != {f"slot{j}" for j in range(n_slots)}:
@@ -86,7 +93,7 @@ def from_reference(tree: dict, device=None) -> dict:
     out = {k: v for k, v in tree.items() if _top(k)}
     out["blocks"] = [_index(slot, s) for s in range(n_super)
                      for slot in slots]
-    return to_torch(out, device)
+    return out
 
 
 def cnn_from_reference(tree: dict, device=None) -> dict:

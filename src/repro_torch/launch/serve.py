@@ -1,7 +1,8 @@
 """Serving driver of the port: random-weight requests through ServeEngine.
 
-Checked against ``repro/launch/serve.py`` (its flags but ``--mesh`` and
-``--host-devices``).  ``--arch`` takes any of the port's ``ARCHS`` (the
+Checked against ``repro/launch/serve.py`` (its flags but
+``--host-devices``, an XLA flag with no counterpart here: the ranks of a
+mesh are processes).  ``--arch`` takes any of the port's ``ARCHS`` (the
 dense, MoE, vision, recurrent and encoder-decoder families; whisper's
 requests go in behind the audio stub's zero frames, which the engine
 builds).
@@ -34,6 +35,18 @@ trace (``*.json``: Chrome/Perfetto; else JSONL), and ``--metrics-port N``
 serves the Prometheus text at ``/metrics`` on 127.0.0.1 for the process
 lifetime (0: an ephemeral port).
 
+``--mesh data,model`` (default ``1,1``) serves on a mesh of ``data *
+model`` ranks (``launch.mesh``; the dense and MoE families): the launcher
+spawns them (``torch.multiprocessing``, a file store in a temporary
+directory for the rendezvous), or joins an existing group when
+``RANK``/``WORLD_SIZE`` are set (``init_method="env://"``).
+``--dist-backend`` defaults to ``nccl`` on the card and ``gloo`` on the
+CPU; NCCL takes one card per rank, so more ranks than cards under
+``nccl`` are refused with a message; ``gloo`` on the card carries CUDA
+tensors through host memory (said on start: correctness, not speed).
+Every rank builds the same weights from ``--seed`` on the host and
+places only its shard on its device; only rank 0 prints.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --sme
     PYTHONPATH=src python -m repro_torch.launch.serve --small --device cpu \\
         --sme --backend v2 --requests 3 --max-new 4
@@ -42,20 +55,27 @@ lifetime (0: an ephemeral port).
         --prefix-cache
     PYTHONPATH=src python -m repro_torch.launch.serve --small --device cpu \\
         --artifact build/small.smez
+    PYTHONPATH=src python -m repro_torch.launch.serve --small --device cpu \\
+        --sme --backend v2 --mesh 2,2
 """
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCHS
 from repro_torch.core.integrate import (convert_params_to_sme,
                                         sme_storage_summary, to_torch)
 from repro_torch.launch.compile import (SMALL, add_scale_args, model_dims,
                                         scaled_config)
+from repro_torch.launch.mesh import make_local_mesh, parse_mesh
 from repro_torch.models.model import build_model, init_params
 from repro_torch.serve import Request, ServeEngine
 
@@ -96,7 +116,7 @@ def planned_params(params, device, n_slots: int = 1):
     return from_reference(packed, device=device), plan
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b", choices=sorted(ARCHS))
     add_scale_args(ap)
@@ -155,22 +175,131 @@ def main(argv=None):
     ap.add_argument("--metrics-port", type=int, default=None,
                     help="serve the Prometheus text at /metrics on this "
                          "port for the process lifetime (0: ephemeral)")
+    ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL",
+                    help="serve on a (data, model) mesh of DATA*MODEL ranks, "
+                         "spawned here or joined through RANK/WORLD_SIZE "
+                         "(the reference's --host-devices, an XLA flag, has "
+                         "no counterpart: the ranks are processes)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend of a mesh (default nccl on "
+                         "the card, gloo on the CPU); nccl takes one card "
+                         "per rank, gloo carries CUDA tensors through host "
+                         "memory")
+    return ap
+
+
+def dist_backend(args, world: int) -> str:
+    """The mesh's process-group backend: ``--dist-backend``, else nccl on
+    the card and gloo on the CPU; refuses nccl with more ranks than
+    cards (NCCL rejects two ranks on one card)."""
+    be = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
+    if be == "nccl":
+        if args.device != "cuda":
+            raise SystemExit("--dist-backend nccl needs --device cuda")
+        cards = torch.cuda.device_count()
+        if world > cards:
+            raise SystemExit(
+                f"--mesh {args.mesh} under nccl needs {world} cards, one per "
+                f"rank (NCCL refuses two ranks on one card); {cards} visible."
+                f" Pass --dist-backend gloo to run them on shared cards "
+                f"(correctness only: gloo carries CUDA tensors through host "
+                f"memory)")
+    return be
+
+
+def main(argv=None):
+    """Serve one run; on a mesh of more than one rank, spawn the ranks (or
+    join the group ``RANK``/``WORLD_SIZE`` describe) and return rank 0's
+    stats."""
+    ap = _parser()
     args = ap.parse_args(argv)
+    try:
+        data, model = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    sd = args.spec_depth
+    if sd is not None and sd != "auto" and (not str(sd).isdigit()
+                                            or int(sd) < 1):
+        ap.error(f"--spec-depth must be a positive int or 'auto', got "
+                 f"{sd!r}")
+    world = data * model
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        size = int(os.environ["WORLD_SIZE"])
+        rank = int(os.environ["RANK"])
+        _init_rank(args, rank, dist_backend(args, size), "env://", size)
+        try:
+            return serve(args, rank)
+        finally:
+            dist.destroy_process_group()
+    if world == 1:
+        return serve(args, 0)
+    be = dist_backend(args, world)
+    print(f"mesh {data}x{model}: spawning {world} ranks over {be}"
+          + (" (CUDA tensors through host memory: correctness, not speed)"
+             if be == "gloo" and args.device == "cuda" else ""),
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="mesh-")
+    out = torch.multiprocessing.get_context("spawn").SimpleQueue()
+    try:
+        torch.multiprocessing.start_processes(
+            _rank_main, args=(argv, world, be, f"file://{tmp}/store", out),
+            nprocs=world, start_method="spawn")
+        return out.get()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _init_rank(args, rank: int, backend: str, init_method: str,
+               world: int) -> None:
+    if args.device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world)
+
+
+def _rank_main(rank, argv, world, backend, init_method, out):
+    """One spawned rank: join the group, serve, hand rank 0's stats back."""
+    args = _parser().parse_args(argv)
+    _init_rank(args, rank, backend, init_method, world)
+    try:
+        stats = serve(args, rank)
+        if rank == 0:
+            out.put(stats)
+    finally:
+        dist.destroy_process_group()
+
+
+def serve(args, rank: int = 0):
+    """The launcher's run on this rank (the whole run on the 1x1 mesh)."""
+    def say(*a, **k):
+        if rank == 0:
+            print(*a, **k)
+    data, model = parse_mesh(args.mesh)
+    device = args.device
+    if device == "cuda" and dist.is_initialized():
+        device = f"cuda:{torch.cuda.current_device()}"
+    mesh = make_local_mesh(data, model, device=device) \
+        if dist.is_initialized() else None
+    if mesh is not None:
+        say(f"mesh {mesh.data}x{mesh.model} over {mesh.backend}: "
+            f"{mesh.size} ranks; rank 0 on {mesh.device}")
+    # a mesh's ranks build the weights on the host; each places its shard
+    host = "cpu" if mesh is not None and mesh.size > 1 else device
     spec_depth = args.spec_depth
-    if spec_depth is not None and spec_depth != "auto":
-        if not str(spec_depth).isdigit() or int(spec_depth) < 1:
-            ap.error(f"--spec-depth must be a positive int or 'auto', got "
-                     f"{spec_depth!r}")
+    if spec_depth not in (None, "auto"):
         spec_depth = int(spec_depth)
 
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and rank == 0:
         from repro_torch.obs.httpd import start_metrics_server
         server, _ = start_metrics_server(args.metrics_port)
         print(f"metrics: http://127.0.0.1:{server.server_port}/metrics")
     cfg = scaled_config(args)
-    api = build_model(cfg, device=args.device)
+    api = build_model(cfg, device=device)
     rng = np.random.default_rng(args.seed)
-    engine_kw = dict(slots=args.slots, s_max=args.s_max, device=args.device,
+    engine_kw = dict(slots=args.slots, s_max=args.s_max, device=device,
+                     mesh=mesh,
                      seed=args.seed, trace_capacity=args.trace_capacity,
                      spec_depth=spec_depth, spec_len=args.spec_len,
                      chunk_len=args.chunk_len, page_tokens=args.page_tokens,
@@ -183,10 +312,10 @@ def main(argv=None):
             engine_kw["backend"] = args.backend
         eng = ServeEngine.from_artifact(api, args.artifact, **engine_kw)
         plan = eng.plan
-        print(f"booted from {args.artifact} in "
-              f"{time.perf_counter() - t0:.2f}s (plan: "
-              f"{len(plan.layers) if plan else 0} layers, backend "
-              f"{eng.backend}) on {api.device}")
+        say(f"booted from {args.artifact} in "
+            f"{time.perf_counter() - t0:.2f}s (plan: "
+            f"{len(plan.layers) if plan else 0} layers, backend "
+            f"{eng.backend}) on {api.device}")
     else:
         params = init_params(cfg, rng)
         if args.sme:
@@ -199,19 +328,18 @@ def main(argv=None):
             if spec_depth == "auto" and emit != "v3":
                 raise SystemExit(_NO_PLAN_DEPTH)
             if spec_depth == "auto":
-                params, plan = planned_params(params, args.device,
+                params, plan = planned_params(params, host,
                                               len(cfg.pattern))
             else:
                 params = convert_params_to_sme(params, squeeze=args.squeeze,
-                                               backend=emit,
-                                               device=args.device)
-            print("SME storage:", sme_storage_summary(params))
+                                               backend=emit, device=host)
+            say("SME storage:", sme_storage_summary(params))
         else:
-            params = to_torch(params, args.device)
-        print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-              f"params ready in {time.perf_counter() - t0:.1f}s on "
-              f"{api.device}" + (f", SME backend {args.backend}"
-                                 if args.sme else ", dense"))
+            params = to_torch(params, host)
+        say(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"params ready in {time.perf_counter() - t0:.1f}s on "
+            f"{api.device}" + (f", SME backend {args.backend}"
+                               if args.sme else ", dense"))
         eng = ServeEngine(api, params,
                           backend=args.backend if args.sme else None,
                           **engine_kw)
@@ -220,7 +348,7 @@ def main(argv=None):
             if plan is not None else []
         if not any(depths):
             raise SystemExit(_NO_PLAN_DEPTH)
-        print(f"spec: draft depths per layer from the plan: {depths}")
+        say(f"spec: draft depths per layer from the plan: {depths}")
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=5 + i % 4),
                     max_new_tokens=args.max_new)
             for i in range(args.requests)]
@@ -238,22 +366,24 @@ def main(argv=None):
             for ev in eng.poll():
                 n_events += 1
                 if ev["kind"] != "token":
-                    print(f"  [{steps:3d}] req {ev['rid']}: {ev['kind']}")
+                    say(f"  [{steps:3d}] req {ev['rid']}: {ev['kind']}")
             if not pending and all(r.done or r.outcome for r in reqs):
                 break
         done = sum(r.outcome == "completed" for r in reqs)
         stats = {**eng.stats, "completed": done,
                  "wall_s": time.perf_counter() - t0}
-        print(f"stream: {done}/{len(reqs)} completed, {stats['tokens']} "
-              f"tokens, {n_events} events in {steps + 1} steps")
+        say(f"stream: {done}/{len(reqs)} completed, {stats['tokens']} "
+            f"tokens, {n_events} events in {steps + 1} steps")
     else:
         stats = eng.run(reqs, max_steps=500)
-    print(f"stats: {stats}")
+    say(f"stats: {stats}")
     for r in reqs[:4]:
-        print(f"req {r.rid}: prompt={list(map(int, r.prompt))} -> "
-              f"{r.out_tokens}")
-    print(f"throughput: {stats['tokens'] / stats['wall_s']:.1f} tok/s on "
-          f"{api.device}")
+        say(f"req {r.rid}: prompt={list(map(int, r.prompt))} -> "
+            f"{r.out_tokens}")
+    say(f"throughput: {stats['tokens'] / stats['wall_s']:.1f} tok/s on "
+        f"{api.device}")
+    if rank:
+        return stats
     if args.metrics_out:
         from repro_torch.obs import write_snapshot
         write_snapshot(args.metrics_out)

@@ -32,6 +32,16 @@ them as its dequantized weight, built once per weight
 (``core.backend.cached_dequant``; the reference cannot decode a packed
 ``kv_up``, ROADMAP R4).
 
+On a serving mesh (``parallel.policy``) a rank's cache shard holds its
+own KV heads (whole GQA groups, where their count divides the 'model'
+axis) of its own slot rows, and only those are written.  Attention runs
+in the 1x1 shape on every mesh: the card's batched matmuls pick their
+algorithm by batch count (a slice of heads and rows gives other bits,
+``tests/test_torch_cuda.py``), so a prefill attends every head, and a
+decode step attends a whole cache whose other ranks' parts are zero, the
+ranks' own rows and heads then gathered before ``o``.  The sequence dim
+never splits.
+
 Decode positions are per batch row (``pos`` [B]) and ``active`` [B] masks
 which rows may write their cache slot.  Unlike the reference, decode
 updates the cache tensors in place (the engine owns them), which saves a
@@ -44,6 +54,7 @@ from typing import Optional
 import torch
 
 from ..core.backend import cached_dequant
+from ..parallel.policy import constrain, row_start, whole_cache
 from .common import apply_rope, linear, norm_pos_active
 
 __all__ = ["gqa_prefill", "gqa_decode", "mla_prefill", "mla_decode",
@@ -203,11 +214,15 @@ def gqa_prefill(p, x, cfg, cache_len: int = 0, plen=None,
     q, k, v = _qkv(p, x, cfg, positions, backend)
     g = cfg.n_heads // cfg.n_kv_heads
     kr, vr = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    # every head, in the 1x1 shape on any mesh (q, k, v are whole)
     y = blockwise_attention(q, kr, vr, causal=causal, window=window,
                             block_q=block_q, block_k=block_k)
     y = linear(y.reshape(b, s, -1), p["o"], backend)
     if not cache_len:
         return y, None
+    # on a mesh the cache keeps this rank's KV heads
+    k = constrain(k, "kv", n_kv=cfg.n_kv_heads)
+    v = constrain(v, "kv", n_kv=cfg.n_kv_heads)
     w = min(window, cache_len) if window else cache_len
     rows = (torch.full((b,), s, device=x.device) if plen is None
             else torch.as_tensor(plen, device=x.device).long())
@@ -222,14 +237,33 @@ def gqa_decode(p, x, cache, pos, cfg, active=None,
     b = x.shape[0]
     pos, active = norm_pos_active(pos, active, b, x.device)
     q, k, v = _qkv(p, x, cfg, pos[:, None], backend)
+    nkv = cfg.n_kv_heads
     w = cache["k"].shape[1]
     slot = pos % w
-    kc = _masked_row_scatter(cache["k"], k[:, 0], slot, active)
-    vc = _masked_row_scatter(cache["v"], v[:, 0], slot, active)
+    # on a mesh the cache shard holds this rank's KV heads of its slot
+    # rows: the new position's K/V go there
+    kc = _masked_row_scatter(cache["k"], *_mine(k, slot, active, cache, nkv))
+    vc = _masked_row_scatter(cache["v"], *_mine(v, slot, active, cache, nkv))
     j = torch.arange(w, device=x.device)
     kpos = pos[:, None] - ((pos[:, None] - j[None]) % w)
-    y = _decode_attend(q, kc, vc, kpos, pos, window, 1.0 / (cfg.hd ** 0.5))
+    # attention in the 1x1 shape (a whole cache, zero where another rank
+    # holds it): the library picks its algorithm by shape, so a rank's rows
+    # and heads compute as on the 1x1 mesh; the ranks' parts are gathered
+    y = _decode_attend(q, whole_cache(kc, b, nkv), whole_cache(vc, b, nkv),
+                       kpos, pos, window, 1.0 / (cfg.hd ** 0.5))
+    y = constrain(y, "attn", n_kv=nkv, rows=kc.shape[0])
     return linear(y.reshape(b, 1, -1), p["o"], backend), {"k": kc, "v": vc}
+
+
+def _mine(new, slot, active, cache, n_kv):
+    """(this rank's part of the new K or V row [B, 1, KV, hd], its slots,
+    its write mask), for a cache shard of some slot rows and KV heads."""
+    new = constrain(new, "kv", n_kv=n_kv)[:, 0]
+    bl, b = cache["k"].shape[0], new.shape[0]
+    if bl == b:
+        return new, slot, active
+    r0 = row_start(bl, b)
+    return new[r0:r0 + bl], slot[r0:r0 + bl], active[r0:r0 + bl]
 
 
 def _mla_q(p, x, cfg, positions, backend):

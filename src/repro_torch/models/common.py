@@ -5,7 +5,9 @@ Checked against ``repro/models/common.py``: ``rmsnorm``, ``layernorm``
 (SwiGLU, or GELU with biased ``wi``/``wo`` and no ``wg``), ``apply_rope``,
 ``sinusoidal_pos`` (built in float64 numpy, then f32) and
 ``norm_pos_active`` compute the same functions in the same dtypes.  GELU is the tanh approximation, ``jax.nn.gelu``'s default.  SME-packed weights dispatch through
-``core.backend.sme_apply``; ``backend`` is passed down explicitly.
+``core.backend.sme_apply``; ``backend`` is passed down explicitly.  On a
+serving mesh ``linear`` gathers a column-split weight's output
+(``parallel.policy.constrain``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.backend import sme_apply
+from ..parallel.policy import constrain
 
 __all__ = ["rmsnorm", "layernorm", "apply_norm", "linear", "mlp_apply",
            "rope_freqs", "apply_rope", "sinusoidal_pos", "norm_pos_active"]
@@ -56,15 +59,19 @@ def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
 
 def linear(x: torch.Tensor, p: dict, backend: Optional[str] = None
            ) -> torch.Tensor:
-    """x @ w (+ b); SME-packed weights go through ``sme_apply``."""
+    """x @ w (+ b); SME-packed weights go through ``sme_apply``.  On a
+    mesh the left operand is always whole (``constrain(x, "lhs")``, the
+    reference's ``common.py:85-88``) and a column-split weight's output
+    features (its bias cut the same way) are gathered over 'model'."""
     we = p["w"]
+    x = constrain(x, "lhs")
     if isinstance(we, dict):
         y = sme_apply(x, we, backend, out_dtype=x.dtype)
     else:
         y = x @ we.to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
-    return y
+    return constrain(y, "features", we)
 
 
 def mlp_apply(x: torch.Tensor, p: dict, backend: Optional[str] = None,

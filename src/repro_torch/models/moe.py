@@ -19,9 +19,13 @@ The reference maps a per-group dispatch over the groups, so each expert
 matmul sees one group's ``[E, C, D]``.  Here every group's buffer is
 gathered into ``[E, G * C, D]`` and each projection (``wg``, ``wi``,
 ``wo``) is one ``sme_apply`` over the stacked ``[E, D, F]`` weight: one
-launch per expert per projection, M = G * C.  Output rows do not depend
+launch per expert per projection, M = G * C (a dense stack: one matmul
+per expert).  Output rows do not depend
 on one another (one chain per output element), so this equals the
 per-group loop.  Empty experts compute too, as in the reference.
+Routing runs on the replicated activations, so on a mesh every rank
+routes, drops and combines alike, in the 1x1 order; only the expert
+matmuls split (``_expert_mm``).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.backend import sme_apply
+from ..parallel.policy import constrain, expert_rows
 from .common import linear
 
 __all__ = ["moe_capacity", "moe_apply", "moe_drops"]
@@ -68,11 +73,17 @@ def _group_dispatch(xg, idx, n_experts: int, capacity: int, threshold):
 
 def _expert_mm(w, h, backend, dtype):
     """h [E, M, D] @ w [E, D, F] -> [E, M, F]: packed experts through
-    ``sme_apply`` (one launch per expert), dense ones one batched
-    matmul."""
+    ``sme_apply`` (one launch per expert), dense ones one matmul per
+    expert (the same call on any mesh: the card's batched matmul picks its
+    algorithm by batch count).  On a mesh (reference ``moe.py:124``) an
+    expert-parallel stack computes this rank's experts and gathers them
+    over 'model'; a column-split one its output features."""
+    h = expert_rows(constrain(h, "lhs"), w)
     if isinstance(w, dict):
-        return sme_apply(h, w, backend, out_dtype=dtype)
-    return torch.matmul(h, w.to(dtype))
+        y = sme_apply(h, w, backend, out_dtype=dtype)
+    else:
+        y = torch.stack([he @ we.to(dtype) for he, we in zip(h, w)])
+    return constrain(y, "experts", w)
 
 
 def moe_apply(p, x, cfg, group_size: int = 2048, plen=None,

@@ -27,6 +27,10 @@ rescaled by 1/sqrt(D).  Two reference quirks are not copied (ROADMAP R2):
 the reference computes in f32 whenever its params are numpy arrays,
 whatever ``cfg.dtype`` says, and its caches are always bf16.
 
+On a serving mesh (``parallel.policy``) the embedding's vocab rows may
+be split over 'model': ``_embed_tokens`` selects each token's row from
+its owner's part, and a split head's logits are gathered.
+
 Training (``lm_train_loss``) runs every layer as ``blocks.block_train``
 (the prefill without caches) and scores the final states through the
 chunked cross-entropy: the head's logits are built one sequence chunk at
@@ -43,6 +47,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.backend import sme_apply
+from ..parallel.policy import constrain, embed_rows
 from .blocks import (SSM_KINDS, block_decode, block_prefill, block_train,
                      init_block_cache)
 from .common import linear, rmsnorm
@@ -222,7 +227,7 @@ def _embed_tokens(params, cfg, tokens: torch.Tensor,
     [V, D] table, go to the compute dtype.  ``patches`` [B, F, D] (a
     vision model's) go through ``patch_proj`` and come first."""
     dt = compute_dtype(cfg)
-    x = params["embed"]["w"][tokens].to(dt)
+    x = embed_rows(params["embed"]["w"], tokens).to(dt)
     if cfg.frontend == "vision_stub" and patches is not None:
         x = torch.cat([linear(patches.to(dt), params["patch_proj"],
                               backend), x], dim=1)
@@ -237,13 +242,18 @@ def _head_logits(params, cfg, xl: torch.Tensor,
     [V, D] table per pass; the reference scales and casts the whole table
     instead, in f32 for numpy params, ROADMAP R2).  An untied head is not
     rescaled: packed, it dispatches through ``sme_apply``; dense, it is
-    ``xl @ head`` in the compute dtype."""
+    ``xl @ head`` in the compute dtype.  On a mesh a vocab-split table or
+    head gives this rank's logits, gathered over 'model'."""
     if cfg.tie_embeddings:
-        return (xl.float() * (cfg.d_model ** -0.5)) @ params["embed"]["w"].T
+        table = params["embed"]["w"]
+        return constrain((xl.float() * (cfg.d_model ** -0.5)) @ table.T,
+                         "features", table)
     we = params["lm_head"]["w"]
     if isinstance(we, dict):
-        return sme_apply(xl, we, backend, out_dtype=torch.float32)
-    return (xl @ we.to(xl.dtype)).float()
+        y = sme_apply(xl, we, backend, out_dtype=torch.float32)
+    else:
+        y = (xl @ we.to(xl.dtype)).float()
+    return constrain(y, "features", we)
 
 
 def lm_prefill(params, tokens: torch.Tensor, cfg, s_max: int, plen=None,
@@ -253,11 +263,12 @@ def lm_prefill(params, tokens: torch.Tensor, cfg, s_max: int, plen=None,
     (logits [B, V] at each row's last valid position, per-layer caches
     over ``s_max`` slots).  ``plen`` [B] marks each row's valid prefix of
     a right-padded batch, frontend tokens included."""
-    x = _embed_tokens(params, cfg, tokens, patches, backend)
+    x = constrain(_embed_tokens(params, cfg, tokens, patches, backend), "act")
     caches = []
     for p, (kind, moe) in zip(model_layers(params, cfg), layer_slots(cfg)):
         x, c = block_prefill(p, x, cfg, kind, s_max, plen=plen,
                              backend=backend, use_moe=moe)
+        x = constrain(x, "act")
         caches.append(c)
     x = rmsnorm(x, params["final_norm"])
     if plen is None:
@@ -273,12 +284,13 @@ def lm_decode_step(params, token: torch.Tensor, caches: list, pos, cfg,
                    active=None, backend: Optional[str] = None):
     """token [B, 1]; pos [B] per-row next position; active [B] rows that
     may write their cache slot.  Caches are updated in place."""
-    x = _embed_tokens(params, cfg, token)
+    x = constrain(_embed_tokens(params, cfg, token), "act")
     new = []
     for p, c, (kind, moe) in zip(model_layers(params, cfg), caches,
                                  layer_slots(cfg)):
         x, c = block_decode(p, x, c, pos, cfg, kind, active=active,
                             backend=backend, use_moe=moe)
+        x = constrain(x, "act")
         new.append(c)
     x = rmsnorm(x, params["final_norm"])
     return _head_logits(params, cfg, x[:, -1], backend), new

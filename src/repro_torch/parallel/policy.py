@@ -1,0 +1,219 @@
+"""Activation-sharding policy, and the one place a collective runs in the
+model: :func:`constrain`.
+
+Checked against ``repro/parallel/policy.py``: ``ShardPolicy``,
+``policy_for``, ``use_policy`` and ``current_policy`` are the
+reference's, and the model calls :func:`constrain` at the reference's
+sites.  In the reference ``constrain`` pins a layout for GSPMD; here it
+does the work GSPMD would: the port's activations are replicated on every
+rank at every op boundary, so
+
+  * ``"lhs"`` and ``"act"`` need nothing (the left operand of a matmul is
+    always whole: no contraction is ever split across ranks);
+  * ``"features"`` gathers a column-split weight's product over 'model'
+    (the weight's :class:`~repro_torch.parallel.sharding.Split` says how it
+    was cut; a whole weight gathers nothing); ``"experts"`` gathers an
+    expert-parallel stack's outputs on the expert dim;
+  * ``"kv"`` takes this rank's KV heads of a K or V [B, S, KV, hd], the
+    ones its cache shard holds (KV heads split over 'model' where their
+    count divides it, as the cache rule splits them; whole GQA groups),
+    and ``"attn"`` gathers this rank's rows and heads of an attention
+    output computed in the 1x1 shape (:func:`whole_cache`): heads over
+    'model', rows over 'data'.
+
+:func:`embed_rows` looks tokens up in a vocab-split embedding: each rank
+reads the rows it owns, and the owner's row is **selected** from the
+gathered parts, never summed.  Every collective is a gather or a select,
+so the tokens and f32 logits equal the 1x1 mesh's bitwise.  Outside a
+policy, and on a 1x1 mesh, nothing is split and every kind is a no-op.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .sharding import split_of
+
+__all__ = ["ShardPolicy", "use_policy", "constrain", "current_policy",
+           "policy_for", "embed_rows", "expert_rows", "local_heads",
+           "row_start", "whole_cache"]
+
+_POLICY: contextvars.ContextVar = contextvars.ContextVar(
+    "shard_policy", default=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPolicy:
+    dp: Tuple[str, ...] = ("data",)     # batch axes
+    dp_size: int = 1
+    model_size: int = 1
+    heads_tp: bool = True               # TP attention heads over 'model'
+    seq_axis: Optional[str] = None      # SP axis for activations (train/prefill)
+    full_dp: bool = False               # small-model mode: batch over model too
+    remat_policy: str = "full"          # full | dots (save dot outputs)
+    loss_chunk: int = 0                 # 0 = model default (128)
+    exact: bool = False                 # serving posture (DESIGN.md §7)
+    #: the port's mesh (``launch.mesh.Mesh``) the collectives run over: in
+    #: the reference the mesh is the ambient ``with mesh`` context
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    def batch_axes(self, b: int):
+        if self.dp_size > 1 and b % self.dp_size == 0:
+            return self.dp
+        if b % max(self.model_size, 1) == 0 and len(self.dp) == 1:
+            return self.dp  # single axis case
+        return None
+
+
+def policy_for(mesh, cfg, kind: str, full_dp: bool = False) -> ShardPolicy:
+    import numpy as np
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    if full_dp:
+        dp = dp + ("model",)
+    dpn = int(np.prod([mesh.shape[a] for a in dp])) if dp else 1
+    msz = mesh.shape.get("model", 1)
+    heads_tp = (cfg.n_heads % msz == 0) and kind != "decode" and not full_dp
+    seq_axis = None
+    if kind in ("train", "prefill") and not heads_tp and not full_dp:
+        seq_axis = "model"
+    return ShardPolicy(dp=dp, dp_size=dpn, model_size=msz,
+                       heads_tp=heads_tp, seq_axis=seq_axis, full_dp=full_dp,
+                       mesh=mesh)
+
+
+@contextlib.contextmanager
+def use_policy(policy: Optional[ShardPolicy]):
+    tok = _POLICY.set(policy)
+    try:
+        yield
+    finally:
+        _POLICY.reset(tok)
+
+
+def current_policy() -> Optional[ShardPolicy]:
+    return _POLICY.get()
+
+
+def _mesh():
+    pol = current_policy()
+    if pol is None or pol.mesh is None:
+        raise RuntimeError("a weight placed on a mesh is used outside its "
+                           "engine's ShardPolicy (use_policy)")
+    return pol.mesh
+
+
+def _gather_split(x: torch.Tensor, split, dim: int) -> torch.Tensor:
+    """The whole of ``x``, split like ``split`` on ``dim``: every rank's
+    part padded to ``split.step`` (a ragged last column tile), gathered
+    over 'model', cut to ``split.full``."""
+    mesh = _mesh()
+    dim = dim % x.dim()
+    short = split.step - x.shape[dim]
+    if short:
+        pad = [0, 0] * (x.dim() - 1 - dim) + [0, short]
+        x = F.pad(x, pad)
+    y = mesh.gather(x, "model", dim)
+    return y.narrow(dim, 0, split.full) if y.shape[dim] != split.full else y
+
+
+def local_heads(n_kv: int) -> Tuple[int, int]:
+    """(first, count) of this rank's KV heads: a share of ``n_kv`` over
+    'model' where it divides (the cache rule's split), else all of them."""
+    pol = current_policy()
+    m = pol.model_size if pol is not None and pol.mesh is not None else 1
+    if m == 1 or n_kv % m:
+        return 0, n_kv
+    per = n_kv // m
+    return pol.mesh.index("model") * per, per
+
+
+def row_start(local: int, total: int) -> int:
+    """The first of this rank's ``local`` rows of ``total`` slot rows
+    split over 'data' (0 when they are not split)."""
+    if local == total:
+        return 0
+    return current_policy().mesh.index("data") * local
+
+
+def whole_cache(t: torch.Tensor, rows: int, n_kv: int) -> torch.Tensor:
+    """A cache shard [B', W, KV', hd] in the whole cache's shape [rows, W,
+    n_kv, hd], zero where other ranks hold it (``t`` itself when it is
+    whole)."""
+    if t.shape[0] == rows and t.shape[2] == n_kv:
+        return t
+    first, count = local_heads(n_kv)
+    r0 = row_start(t.shape[0], rows)
+    out = t.new_zeros((rows,) + tuple(t.shape[1:2]) + (n_kv,)
+                      + tuple(t.shape[3:]))
+    out[r0:r0 + t.shape[0], :, first:first + count] = t
+    return out
+
+
+def constrain(x: torch.Tensor, kind: str, w=None, *, n_kv: int = 0,
+              rows: int = 0) -> torch.Tensor:
+    """kind: 'act' [B,S,D] | 'lhs' (a matmul's left operand): nothing to
+    do | 'features' [..., N]: the product of weight ``w`` gathered over
+    'model' when ``w`` is column-split | 'experts' [E, ..., N]: an
+    expert-parallel ``w``'s outputs gathered on dim 0 | 'kv'
+    [B,S,KV,hd]: this rank's heads of ``n_kv`` KV heads | 'attn'
+    [B,S,H,hd]: an attention output computed in the 1x1 shape whose valid
+    part is this rank's ``rows`` rows and heads of ``n_kv`` KV-head
+    groups, every rank's part gathered."""
+    if kind in ("act", "lhs"):
+        return x
+    if kind in ("features", "experts"):
+        sp = split_of(w)
+        if sp is None:
+            return x
+        if kind == "experts" and sp.dim == 0:
+            return _gather_split(x, sp, 0)
+        return _gather_split(x, sp, -1)
+    pol = current_policy()
+    if pol is None or pol.mesh is None or pol.mesh.size == 1:
+        return x
+    first, count = local_heads(n_kv)
+    if kind == "kv":
+        return x if count == n_kv else x[:, :, first:first + count]
+    if kind == "attn":
+        mesh, b = pol.mesh, x.shape[0]
+        if count == n_kv and rows == b:
+            return x
+        g = x.shape[2] // n_kv              # query heads per KV head
+        r0 = row_start(rows, b)
+        x = x[r0:r0 + rows, :, first * g:(first + count) * g]
+        if count != n_kv:
+            x = mesh.gather(x, "model", 2)
+        if rows != b:
+            x = mesh.gather(x, "data", 0)
+        return x
+    raise ValueError(f"unknown constrain kind {kind!r}")
+
+
+def expert_rows(h: torch.Tensor, w) -> torch.Tensor:
+    """This rank's experts of ``h`` [E, ...] for an expert-parallel ``w``
+    (all of them otherwise)."""
+    sp = split_of(w)
+    if sp is None or sp.dim != 0:
+        return h
+    return h[sp.start:sp.start + sp.step]
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for a table whose vocab rows may be split over
+    'model': each rank looks up the rows it owns (a clamped index
+    elsewhere), the parts are gathered, and each id's owner's row is
+    selected from them, never summed."""
+    sp = split_of(table)
+    if sp is None:
+        return table[ids]
+    mesh = _mesh()
+    local = table[(ids - sp.start).clamp(0, table.shape[0] - 1)]
+    parts = mesh.gather(local[None], "model", 0)       # [model, *ids, D]
+    owner = (ids // sp.step).clamp(max=parts.shape[0] - 1)
+    idx = owner[None, ..., None].expand((1,) + local.shape)
+    return torch.gather(parts, 0, idx)[0]

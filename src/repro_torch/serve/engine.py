@@ -1,14 +1,32 @@
 """Continuous batching over an open request stream.
 
-Checked against ``repro/serve/engine.py`` (DESIGN.md §6, §11, §12) without
-its mesh: the port serves the decoder-only dense, MoE, SSM and hybrid
-families (full and sliding-window GQA layers, MLA, leading dense layers,
-Mamba, mLSTM and sLSTM layers, the vision frontend) and the
-encoder-decoder family (whisper, behind the audio stub) on one device,
-from a param tree or from a compiled ``.smez`` artifact
-(:meth:`ServeEngine.from_artifact`).
+Checked against ``repro/serve/engine.py`` (DESIGN.md §6, §7, §11, §12):
+the port serves the decoder-only dense, MoE, SSM and hybrid families
+(full and sliding-window GQA layers, MLA, leading dense layers, Mamba,
+mLSTM and sLSTM layers, the vision frontend) and the encoder-decoder
+family (whisper, behind the audio stub), from a param tree or from a
+compiled ``.smez`` artifact (:meth:`ServeEngine.from_artifact`).
 ``bm`` scopes ``core.backend.use_block`` around every model call (v3's
 decode threshold).
+
+* **Mesh** (``mesh``, a ``launch.mesh.Mesh``; None is the 1x1 mesh
+  through the same code): the params are placed once, each rank holding
+  its shard under the exact posture (``parallel.sharding.place_tree``),
+  and the slot caches are allocated at the shard's shape under
+  ``cache_sharding(exact=True)``: KV heads over 'model', slot rows over
+  'data'.  Every model call runs inside the engine's ``ShardPolicy``
+  (``parallel.policy``), whose collectives are gathers and selects only,
+  so any mesh emits the 1x1 mesh's tokens.  Every host-side decision
+  (admission, bucketing, chunking, the prefix index, drafts and
+  acceptance) depends only on token ids, so every rank runs the same
+  schedule; a prefix snapshot selects the slot's row from the rank that
+  holds it, so every rank's pools hold the same pages.  Sampling draws
+  from generators seeded alike, on logits that are replicated and
+  bitwise equal; rank 0's ids are broadcast each step and
+  :attr:`rank_mismatches` counts the ranks' own ids that differed.
+  Mesh serving covers the dense and MoE families: MLA, the recurrent
+  layers, the encoder-decoder family and the vision frontend raise on a
+  mesh larger than 1x1 (a later slice).
 
 * ``slots`` sequences decode together, each with its own cache row; a
   request joins by writing its prefill cache into a free row and leaves by
@@ -87,6 +105,7 @@ weights resolve to under it (``"dense"`` for a dense tree).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -97,9 +116,12 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core.backend import (get_backend, resolved_backends, use_block,
-                            use_spec_depth)
+from ..core.backend import (default_backend, ensure_operands, get_backend,
+                            resolved_backends, use_block, use_spec_depth)
 from ..device import resolve_device
+from ..launch.mesh import Mesh
+from ..parallel.policy import policy_for, use_policy
+from ..parallel.sharding import cache_sharding, place_tree, shard_shape
 from .paged import PageAllocator, PrefixIndex
 
 __all__ = ["Request", "ServeEngine", "PromptTooLong"]
@@ -163,6 +185,26 @@ def _env_flag(name: str) -> bool:
     return os.environ.get(name, "0").lower() in ("1", "on", "true", "yes")
 
 
+def check_mesh_family(api, mesh) -> None:
+    """Raise ``NotImplementedError`` for a model this slice of mesh serving
+    does not cover on a mesh larger than 1x1."""
+    if mesh.size == 1:
+        return
+    cfg = api.cfg
+    left = [what for test, what in (
+        (cfg.attn_type == "mla", "MLA (deepseek)"),
+        (any(k in ("mamba", "mlstm", "slstm") for k in cfg.pattern),
+         "recurrent layers (jamba, xLSTM)"),
+        (api.encdec, "the encoder-decoder family (whisper)"),
+        (bool(cfg.frontend) and not api.encdec,
+         "the vision frontend (llava)")) if test]
+    if left:
+        raise NotImplementedError(
+            f"{cfg.name}: mesh serving covers the dense and MoE families; "
+            f"{', '.join(left)} on a {mesh.data}x{mesh.model} mesh waits for "
+            f"a later slice of the port (ROADMAP)")
+
+
 class ServeEngine:
     def __init__(self, api, params, *, slots: int = 4, s_max: int = 128,
                  seed: int = 0, backend: Optional[str] = None, device=None,
@@ -171,7 +213,8 @@ class ServeEngine:
                  page_tokens: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  prefix_pages: Optional[int] = None,
-                 prefix_entries: int = 8, bm: Optional[int] = None):
+                 prefix_entries: int = 8, bm: Optional[int] = None,
+                 mesh: Optional[Mesh] = None):
         """``chunk_len`` (``SME_CHUNK_LEN``, default 32) bounds the prompt
         tokens a prefilling row scores per step; ``page_tokens``
         (``SME_PAGE_TOKENS``, default 16) is the prefix-cache page size and
@@ -185,21 +228,42 @@ class ServeEngine:
         (default) disables it.  ``spec_len`` tokens are drafted per round
         (4 once a depth is set).  ``seed`` seeds the sampling generator.
         ``bm`` (None: ``resolve_block_m``'s default) is the M block of
-        v3's decode-kernel threshold for every model call."""
+        v3's decode-kernel threshold for every model call.  ``mesh`` (a
+        ``launch.mesh.Mesh``; None: the 1x1 mesh) is where the params and
+        caches live, each rank holding its shard; the engine's device is
+        the mesh's."""
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         if backend not in (None, "auto"):
             get_backend(backend)                # unknown names raise here
         if api.device != self.device:
             raise ValueError(f"model on {api.device}, engine on {self.device}")
+        self.mesh = mesh if mesh is not None else Mesh(1, 1,
+                                                       device=self.device)
+        if self.mesh.device != self.device:
+            raise ValueError(f"mesh on {self.mesh.device}, engine on "
+                             f"{self.device}")
+        check_mesh_family(api, self.mesh)
+        self.policy = dataclasses.replace(
+            policy_for(self.mesh, api.cfg, "decode"), exact=True)
+        if self.mesh.model > 1 and self.device.type == "cuda" and \
+                (backend or default_backend()) == "auto":
+            # auto's call-time packing would read a shard's codes: pack
+            # from the whole weights first, then place the shards
+            params = ensure_operands(params, "auto")
+        self.params = place_tree(params, self.mesh)
+        params = self.params
         self.api = api
-        self.params = params
         self.slots = slots
         self.s_max = s_max
         self.backend = backend
         self.bm = bm
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
-        self.caches = api.init_cache(slots, s_max)
+        self.caches = self._init_caches()
+        #: rank 0's ids differed from this rank's own (per id tensor)
+        self.rank_mismatches = 0
         #: per layer {leaf: True (paged) | False (side)}, None when a leaf
         #: fits neither class
         self._paged = self._classify_cache_leaves()
@@ -391,6 +455,68 @@ class ServeEngine:
             if self._paged is not None:
                 self._init_prefix(prefix_pages, int(prefix_entries))
 
+    def _init_caches(self) -> list:
+        """The slot caches: ``api.init_cache`` on a mesh that splits none
+        of them, else zero shards at ``cache_sharding(exact=True)``'s
+        shapes (the K/V caches of the families mesh serving covers).
+        Sets the slot rows this rank holds (``_row0``, ``_nrows``)."""
+        meta = self.api.init_cache(self.slots, self.s_max, device="meta")
+        specs = cache_sharding(self.mesh, meta, self.slots, exact=True)
+        flat = [(t.shape, sp) for layer, sps in zip(meta, specs)
+                for (_, t), (_, sp) in zip(_leaves(layer), _leaves(sps))]
+        self._row0, self._nrows = 0, self.slots
+        if all(shard_shape(self.mesh, sp, shape) == tuple(shape)
+               for shape, sp in flat):
+            return self.api.init_cache(self.slots, self.s_max)
+        rows = {shard_shape(self.mesh, sp, shape)[0] for shape, sp in flat}
+        if len(rows) != 1 or any(sp[0] not in (None, "data")
+                                 for _, sp in flat):
+            raise NotImplementedError(f"cache specs {flat}: the slot rows "
+                                      f"must split alike, over 'data'")
+        if rows != {self.slots}:
+            self._nrows = self.slots // self.mesh.data
+            self._row0 = self.mesh.index("data") * self._nrows
+
+        def alloc(t, sp):
+            if isinstance(t, dict):
+                return {k: alloc(v, sp[k]) for k, v in t.items()}
+            return torch.zeros(shard_shape(self.mesh, sp, t.shape),
+                               dtype=t.dtype, device=self.device)
+        return [alloc(t, sp) for t, sp in zip(meta, specs)]
+
+    def _local(self, slot: int) -> Optional[int]:
+        """The cache row of ``slot`` on this rank; None where another rank
+        of the 'data' axis holds it."""
+        r = int(slot) - self._row0
+        return r if 0 <= r < self._nrows else None
+
+    def _slot_row(self, t: torch.Tensor, slot: int) -> torch.Tensor:
+        """``slot``'s row of cache leaf ``t`` on every rank: selected from
+        the rank that holds it where the rows are split over 'data'."""
+        r = self._local(slot)
+        if self._nrows == self.slots:
+            return t[r]
+        row = t[r].clone() if r is not None else torch.empty(
+            t.shape[1:], dtype=t.dtype, device=t.device)
+        return self.mesh.broadcast(row, "data", int(slot) // self._nrows)
+
+    def _agree(self, ids: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``ids`` on every rank (one broadcast over the world);
+        this rank's own that differ count into :attr:`rank_mismatches`."""
+        if self.mesh.groups.get("world") is None:
+            return ids
+        got = self.mesh.broadcast(ids.clone())
+        self.rank_mismatches += int(not torch.equal(got, ids))
+        return got
+
+    def _scope(self):
+        """Every model call's context: v3's decode threshold and the
+        engine's ShardPolicy (the mesh's collectives)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(use_block(self.bm))
+        stack.enter_context(use_policy(self.policy))
+        return stack
+
     def _classify_cache_leaves(self) -> Optional[List[Dict[str, bool]]]:
         """Split the cache leaves into *paged* (only the sequence dim 1
         scales with ``s_max``: K/V over every position) and *side* (shape
@@ -440,36 +566,39 @@ class ServeEngine:
                                    P_)
 
     @classmethod
-    def from_artifact(cls, api, path, *, verify: bool = False, **kw):
+    def from_artifact(cls, api, path, *, verify: bool = False,
+                      mesh: Optional[Mesh] = None, **kw):
         """Boot from a compiled ``.smez`` artifact (reference
-        ``ServeEngine.from_artifact``, without a mesh or ``bm``).
+        ``ServeEngine.from_artifact``, without ``bm``).
 
         ``compiler.load_artifact`` maps the payloads and checks every
-        kernel operand list on the host; ``convert.from_reference`` splits
-        the stacked layers and copies each leaf from the mapping to the
-        engine's device, one leaf at a time (no second copy of the tree on
-        the host).  ``backend`` defaults to the manifest's
-        ``extra.serve_backend``.  A kernel backend the artifact holds no
-        operands for is packed here, once, as is what ``auto`` takes on
-        the card (v2, v1 where minifloat-6 cannot hold a layer's
-        settings); each list is checked (``core.backend.ensure_operands``).
+        kernel operand list on the host; ``convert.split_reference``
+        splits the stacked layers into views of the mapping.  A kernel
+        backend the artifact holds no operands for is packed here, once,
+        from the whole weights, as is what ``auto`` takes on the card
+        (v2, v1 where minifloat-6 cannot hold a layer's settings); each
+        list is checked (``core.backend.ensure_operands``).  The engine
+        then places each leaf: on ``mesh`` (None: 1x1) every rank slices
+        its shard out of the mapping straight onto its device, one leaf
+        at a time, so no rank holds a sharded leaf whole (per weight, not
+        through ``load_artifact``'s per-leaf ``place`` hook: ROADMAP R10).
+        ``backend`` defaults to the manifest's ``extra.serve_backend``.
         The plan is kept as :attr:`plan`."""
         from ..compiler.artifact import load_artifact
-        from ..convert import from_reference
-        from ..core.backend import ensure_operands
+        from ..convert import split_reference
         tree, plan, manifest = load_artifact(path, verify=verify)
         kw.setdefault("backend",
                       manifest.get("extra", {}).get("serve_backend"))
-        kw.setdefault("device", api.device)
+        kw.setdefault("device", mesh.device if mesh is not None
+                      else api.device)
         device = resolve_device(kw["device"])
-        params = from_reference(tree, device=device)
-        del tree
+        params = split_reference(tree)
         backend = kw["backend"]
         if backend in ("v1", "v2", "v3"):
             params = ensure_operands(params, backend)
         elif backend in (None, "auto") and device.type == "cuda":
             params = ensure_operands(params, "auto")
-        eng = cls(api, params, **kw)
+        eng = cls(api, params, mesh=mesh, **kw)
         eng.plan = plan
         return eng
 
@@ -691,12 +820,12 @@ class ServeEngine:
                 tq = self._t_enq.get(id(r))
                 if tq is not None:
                     self._m["qwait"].observe(t_pf - tq)
-        with use_block(self.bm):
+        with self._scope():
             logits, pre = self.api.prefill(
                 self.params, toks, s_max=self.s_max, backend=self.backend,
                 **extra)
         temps = np.array([r.temperature for r in reqs], np.float32)
-        first = self._sample(logits, temps).cpu().numpy()
+        first = self._agree(self._sample(logits, temps)).cpu().numpy()
         t_first = self.tracer.now()
         self._m["prefill_s"].observe(t_first - t_pf)
         self._m["prefills"].inc()
@@ -727,12 +856,14 @@ class ServeEngine:
                     self._complete(req)
                     continue
             slot = self._free_slots()[0]
+            local = self._local(slot)
             for full, row in zip(self.caches, pre):
                 row = dict(_leaves(row))
                 for name, t in _leaves(full):
                     # an enc-dec cross K/V fills the head of the slot's
                     # s_max positions; decode reads no further (R6)
-                    t[slot, :row[name].shape[1]] = row[name][i]
+                    if local is not None:
+                        t[local, :row[name].shape[1]] = row[name][i]
             if self._encdec:
                 self._src[slot] = src
             self.pos[slot] = plens[i]
@@ -777,7 +908,7 @@ class ServeEngine:
                   if self._paged is None or not self._paged[i][name]}
                  for i, layer in enumerate(self.caches)]
         out = []
-        with use_spec_depth(self.spec_depth), use_block(self.bm):
+        with use_spec_depth(self.spec_depth), self._scope():
             for _ in range(self.spec_len):
                 logits, self.caches = self.api.decode_step(
                     self.params, tok, self.caches, pos, act,
@@ -788,7 +919,7 @@ class ServeEngine:
         for layer, keep in zip(self.caches, saved):
             for name, t in keep.items():
                 _leaf(layer, name).copy_(t)
-        return torch.stack(out).cpu().numpy()
+        return self._agree(torch.stack(out)).cpu().numpy()
 
     def step(self) -> None:
         """One engine step for all active slots: an optional draft pass,
@@ -844,12 +975,14 @@ class ServeEngine:
         temps = np.array([r.temperature if r is not None else 0.0
                           for r in self.active], np.float32)
         t_call = self.tracer.now()
-        with use_block(self.bm):
+        with self._scope():
             logits, live, self.caches = self.api.decode_chunk(
                 self.params, toks, self.caches, self.pos, quota, act, gated,
                 backend=self.backend, **self._src_kw())
-        emitted = self._sample(logits, temps).cpu().numpy()     # [K, B]
-        live = live.cpu().numpy()                               # [K, B]
+        # one broadcast of rank 0's ids and liveness per step
+        both = self._agree(torch.stack([self._sample(logits, temps),
+                                        live.long()])).cpu().numpy()
+        emitted, live = both[0], both[1].astype(bool)           # [K, B]
         del logits
         self._m["decode_steps"].inc()
         if spec_rows.any():
@@ -960,13 +1093,17 @@ class ServeEngine:
         n = len(ent.page_ids)
         ids = self._dev(ent.page_ids)
         P_ = self.page_tokens
+        local = self._local(slot)
+        # every rank's pools hold the snapshot; the slot's rank writes it
         for layer, pool, side in zip(self.caches, self._pool, self._side):
+            if local is None:
+                continue
             for name, pages in pool.items():
                 full = _leaf(layer, name)
-                full[slot, :n * P_] = pages[ids].reshape(
+                full[local, :n * P_] = pages[ids].reshape(
                     (n * P_,) + tuple(full.shape[2:]))
             for name, slab in side.items():
-                _leaf(layer, name)[slot] = slab[ent.entry_slot]
+                _leaf(layer, name)[local] = slab[ent.entry_slot]
         self.pos[slot] = ent.length
         self._pf_next[slot] = ent.length
         self.active[slot] = req
@@ -996,11 +1133,12 @@ class ServeEngine:
         P_ = self.page_tokens
         for layer, pool, side in zip(self.caches, self._pool, self._side):
             for name, pages in pool.items():
-                full = _leaf(layer, name)
-                pages[ids] = full[slot, f * P_:n * P_].reshape(
-                    (n - f, P_) + tuple(full.shape[2:]))
+                row = self._slot_row(_leaf(layer, name), slot)
+                pages[ids] = row[f * P_:n * P_].reshape(
+                    (n - f, P_) + tuple(row.shape[1:]))
             for name, slab in side.items():
-                slab[plan.entry.entry_slot] = _leaf(layer, name)[slot]
+                slab[plan.entry.entry_slot] = self._slot_row(
+                    _leaf(layer, name), slot)
         self._prefix.commit(plan)
         self._m["prefix_snapshots"].inc()
         if any(self._side):

@@ -1,0 +1,190 @@
+"""The rank side of ``test_torch_mesh.py``: imports no jax and nothing of
+the reference package, so that spawned ranks stay the port alone.
+
+``serve`` is the one serving run both sides make (the test process on the
+1x1 mesh, every rank on its meshes); ``run_rank`` is one spawned ``gloo``
+rank on the CPU: it joins the group through a file store, builds the
+meshes (2, 2), (4, 1) and (1, 4) over the same four ranks, runs every
+case of the job file the test wrote and saves its results for the test
+process to read.
+"""
+from __future__ import annotations
+
+import pathlib
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.parallel.policy import use_policy
+from repro_torch.parallel.sharding import split_of
+from repro_torch.serve import Request, ServeEngine
+
+MESHES = ((2, 2), (4, 1), (1, 4))
+#: the engine of every run: chunked prefill over two chunks, a prefix
+#: cache whose pages a later prompt hits
+ENGINE = dict(slots=4, s_max=64, chunk_len=8, page_tokens=8,
+              prefix_cache=True)
+#: v3 also drafts (self-speculative decode at two planes)
+SPEC = dict(spec_depth=2, spec_len=2)
+
+
+def requests(vocab: int, seed: int = 0):
+    """Six requests: ragged prompts, two sharing a 16-token prefix (the
+    second, admitted in the second wave, hits the first's snapshot), one
+    at temperature 0.7."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, size=16)
+    lens = (5, 8, 7, 12, 6, 5)
+    out = []
+    for i, n in enumerate(lens):
+        prompt = rng.integers(0, vocab, size=n)
+        if i in (1, 5):
+            prompt = np.concatenate([shared, prompt])
+        out.append(Request(rid=i, prompt=prompt.astype(np.int64),
+                           max_new_tokens=(4, 6, 3, 5, 4, 6)[i],
+                           temperature=0.7 if i == 3 else 0.0))
+    return out
+
+
+def engine_kw(backend):
+    return {**ENGINE, **(SPEC if backend == "v3" else {}),
+            "backend": backend}
+
+
+def serve(api, params, backend, mesh=None, seed=0, artifact=None):
+    """(tokens per request, the engine) of the requests through one engine
+    (from ``artifact`` when given), two admission waves so the second
+    wave's shared prompt hits the first's snapshot."""
+    if artifact is not None:
+        eng = ServeEngine.from_artifact(api, artifact, mesh=mesh,
+                                        device="cpu", seed=seed,
+                                        **{k: v for k, v in ENGINE.items()})
+    else:
+        eng = ServeEngine(api, params, mesh=mesh, device="cpu", seed=seed,
+                          **engine_kw(backend))
+    reqs = requests(api.cfg.vocab, seed)
+    eng.run(reqs[:3], max_steps=200)
+    eng.run(reqs[3:], max_steps=200)
+    assert all(r.done for r in reqs), [r.outcome for r in reqs]
+    return [r.out_tokens for r in reqs], eng
+
+
+def prefill_logits(api, params, policy=None):
+    """f32 logits of one ragged prefill window."""
+    reqs = requests(api.cfg.vocab)[:3]
+    toks = np.zeros((3, 16), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, :min(len(r.prompt), 16)] = r.prompt[:16]
+    plen = np.array([min(len(r.prompt), 16) for r in reqs])
+    with use_policy(policy):
+        return api.prefill(params, toks, s_max=32, plen=plen)[0]
+
+
+def _spy():
+    """Record every float tensor a summing collective sees."""
+    seen = []
+    for name in ("all_reduce", "reduce_scatter", "reduce_scatter_tensor",
+                 "reduce"):
+        fn = getattr(dist, name)
+
+        def spy(*a, _fn=fn, _name=name, **k):
+            for t in list(a) + list(k.values()):
+                ts = t if isinstance(t, (list, tuple)) else [t]
+                if any(torch.is_tensor(x) and x.is_floating_point()
+                       for x in ts):
+                    seen.append(_name)
+            return _fn(*a, **k)
+        setattr(dist, name, spy)
+    return seen
+
+
+def _bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _split_names(tree, path=""):
+    if isinstance(tree, dict):
+        if "sme_codes" in tree:
+            return [path] if split_of(tree) is not None else []
+        return [n for k, v in tree.items()
+                for n in _split_names(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _split_names(v, f"{path}/{i}")]
+    return [path] if split_of(tree) is not None else []
+
+
+def run_rank(rank: int, world: int, store: str, tmp: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    tmp = pathlib.Path(tmp)
+    job = torch.load(tmp / "job.pt", weights_only=False)
+    seen = _spy()
+    meshes = {s: make_local_mesh(*s, device="cpu") for s in MESHES}
+    out = {"tokens": {}, "mismatches": 0, "logits": {}}
+    api = job["api"]
+    for backend, params in job["params"].items():
+        for shape, mesh in meshes.items():
+            toks, eng = serve(api, params, backend, mesh)
+            out["tokens"][(backend, shape)] = toks
+            out["mismatches"] += eng.rank_mismatches
+            if shape == (2, 2):
+                out["logits"][backend] = prefill_logits(api, eng.params,
+                                                        eng.policy)
+                out.setdefault("split", {})[backend] = _split_names(
+                    eng.params)
+                out.setdefault("bytes", {})[backend] = _bytes(eng.params)
+                out.setdefault("cache", {})[backend] = [
+                    tuple(t.shape) for t in eng.caches[0].values()]
+    # one decode_chunk call per engine step on a mesh
+    mesh = meshes[(2, 2)]
+    eng = ServeEngine(api, job["params"]["v1"], mesh=mesh, device="cpu",
+                      **engine_kw("v1"))
+    calls = [0]
+    inner = api.decode_chunk
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+    api.decode_chunk = counted
+    pending = requests(api.cfg.vocab)
+    steps = 0
+    while pending or any(r is not None for r in eng.active):
+        window = []
+        while pending and len(window) < len(eng._free_slots()):
+            window.append(pending.pop(0))
+        if window:
+            eng._admit(window)
+        eng.step()
+        steps += 1
+        assert steps < 300
+    api.decode_chunk = inner
+    out["chunk_calls"] = (calls[0], eng.stats["decode_steps"], steps)
+    moe_api, moe = job["moe"]
+    for backend, params in moe.items():
+        toks, eng = serve(moe_api, params, backend, mesh)
+        out["tokens"][("moe", backend)] = toks
+        out["mismatches"] += eng.rank_mismatches
+        out.setdefault("moe_split", {})[backend] = _split_names(eng.params)
+    toks, eng = serve(api, None, None, mesh, artifact=job["artifact"])
+    out["tokens"][("artifact", (2, 2))] = toks
+    out["artifact_split"] = _split_names(eng.params)
+    out["raises"] = {}
+    for name, fam_api in job["left_out"].items():
+        try:
+            ServeEngine(fam_api, {}, mesh=mesh, device="cpu")
+        except NotImplementedError as e:
+            out["raises"][name] = str(e)
+    out["summed"] = list(seen)
+    out["jax"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "repro"))
+    torch.save(out, tmp / f"rank{rank}.pt")
+    dist.destroy_process_group()

@@ -10,7 +10,9 @@ decode ≡ prefill bitwise at every decode M bucket and at a 22-group column,
 ``plane_depth``, v1 ≡ v2 ≡ v3 bitwise (after each format's power-of-two
 scaling) on both of v1's and v2's paths, empty column tiles, the launch
 geometry of the four kernels, the launch counters, the operands each
-wrapper refuses, and the malformed lists the device refuses."""
+wrapper refuses, and the malformed lists the device refuses.  For mesh
+serving: the four wrappers on two shards of whole column tiles equal the
+whole launch bitwise, and so do the dense ops a mesh splits or pads."""
 import functools
 
 import numpy as np
@@ -778,3 +780,91 @@ def test_rejected_malformed_list_leaves_the_context_usable(cuda):
     torch.cuda.synchronize()
     assert torch.equal(ys[0], ys[1]) and torch.equal(ys[0], ys[2])
     assert _oracle_rel(ys[0], x, sme_compress(w).dequant()) <= TOL_ORACLE
+
+
+@functools.lru_cache(maxsize=None)
+def _qwen_wi_host():
+    """qwen1.5-0.5b's wi at full width, 1024x2816 (22 column tiles),
+    packed for v1, v2 and v3 from one compression, on the host."""
+    from repro_torch.core.integrate import convert_params_to_sme
+    w = np.random.default_rng(7).standard_normal(
+        (1024, 2816), dtype=np.float32) * np.float32(1 / 32)
+    return convert_params_to_sme({"wi": {"w": w}}, squeeze=1,
+                                 backend="all", device="cpu")
+
+
+def _shard_meshes(dev, model=2):
+    """One stand-in Mesh per 'model' coordinate (placement reads only the
+    shape, the coordinates and the device)."""
+    from repro_torch.launch.mesh import Mesh
+    return [Mesh(1, model, rank=r, device=dev, groups={"world": None})
+            for r in range(model)]
+
+
+@pytest.mark.parametrize("m", [8, 512])
+def test_four_wrappers_on_two_shards_bitwise(cuda, m):
+    """Each of the four wrappers on two shards of 11 whole column tiles of
+    qwen's 1024x2816 (the mesh's placement), the launches' columns
+    concatenated, equals the whole weight's launch bitwise: v1 and v2 (the
+    decode walk at M = 8, the tiled walk at 512) and v3 (the decode
+    kernel at 8, the prefill kernel at 512).  No launch heuristic keyed on
+    N moves a column's value."""
+    from repro_torch.core.backend import sme_apply
+    from repro_torch.parallel.sharding import place_tree, split_of
+    tree = _qwen_wi_host()
+    x = torch.as_tensor(np.random.default_rng(m).standard_normal(
+        (m, 1024), dtype=np.float32), device=cuda)
+    whole_w = place_tree(tree, _shard_meshes(cuda, 1)[0])["wi"]["w"]
+    wrappers = {"v1": sme_spmm, "v2": sme_spmm6,
+                "v3": sme_spmm_planes_decode if m == 8 else sme_spmm_planes}
+    for backend, fn in wrappers.items():
+        whole = sme_apply(x, whole_w, backend)
+        n0 = fn.launches
+        parts = []
+        for mesh in _shard_meshes(cuda):
+            w = place_tree(tree, mesh)["wi"]["w"]
+            assert w[f"sme_{backend}_nnz"].shape[-1] == 11
+            assert split_of(w).step == 11 * 128
+            parts.append(sme_apply(x, w, backend))
+        assert fn.launches == n0 + 2, backend
+        got = torch.cat(parts, dim=-1)
+        assert torch.equal(got, whole), (backend, m)
+
+
+def test_dense_products_on_shards_bitwise(cuda):
+    """The dense ops a mesh splits or pads, on the card: a column-split
+    f32 matmul (qwen's tied head, 1024 x 151936 at M = 4, in 2 and 4 vocab
+    shards) equals the whole product's columns bitwise; a decode step's
+    attention in the 1x1 shape over a cache that is zero outside one
+    rank's rows and KV heads (``policy.whole_cache``) gives that rank's
+    rows and heads bitwise as over the whole cache, for every split of 4
+    slot rows and 16 KV heads over 1, 2 and 4 ranks.  (On a slice of the
+    rows and heads the batched matmuls pick another algorithm by batch
+    count, and the bits differ: why attention keeps the 1x1 shape.)"""
+    from repro_torch.models.attention import _decode_attend
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 1024, device=cuda, generator=g)
+    table = torch.randn(151936, 1024, device=cuda, generator=g)
+    whole = x @ table.T
+    for parts in (2, 4):
+        step = 151936 // parts
+        got = torch.cat([x @ table[i * step:(i + 1) * step].T
+                         for i in range(parts)], dim=-1)
+        assert torch.equal(got, whole), parts
+    del table, whole
+    b, w, kv, hd = 4, 256, 16, 64
+    q = torch.randn(b, 1, kv, hd, device=cuda, generator=g)
+    k = torch.randn(b, w, kv, hd, device=cuda, generator=g)
+    v = torch.randn(b, w, kv, hd, device=cuda, generator=g)
+    kpos = torch.arange(w, device=cuda).expand(b, w)
+    pos = torch.full((b,), w - 1, device=cuda)
+    whole = _decode_attend(q, k, v, kpos, pos, 0, hd ** -0.5)
+    for rows, heads in ((4, 16), (2, 16), (4, 8), (2, 8), (4, 4), (1, 16)):
+        for r0 in range(0, b, rows):
+            for h0 in range(0, kv, heads):
+                mine = (slice(r0, r0 + rows), slice(None),
+                        slice(h0, h0 + heads))
+                kz, vz = torch.zeros_like(k), torch.zeros_like(v)
+                kz[mine], vz[mine] = k[mine], v[mine]
+                part = _decode_attend(q, kz, vz, kpos, pos, 0, hd ** -0.5)
+                assert torch.equal(part[mine], whole[mine]), (rows, heads)

@@ -33,7 +33,9 @@ def test_port_import_leaves_jax_unloaded():
             "repro_torch.convert, repro_torch.kernels.build, "
             "repro_torch.launch.train, repro_torch.launch.compile, "
             "repro_torch.train.checkpoint, repro_torch.train.fault, "
-            "repro_torch.models.cnn, repro_torch.optim, repro_torch.data; "
+            "repro_torch.models.cnn, repro_torch.optim, repro_torch.data, "
+            "repro_torch.parallel, repro_torch.parallel.policy, "
+            "repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

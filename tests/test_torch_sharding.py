@@ -1,0 +1,283 @@
+"""The port's sharding rules against the reference's, with no ranks.
+
+``repro_torch.parallel.sharding`` against ``repro.parallel.sharding``: for
+every ``ARCHS`` entry's small tree in the reference's layout (dense, and
+SME-packed with v1, v2 and v3 operands), the meshes (1,1), (2,2), (4,1),
+(1,4) and (2,4) as ``jax.sharding.AbstractMesh`` (no devices needed) and
+both postures with ``fsdp``/``tp`` on and off, the port's spec of every
+leaf equals the reference's ``PartitionSpec`` as a tuple; the same for
+the cache rules at batch 1, 2 and 4 and for ``batch_sharding``.  The
+port's per-layer trees get their stacked leaf's spec without the stacked
+dim.  ``place_tree``'s shards, one per mesh coordinate, reassemble to
+every leaf bitwise; and the four kernels' plain versions on a weight cut
+into two shards of whole column tiles (qwen's 1024x2816, 22 tiles) give
+the whole weight's columns bitwise at M = 8 and 512.
+"""
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh
+
+from repro.configs import ARCHS as REF_ARCHS, scale_down as ref_scale_down
+from repro.core.integrate import convert_params_to_sme as ref_convert
+from repro.models import build_model as ref_build_model
+from repro.parallel import sharding as ref_sh
+from repro_torch.configs import ARCHS, scale_down
+from repro_torch.convert import from_reference, to_reference
+from repro_torch.launch.mesh import Mesh, make_serve_mesh, parse_mesh
+from repro_torch.models.model import build_model, init_params
+from repro_torch.parallel import sharding as sh
+
+MESHES = [(1, 1), (2, 2), (4, 1), (1, 4), (2, 4)]
+
+
+def _over(arch):
+    """The reference's SME-eligible small size per arch (128 wide)."""
+    over = dict(d_model=128, d_ff=256, vocab=256, dtype="float32")
+    if arch == "whisper-medium":
+        over["n_layers"] = 2
+    if arch in ("mixtral-8x7b", "deepseek-v2-lite-16b", "jamba-v0.1-52b"):
+        over["expert_dff"] = 128
+    return over
+
+
+@functools.lru_cache(maxsize=None)
+def _trees(arch):
+    """(reference config, dense abstract tree, packed numpy tree): the
+    packed one is the port's numpy init in the reference's layout, packed
+    by the reference's converter with every operand set."""
+    cfg = ref_scale_down(REF_ARCHS[arch], **_over(arch))
+    dense = jax.eval_shape(ref_build_model(cfg).init_params,
+                           jax.random.key(0))
+    pcfg = scale_down(ARCHS[arch], **_over(arch))
+    ref = to_reference(init_params(pcfg, np.random.default_rng(0)),
+                       len(pcfg.pattern)) if not pcfg.n_enc_layers else \
+        to_reference(init_params(pcfg, np.random.default_rng(0)))
+    packed = ref_convert(ref, squeeze=1, backend="all")
+    return cfg, dense, jax.tree.map(np.asarray, packed)
+
+
+def _ref_specs(tree):
+    return {jax.tree_util.keystr(p): tuple(s.spec) for p, s in
+            jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _specs(tree, specs):
+    """{path: spec} of a spec tree, read along its input ``tree`` (a spec
+    is a tuple, so the input says which tuples are containers)."""
+    out = {}
+    for path, _ in _flat(tree):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        out[_keystr(path)] = spec
+    return out
+
+
+def _keystr(path):
+    return "".join(f"[{k}]" if isinstance(k, int) else f"['{k}']"
+                   for k in path)
+
+
+@pytest.mark.parametrize("arch", sorted(REF_ARCHS))
+def test_param_specs_match_reference(arch):
+    _, dense, packed = _trees(arch)
+    n = 0
+    for tree in (dense, packed):
+        for shape in MESHES:
+            mesh = AbstractMesh(shape, ("data", "model"))
+            for exact in (False, True):
+                for fsdp in (True, False):
+                    for tp in (True, False):
+                        want = _ref_specs(ref_sh.param_sharding(
+                            mesh, tree, fsdp=fsdp, tp=tp, exact=exact))
+                        got = _specs(tree, sh.param_sharding(
+                            mesh, tree, fsdp=fsdp, tp=tp, exact=exact,
+                            port=False))
+                        assert got == want, (shape, exact, fsdp, tp)
+                        n += len(want)
+            for path, leaf in _flat(tree):
+                key = "/".join(map(str, path))
+                assert sh.leaf_sharding(mesh, key, leaf.shape) == tuple(
+                    ref_sh.leaf_sharding(mesh, key, leaf.shape).spec), key
+    assert n > 0
+    assert sh.EXACT_MIN_SHARD == ref_sh.EXACT_MIN_SHARD
+
+
+@pytest.mark.parametrize("arch", sorted(REF_ARCHS))
+def test_port_layout_specs_drop_the_stacked_dim(arch):
+    """A per-layer port leaf's spec is its stacked reference leaf's without
+    the superblock dim (``blocks/i`` is slot ``i % n_slots``)."""
+    cfg, _, packed = _trees(arch)
+    port = from_reference(packed, device="cpu")
+    n_slots = len(cfg.pattern)
+    for shape in MESHES[1:]:
+        mesh = AbstractMesh(shape, ("data", "model"))
+        for exact in (False, True):
+            want = _ref_specs(ref_sh.param_sharding(mesh, packed,
+                                                    exact=exact))
+            got = _specs(port, sh.param_sharding(mesh, port, exact=exact))
+            for path, _ in _flat(port):
+                spec = got[_keystr(path)]
+                if path[0] in ("blocks", "enc", "dec"):
+                    head = (("blocks", f"slot{path[1] % n_slots}")
+                            if path[0] == "blocks" else (path[0],))
+                    assert spec == want[_keystr(head + path[2:])][1:], path
+                else:
+                    assert spec == want[_keystr(path)], path
+
+
+@pytest.mark.parametrize("arch", sorted(REF_ARCHS))
+def test_cache_specs_match_reference(arch):
+    cfg, _, _ = _trees(arch)
+    api = ref_build_model(cfg)
+    for batch in (1, 2, 4):
+        acache = api.abstract_cache(batch=batch, s_max=32)
+        for shape in MESHES:
+            mesh = AbstractMesh(shape, ("data", "model"))
+            for exact in (False, True):
+                want = _ref_specs(ref_sh.cache_sharding(mesh, acache, batch,
+                                                        exact=exact))
+                got = _specs(acache, sh.cache_sharding(
+                    mesh, acache, batch, exact=exact, port=False))
+                assert got == want, (batch, shape, exact)
+
+
+def test_port_cache_specs_and_batch_sharding():
+    """The engine's per-layer caches get their stacked leaf's spec without
+    the superblock dim; ``batch_sharding`` is the reference's."""
+    cfg = ref_scale_down(REF_ARCHS["gemma3-12b"], **_over("gemma3-12b"))
+    papi = build_model(scale_down(ARCHS["gemma3-12b"], **_over(
+        "gemma3-12b")), device="cpu")
+    n_slots = len(cfg.pattern)
+    for batch in (1, 2, 4):
+        acache = ref_build_model(cfg).abstract_cache(batch=batch, s_max=32)
+        port = papi.init_cache(batch, 32, device="meta")
+        for shape in MESHES:
+            mesh = AbstractMesh(shape, ("data", "model"))
+            want = _ref_specs(ref_sh.cache_sharding(mesh, acache, batch,
+                                                    exact=True))
+            got = _specs(port, sh.cache_sharding(mesh, port, batch,
+                                                 exact=True))
+            for path, _ in _flat(port):
+                key = _keystr(("blocks", f"slot{path[0] % n_slots}")
+                              + path[1:])
+                assert got[_keystr(path)] == want[key][1:], (path, shape)
+    for b in (1, 2, 3, 4, 8):
+        batch = {"tokens": jax.ShapeDtypeStruct((b, 16), np.int32),
+                 "mask": jax.ShapeDtypeStruct((b, 16, 2), np.float32)}
+        for shape in MESHES:
+            mesh = AbstractMesh(shape, ("data", "model"))
+            for inc in (False, True):
+                want = _ref_specs(ref_sh.batch_sharding(mesh, batch, inc))
+                got = _specs(batch, sh.batch_sharding(mesh, batch, inc))
+                assert got == want, (b, shape, inc)
+
+
+def test_parse_and_serve_mesh_errors():
+    """``parse_mesh``'s messages are the reference's; a mesh that needs
+    more ranks than run raises with the launcher's way to get them."""
+    from repro.launch.mesh import parse_mesh as ref_parse
+    assert parse_mesh("2,2") == ref_parse("2,2") == (2, 2)
+    for bad in ("2", "2,2,2", "0,1"):
+        with pytest.raises(ValueError) as ours:
+            parse_mesh(bad)
+        with pytest.raises(ValueError) as theirs:
+            ref_parse(bad)
+        assert str(ours.value) == str(theirs.value)
+    assert make_serve_mesh("1,1", device="cpu").size == 1
+    with pytest.raises(ValueError, match="needs 4 ranks but only 1"):
+        make_serve_mesh("2,2", device="cpu")
+    with pytest.raises(ValueError, match="process groups"):
+        Mesh(2, 2, device="cpu")
+
+
+def _coords(data, model):
+    """One stand-in Mesh per coordinate (placement reads only the shape,
+    the coordinates and the device; no collective runs here)."""
+    return [Mesh(data, model, rank=r, device="cpu", groups={"world": None})
+            for r in range(data * model)]
+
+
+def _join(parts, dim):
+    return torch.cat(parts, dim=dim)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mixtral-8x7b"])
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (2, 1)])
+def test_place_tree_shards_reassemble(arch, shape):
+    """Every rank's shards of every leaf (dense and packed) join back into
+    the leaf bitwise; split leaves carry their Split, whole ones do not."""
+    _, _, packed = _trees(arch)
+    cfg = scale_down(ARCHS[arch], **_over(arch))
+    dense = init_params(cfg, np.random.default_rng(0))
+    for tree in (dense, from_reference(packed, device="cpu")):
+        full = dict(_flat(tree))
+        meshes = _coords(*shape)
+        placed = [dict(_flat(sh.place_tree(tree, m))) for m in meshes]
+        model = shape[1]
+        n_split = 0
+        for key, leaf in full.items():
+            leaf = torch.as_tensor(np.asarray(leaf))
+            parts = [p[key] for p in placed]
+            # ranks of one model coordinate hold the same shard
+            for r, t in enumerate(parts):
+                assert torch.equal(t, parts[r % model]), key
+            mine = parts[:model]
+            if all(t.shape == leaf.shape for t in mine):
+                assert torch.equal(mine[0], leaf), key
+                continue
+            n_split += 1
+            dim = next(d for d in range(leaf.dim())
+                       if mine[0].shape[d] != leaf.shape[d])
+            assert torch.equal(_join(mine, dim), leaf), key
+        if model > 1:
+            assert n_split > 0, "no leaf split on the model axis"
+
+
+@functools.lru_cache(maxsize=None)
+def _qwen_wi():
+    """qwen's wi at full width, 1024x2816 (22 column tiles), packed for
+    v1, v2 and v3 from one compression."""
+    from repro_torch.core.integrate import convert_params_to_sme
+    rng = np.random.default_rng(7)
+    w = rng.standard_normal((1024, 2816), dtype=np.float32) * np.float32(
+        1 / 32)
+    tree = convert_params_to_sme({"wi": {"w": w}}, squeeze=1,
+                                 backend="all", device="cpu")
+    return tree
+
+
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("backend", ["v1", "v2", "v3"])
+def test_plain_kernels_on_two_shards_bitwise(backend, m):
+    """The plain versions on two shards of 11 whole column tiles each, the
+    parts concatenated, equal the whole weight's product bitwise (v3 at M
+    = 8 takes the decode kernel, at 512 the prefill kernel)."""
+    from repro_torch.core.backend import sme_apply
+    tree = _qwen_wi()
+    x = torch.as_tensor(np.random.default_rng(m).standard_normal(
+        (m, 1024), dtype=np.float32))
+    whole = sme_apply(x, tree["wi"]["w"], backend)
+    parts = []
+    for mesh in _coords(1, 2):
+        w = sh.place_tree(tree, mesh)["wi"]["w"]
+        assert w[f"sme_{backend}_nnz"].shape[-1] == 11
+        assert sh.split_of(w) == sh.Split(-1, 2816, 11 * 128,
+                                          mesh.index("model") * 11 * 128)
+        parts.append(sme_apply(x, w, backend))
+    assert torch.equal(torch.cat(parts, dim=-1), whole)
