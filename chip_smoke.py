@@ -105,9 +105,10 @@
 5a'. Mesh serving (``mesh_phase``, inside the train phase, on its
    trained artifacts): the four wrappers on two shards of 11 whole column
    tiles of qwen's 1024x2816 equal the whole launch bitwise at M = 8 and
-   512; the 4 prompts served for 32 tokens from the v3 and the auto (v2)
+   512; the 4 prompts served for 16 tokens from the v3 and the auto (v2)
    artifact on the 1x1 mesh through an NCCL process group of world size
-   1 must give the train phase's tokens; then 4 spawned ranks share the
+   1 must give the first 16 of the train phase's tokens; then 4 spawned
+   ranks share the
    card over ``gloo`` (which carries CUDA tensors through host memory
    itself: correctness, not speed) and serve the v3 artifact on meshes (2, 2)
    and (1, 4) and the auto artifact on (2, 2): every rank's tokens must
@@ -147,7 +148,7 @@
    37 per pass (6 per layer and the head), equal tokens; one prefill
    window's f32 logits v2 == v3 bitwise and within tolerance of the
    ``torch`` backend and the plain versions; a profiled window.  Then the
-   engine (v3, ``chunk_len`` 32, ``page_tokens`` 16, prefix cache on,
+   engine (v3, ``chunk_len`` 544, ``page_tokens`` 16, prefix cache on,
    ``spec_len`` 4) on the same prompts, two of them sharing a 1,088-token
    prefix (the second admitted once the first has scored it, so it hits a
    snapshot whose rings wrapped past W), with spec and without: prefix
@@ -170,7 +171,7 @@
    pass (a decode pass skips each packed ``kv_up``, read as its dequantized
    matrix), equal tokens, routing drops printed; f32 prefill logits v2 ==
    v3 bitwise and within 5e-5 of the ``torch`` backend; a profiled window;
-   the engine on v3 (``chunk_len`` 128): mixtral with spec and without
+   the engine on v3 (``chunk_len`` 256): mixtral with spec and without
    (equal tokens), deepseek with spec and the prefix cache, two prompts
    sharing 256 tokens (a hit), MLA's ``c`` and ``k_pe`` classified paged
    and one dequantized ``kv_up`` per layer. llava: one-shot through the
@@ -178,7 +179,25 @@
    ``patch_proj`` launched at prefill only), f32 logits and a profiled
    window as above, and the engine with 2 requests admitted whole in one
    prefill whose ``plen`` counts the 576 frontend tokens (no chunked step,
-   no prefix cache).
+   no prefix cache).  Each of deepseek's and llava's packed trees is
+   then written once as a ``.smez`` (``compiler.artifact.save_artifact``;
+   no new packing).
+7'. Mesh serving of MLA and the vision frontend (``slice_mesh_phase``)
+   from those artifacts, at phase 7's widths and depth: 4 prompts of
+   64-128 tokens, 16 new tokens each, on the 1x1 mesh through an NCCL
+   group of world size 1 in this process (deepseek v2 one-shot, deepseek
+   v3 with spec and a prefix hit, llava v2 one-shot; the prompts of the
+   spec run cut to one 64-token chunk, the second request the first's
+   chunk and one token, so it hits the first's snapshot); then 4 spawned
+   ranks share the card over ``gloo`` and serve deepseek
+   v2 on (2, 2) and (1, 4), deepseek v3 with spec and the prefix hit on
+   (2, 2) and llava v2 on (2, 2) (:data:`SLICE_MESH_RUNS`).  Every
+   rank's tokens must equal 1x1's, rank 0's f32 prefill logits 1x1's
+   bitwise (llava's behind seeded patches), ``kv_up`` / ``patch_proj``
+   must be split over 'model' and each run's kernels launched.  Prints
+   params per rank against 1x1, ms per decode step (correctness only),
+   the launches per kernel and the phase's seconds (budget 60 s, the pool
+   paused while the ranks serve).
 8. The recurrent family at full width (``recurrent_phase``):
    xlstm-1.3b (d_model 2048, 4 heads; mLSTM d_in 4096 in heads of 1024,
    sLSTM heads of 512 and an FFN of 2730; untied head 2048x50304) cut to
@@ -196,7 +215,7 @@
    (xLSTM) and 15 (Jamba) per pass, equal tokens; f32 prefill logits v2
    == v3 bitwise and within 5e-5 of the ``torch`` backend; a profiled
    window; the ms of the Python time loops (sLSTM's, Mamba's) beside
-   their layers' prefill.  The engine on v3 (``chunk_len`` 32,
+   their layers' prefill.  The engine on v3 (``chunk_len`` 256,
    ``page_tokens`` 16, prefix cache, ``spec_len`` 4) with spec and
    without (equal tokens), two prompts sharing 256 tokens (a hit that
    restores the recurrent side rows, and for Jamba the attention's
@@ -223,15 +242,16 @@
    tokens, equal to the one-shot run's; and a request admitted into the
    slot a longer one used (its stale cross keys past the source) serves
    a fresh engine's tokens.
-10. Prints the compile, train, cnn, gemma, slice, recurrent and encdec
-   readings as JSON, the
+10. Prints the compile, train, cnn, gemma, slice (7' under ``mesh``),
+   recurrent and encdec readings as JSON, the
    kernels JSON line (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
    M = 8 in the top-level keys, every M a kernel ran at under ``at_m``;
    v3-decode adds ``draft_depth``, the draft passes' ``draft_launches``
    and ``draft_ms`` / ``draft_full_ms`` per layer on the model's own
    operands; ``artifact_launches`` counts the compile phase's runs,
    ``train_launches`` the train phase's serving runs, ``mesh_launches``
-   the mesh phase's (the 1x1 NCCL runs and every rank's), ``cnn_launches``
+   the mesh phases' (5a' and 7': the 1x1 NCCL runs and every rank's),
+   ``cnn_launches``
    the CNN phase's conv matrices on their activations and ``cnn`` its
    kernel rows per shape and M,
    ``gemma_launches`` gemma's serving and engine runs, ``gemma`` its
@@ -249,9 +269,11 @@ import contextlib
 import dataclasses
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1784,6 +1806,9 @@ def train_phase(dev, card):
 #: model)), each over the same four ranks sharing the one card
 MESH_RUNS = (("v3", (2, 2)), ("v3", (1, 4)), ("auto", (2, 2)))
 MESH_RANKS = 4
+#: new tokens per request of the mesh runs: the first of the train
+#: phase's :data:`MAX_NEW` (greedy, so a prefix of them)
+MESH_NEW = 16
 
 
 def tree_bytes(tree) -> int:
@@ -1920,11 +1945,11 @@ def shard_check(dev, card):
 
 
 def mesh_phase(dev, card, tmp, cfg, prompts, want, window):
-    """Mesh serving of the trained artifacts: the 1x1 mesh through an NCCL
-    group of world size 1 in this process, then :data:`MESH_RUNS` on four
-    gloo ranks sharing the card (correctness only: gloo carries CUDA
-    tensors through host memory).  Every rank's tokens must equal the
-    train phase's 1x1 tokens and rank 0's f32 prefill logits its logits
+    """Mesh serving of the trained artifacts for :data:`MESH_NEW` tokens:
+    the 1x1 mesh through an NCCL group of world size 1 in this process,
+    then :data:`MESH_RUNS` on four gloo ranks sharing the card (correctness only: gloo carries CUDA tensors through
+    host memory).  Every rank's tokens must equal the first of the train
+    phase's 1x1 tokens and rank 0's f32 prefill logits its logits
     bitwise.  Returns the readings and the launches per kernel of every
     mesh run (the ranks' summed)."""
     import torch.distributed as dist
@@ -1932,6 +1957,7 @@ def mesh_phase(dev, card, tmp, cfg, prompts, want, window):
     from repro_torch.models.model import build_model
     t_phase = time.perf_counter()
     out, launches = {"runs": {}}, {name: 0 for name in KERNELS}
+    want = {be: [t[:MESH_NEW] for t in toks] for be, toks in want.items()}
     shard_check(dev, card)
     api = build_model(cfg, device=dev)
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
@@ -1942,7 +1968,7 @@ def mesh_phase(dev, card, tmp, cfg, prompts, want, window):
         one = {}
         for be in ("v3", "auto"):
             tokens, stats, one[be], counts, eng = mesh_serve(
-                api, tmp / f"{be}.smez", be, mesh, prompts, MAX_NEW)
+                api, tmp / f"{be}.smez", be, mesh, prompts, MESH_NEW)
             del eng
             check(tokens == want[be], f"mesh 1x1 over NCCL ({be}): tokens "
                   f"differ from the train phase's serving")
@@ -1959,10 +1985,9 @@ def mesh_phase(dev, card, tmp, cfg, prompts, want, window):
     finally:
         dist.destroy_process_group()
     free_card()
-    store = tmp / "gloo"
     ctx = torch.multiprocessing.start_processes(
-        mesh_rank, args=(MESH_RANKS, str(store), str(tmp), cfg, prompts,
-                         window[:2], str(dev), MAX_NEW),
+        mesh_rank, args=(MESH_RANKS, str(tmp / "gloo"), str(tmp), cfg,
+                         prompts, window[:2], str(dev), MESH_NEW),
         nprocs=MESH_RANKS, join=False, start_method="spawn")
     try:
         while not all((tmp / f"ready{r}").exists()
@@ -2215,9 +2240,9 @@ HEAD_CLIP = 6 * HEAD_STD
 #: flush, and host-bound engine steps several times slower
 PACK_WORKERS = 6
 GEMMA_ONE_SHOT = dict(slots=4, s_max=2048, chunk_len=2048, prefix_cache=False)
-GEMMA_ENGINE = dict(slots=4, s_max=2048, chunk_len=32, page_tokens=16,
+GEMMA_ENGINE = dict(slots=4, s_max=2048, chunk_len=544, page_tokens=16,
                     spec_len=4)
-#: the prefix two of the gemma requests share: 34 chunks of 32, past W
+#: the prefix two of the gemma requests share: 2 chunks of 544, past W
 SHARED_PREFIX = 1088
 #: gemma prompt lengths are drawn from [lo, hi)
 PROMPT_LENS = (1100, 1501)
@@ -2721,11 +2746,11 @@ SLICE = {"mixtral": ("mixtral-8x7b", 1),
 #: their full depth, for the log
 SLICE_DEPTH = {"mixtral": 32, "deepseek": 27, "llava": 60}
 SLICE_ONE_SHOT = dict(slots=4, s_max=2048, chunk_len=2048, prefix_cache=False)
-SLICE_ENGINE = dict(slots=4, s_max=2048, chunk_len=128, page_tokens=16,
+SLICE_ENGINE = dict(slots=4, s_max=2048, chunk_len=256, page_tokens=16,
                     spec_len=4)
 #: the slice's prompt lengths are drawn from [lo, hi)
 SLICE_PROMPTS = (400, 601)
-#: the prefix deepseek's first two requests share: 2 chunks of 128
+#: the prefix deepseek's first two requests share: one chunk of 256
 SLICE_SHARED = 256
 #: a weight of more than this many is packed in column slabs (the heads)
 SLAB_WEIGHTS = 64 * 2 ** 20
@@ -2955,6 +2980,45 @@ def slice_workload(key, vocab):
     return prompts, ([a] + reqs[2:], [reqs[1]], ready)
 
 
+def format_mismatches(params, rows=1024):
+    """The packed weights of ``params`` whose v2 and v3 operands hold
+    different weights on the card: each format's product with the
+    identity (every output one exact product, then the same power-of-two
+    scaling), in blocks of ``rows`` rows, compared bitwise.  Returns
+    (path, differing elements, first (row, column)) of each."""
+    from repro_torch.core.backend import sme_apply
+    found = []
+
+    def weight(path, w):
+        lead = tuple(w["sme_codes"].shape[:-4])
+        k = w["sme_sign"].shape[-2]
+        dev = w["sme_codes"].device
+        bad, first = 0, None
+        for r0 in range(0, k, rows):
+            b = min(rows, k - r0)
+            eye = torch.zeros((b, k), device=dev)
+            eye[torch.arange(b), r0 + torch.arange(b)] = 1.0
+            x = eye.expand(lead + (b, k)).contiguous()
+            ne = sme_apply(x, w, "v2") != sme_apply(x, w, "v3")
+            if ne.any():
+                bad += int(ne.sum())
+                first = first or (ne.nonzero()[0].tolist(), r0)
+        if bad:
+            found.append((path, bad, first))
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            if "sme_codes" in t:
+                return weight(path, t)
+            for key, v in t.items():
+                walk(v, f"{path}/{key}")
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, f"{path}/{i}")
+    walk(params, "")
+    return found
+
+
 def slice_logits(api32, params, toks, plen, label, patches=None):
     """f32 prefill logits of one window under v2 and v3 (bitwise equal)
     and the ``torch`` backend (within :data:`TOL_SLICE`).  Returns the
@@ -2964,11 +3028,23 @@ def slice_logits(api32, params, toks, plen, label, patches=None):
                              plen=plen, backend=be, patches=patches)[0]
     lk = {be: logits(be) for be in ("v2", "v3", "torch")}
     if not torch.equal(lk["v2"], lk["v3"]):
-        # tell a result that varies from call to call from a stable one
+        # tell a result that varies from call to call from a stable one,
+        # and a kernel that parts from its plain version (the plain v2 and
+        # v3 agree there) from operands that differ (they do not)
         again = {be: torch.equal(logits(be), lk[be]) for be in ("v2", "v3")}
+        bad = lk["v2"] != lk["v3"]
+        with plain_kernels(blocks=True):
+            lp = {be: logits(be)[bad] for be in ("v2", "v3")}
+        off = {be: float((lk[be][bad] - lp[be]).abs().max())
+               for be in ("v2", "v3")}
         check(False, f"{label}: f32 prefill logits differ between v2 and "
-              f"v3 ({mismatch(lk['v2'], lk['v3'])}; a second call "
-              f"reproduces v2: {again['v2']}, v3: {again['v3']})")
+              f"v3 ({mismatch(lk['v2'], lk['v3'])} at "
+              f"{bad.nonzero()[:8].tolist()}; a second call reproduces v2: "
+              f"{again['v2']}, v3: {again['v3']}; there the plain v2 and v3 "
+              f"are equal: {bool(torch.equal(lp['v2'], lp['v3']))}, and "
+              f"|kernel - plain| is {off['v2']:.3e} (v2), {off['v3']:.3e} "
+              f"(v3); weights whose v2 and v3 operands differ on the card: "
+              f"{format_mismatches(params)})")
     check(bool(torch.isfinite(lk["v2"]).all())
           and lk["v2"].shape == (len(plen), api32.cfg.vocab),
           f"{label}: logits non-finite or misshapen")
@@ -3051,13 +3127,29 @@ def slice_setup(dev, key, packed, card):
     return cfg, params, skip, rows, out
 
 
-def moe_phase(dev, card, key, packed):
+def save_slice(params, cfg, path, label):
+    """Write a slice model's packed tree once as a ``.smez`` (the
+    reference's layout, no plan) for the slice's mesh phase; returns its
+    seconds."""
+    from repro_torch.compiler.artifact import save_artifact
+    from repro_torch.convert import to_reference
+    t0 = time.perf_counter()
+    save_artifact(path, to_reference(params, len(cfg.pattern)))
+    dt = time.perf_counter() - t0
+    print(f"{label}: packed tree written to a .smez for the mesh phase in "
+          f"{dt:.1f}s", flush=True)
+    return dt
+
+
+def moe_phase(dev, card, key, packed, save_to=None):
     """An MoE model at full width: its kernel rows; one-shot serving under
     auto (v2) and v3 (equal tokens, 3 x E expert launches per MoE layer
     per pass, routing drops); f32 prefill logits; the engine on v3 (mixtral
     with spec and without, equal tokens; deepseek with spec and the prefix
     cache, MLA's leaves paged and each packed ``kv_up`` dequantized
-    once).  Returns the kernel rows, launches per kernel and readings."""
+    once).  With ``save_to`` the packed tree is written there as a
+    ``.smez`` (:func:`save_slice`).  Returns the kernel rows, launches per
+    kernel and readings."""
     from repro_torch.core.backend import cached_dequant
     from repro_torch.models.model import build_model
     from repro_torch.models.moe import moe_drops
@@ -3140,6 +3232,9 @@ def moe_phase(dev, card, key, packed):
     print(f"{label}: engine tokens "
           f"{'with spec == without' if key == 'mixtral' else 'complete'}; "
           f"draft depth {depth} of {deepest}", flush=True)
+    out["draft_depth"] = depth
+    if save_to is not None:
+        out["save_s"] = save_slice(params, cfg, save_to, label)
     del params
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
@@ -3147,12 +3242,13 @@ def moe_phase(dev, card, key, packed):
     return rows, launches, out
 
 
-def vision_phase(dev, card, packed):
+def vision_phase(dev, card, packed, save_to=None):
     """llava-next-34b at full width, one layer: one-shot through the model
     API with seeded random patches through the packed ``patch_proj`` (R5)
     under v2 and v3 (equal tokens, counted launches), f32 prefill logits,
     then the engine with 2 requests admitted whole (no chunked step, no
-    prefix cache; positions count the 576 frontend tokens)."""
+    prefix cache; positions count the 576 frontend tokens).  With
+    ``save_to`` the packed tree is written there as a ``.smez``."""
     from repro_torch.models.model import build_model
     from repro_torch.serve import Request
     t_phase = time.perf_counter()
@@ -3250,11 +3346,316 @@ def vision_phase(dev, card, packed):
           f"{[len(q.prompt) for q in reqs]} tokens admitted whole in one "
           f"prefill (plen counts the {front} frontend tokens; chunk_len "
           f"{SLICE_ENGINE['chunk_len']} ignored, no prefix cache)", flush=True)
+    if save_to is not None:
+        out["save_s"] = save_slice(params, cfg, save_to, label)
     del params
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"{label}: phase {out['phase_s']:.1f}s", flush=True)
     return rows, launches, out
+
+
+# ---------------------------------------------------------------------------
+# mesh serving of MLA (deepseek-v2-lite) and the vision frontend (llava) at
+# full width, from the trees phase 7 packed
+
+#: the gloo runs, on 4 ranks sharing the card: (model, backend, (data,
+#: model), workload)
+SLICE_MESH_RUNS = (("deepseek", "v2", (2, 2), "one-shot"),
+                   ("deepseek", "v2", (1, 4), "one-shot"),
+                   ("deepseek", "v3", (2, 2), "spec+prefix"),
+                   ("llava", "v2", (2, 2), "one-shot"))
+#: the 1x1 runs they are held to: (model, backend, workload)
+SLICE_MESH_ONE = tuple(sorted({(k, b, w) for k, b, _, w in SLICE_MESH_RUNS}))
+SLICE_MESH_RANKS = 4
+#: 4 prompts of 64-128 tokens, 16 new tokens each
+SLICE_MESH_PROMPTS = (64, 129)
+SLICE_MESH_NEW = 16
+#: the spec+prefix workload's chunk: its prompts are cut to one chunk,
+#: the second to the first's chunk and one token of its own, so that it
+#: hits the first's snapshot and scores one position (a chunked tail is
+#: a decode pass per token, which 4 ranks sharing a card over gloo pay
+#: many times over)
+SLICE_MESH_CHUNK = 64
+SLICE_MESH_ENGINE = {
+    "one-shot": dict(slots=4, s_max=1024, chunk_len=1024, prefix_cache=False),
+    "spec+prefix": dict(slots=4, s_max=1024, chunk_len=SLICE_MESH_CHUNK,
+                        page_tokens=16, prefix_cache=True, spec_len=2)}
+
+
+def slice_mesh_prompts(vocab, workload="one-shot"):
+    rng = np.random.default_rng(SEED + 13)
+    lens = rng.integers(*SLICE_MESH_PROMPTS, size=4)
+    prompts = [rng.integers(0, vocab, int(n)) for n in lens]
+    if workload == "spec+prefix":
+        c = SLICE_MESH_CHUNK
+        prompts = [p[:c] for p in prompts]
+        prompts[1] = np.concatenate([prompts[0], [prompts[1][0]]])
+    return prompts
+
+
+def split_weights(tree, path=""):
+    """'/'-joined names of a placed tree's weights split over 'model'."""
+    from repro_torch.parallel.sharding import split_of
+    if isinstance(tree, dict):
+        if "sme_codes" in tree:
+            return [path] if split_of(tree) is not None else []
+        return [n for k, v in tree.items()
+                for n in split_weights(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in split_weights(v, f"{path}/{i}")]
+    return [path] if split_of(tree) is not None else []
+
+
+def slice_mesh_serve(api, path, backend, mesh, workload, depth,
+                     params=None):
+    """Serve the 4 prompts once from the artifact at ``path`` on ``mesh``
+    (or from ``params``, its tree booted whole on the card):
+    (tokens in request order, the engine, launches per kernel), the counts
+    set to 0 just before the run.  ``spec+prefix`` drafts at ``depth``
+    and submits the second request once the others are admitted, so that
+    it hits the first's snapshot."""
+    from repro_torch.serve import Request, ServeEngine
+    kw = dict(SLICE_MESH_ENGINE[workload])
+    if workload == "spec+prefix":
+        kw["spec_depth"] = depth
+    eng = ServeEngine.from_artifact(api, path, mesh=mesh, backend=backend,
+                                    **kw) if params is None else \
+        ServeEngine(api, params, mesh=mesh, backend=backend, **kw)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=SLICE_MESH_NEW)
+            for i, p in enumerate(slice_mesh_prompts(api.cfg.vocab,
+                                                     workload))]
+    waves = [reqs] if workload == "one-shot" else \
+        [[reqs[0]] + reqs[2:], [reqs[1]]]
+    sync(mesh.device)
+    zero_counts()
+    with quiet():              # its ms per decode step is a reading
+        for wave in waves:
+            for r in wave:
+                eng.submit(r)
+            eng.pump()
+        for _ in range(400):
+            if all(r.done for r in reqs):
+                break
+            eng.pump()
+            eng.step()
+        sync(mesh.device)
+    launches = {name: fn.launches for name, fn in wrappers().items()}
+    label = (f"{api.cfg.name} {mesh.data}x{mesh.model} {backend} "
+             f"{workload}")
+    check(all(r.outcome == "completed" and len(r.out_tokens)
+              == SLICE_MESH_NEW for r in reqs)
+          and eng.rank_mismatches == 0 and eng.stats["backend"] == backend,
+          f"mesh {label}: outcomes {[r.outcome for r in reqs]}, rank "
+          f"mismatches {eng.rank_mismatches}, backend {eng.stats['backend']}")
+    if workload == "spec+prefix":
+        check(eng._m["prefix_hits"].value >= 1
+              and eng._m["spec_rounds"].value > 0,
+              f"mesh {label}: no prefix hit or no spec round")
+    return [r.out_tokens for r in reqs], eng, launches
+
+
+def slice_mesh_logits(api32, params, policy):
+    """f32 logits of the 4 prompts' prefill window (llava's behind seeded
+    patches), computed on every rank of the policy's mesh."""
+    from repro_torch.parallel.policy import use_policy
+    cfg = api32.cfg
+    s_max = SLICE_MESH_ENGINE["one-shot"]["s_max"]
+    toks, lens = prefill_window(slice_mesh_prompts(cfg.vocab), s_max)
+    plen, extra = np.array(lens), {}
+    if cfg.frontend == "vision_stub":
+        front = cfg.n_frontend_tokens
+        extra["patches"] = torch.as_tensor(
+            np.random.default_rng(SEED + 12).standard_normal(
+                (4, front, cfg.d_model), dtype=np.float32),
+            device=api32.device)
+        plen = plen + front
+    with use_policy(policy):
+        return api32.prefill(params, toks, s_max=s_max, plen=plen,
+                             **extra)[0].cpu()
+
+
+def slice_mesh_rank(rank, world, store, tmp, device, depth):
+    """One of the four gloo ranks on the one card: serve
+    :data:`SLICE_MESH_RUNS` from the artifacts phase 7 wrote, with each
+    run's f32 prefill logits (rank 0's kept); the results go to
+    ``tmp/slice{rank}.pt``."""
+    import os
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    tmp = pathlib.Path(tmp)
+    apis = {}
+    for key in ("deepseek", "llava"):
+        cfg = slice_config(key)
+        apis[key] = (build_model(cfg, device=dev), build_model(
+            dataclasses.replace(cfg, dtype="float32"), device=dev))
+    (tmp / f"ready{rank}").touch()
+    while not (tmp / "go").exists():
+        time.sleep(0.05)
+    out = {"runs": {}}
+    for run in SLICE_MESH_RUNS:
+        key, backend, shape, workload = run
+        mesh = make_local_mesh(*shape, device=dev)
+        api, api32 = apis[key]
+        tokens, eng, launches = slice_mesh_serve(
+            api, tmp / f"{key}.smez", backend, mesh, workload, depth)
+        logits = slice_mesh_logits(api32, eng.params, eng.policy)
+        st = eng.stats
+        out["runs"][run] = dict(
+            tokens=tokens, bytes=tree_bytes(eng.params), launches=launches,
+            ms=st["decode_s"] / st["decode_steps"] * 1e3,
+            split=split_weights(eng.params),
+            cache=[tuple(t.shape) for t in eng.caches[0].values()],
+            logits=logits if rank == 0 else None)
+        del eng
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["jax"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "repro"))
+    torch.save(out, tmp / f"slice{rank}.pt")
+    dist.destroy_process_group()
+    os._exit(0)
+
+
+def slice_mesh_phase(dev, card, tmp, depth):
+    """Mesh serving of MLA and the vision frontend from the artifacts of
+    phase 7's deepseek and llava trees (``tmp/deepseek.smez``,
+    ``tmp/llava.smez``): the 1x1 mesh through an NCCL group of world size
+    1 in this process (each tree booted while the ranks start, the group
+    made once they wait), then :data:`SLICE_MESH_RUNS` on four gloo ranks
+    sharing the card (correctness only).  Every rank's tokens must equal
+    the 1x1 run's and rank 0's f32 prefill logits its logits bitwise.  Returns the readings
+    and the launches per kernel of every run (the ranks' summed)."""
+    import torch.distributed as dist
+    from repro_torch.compiler.artifact import load_artifact
+    from repro_torch.convert import split_reference
+    from repro_torch.launch.mesh import Mesh, make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.sharding import place_tree
+    t_phase = time.perf_counter()
+    out, launches = {"runs": {}}, {name: 0 for name in KERNELS}
+    ctx = torch.multiprocessing.start_processes(
+        slice_mesh_rank, args=(SLICE_MESH_RANKS, str(tmp / "gloo"), str(tmp),
+                               str(dev), depth),
+        nprocs=SLICE_MESH_RANKS, join=False, start_method="spawn")
+    try:
+        # while the ranks start: each tree booted once, whole on the card
+        # (the 1x1 mesh's placement, which its engines take as it is)
+        trees = {key: place_tree(split_reference(load_artifact(
+            tmp / f"{key}.smez")[0]), Mesh(1, 1, device=dev))
+            for key in ("deepseek", "llava")}
+        while not all((tmp / f"ready{r}").exists()
+                      for r in range(SLICE_MESH_RANKS)):
+            check(all(p.is_alive() for p in ctx.processes),
+                  "a mesh rank died before serving")
+            time.sleep(0.1)
+        # NCCL starts once the ranks' CUDA contexts exist and they wait
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/nccl", rank=0,
+                                world_size=1)
+        one = {}
+        try:
+            mesh = make_local_mesh(1, 1, device=dev)
+            for key, backend, workload in SLICE_MESH_ONE:
+                cfg = slice_config(key)
+                api = build_model(cfg, device=dev)
+                api32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                                    device=dev)
+                tokens, eng, counts = slice_mesh_serve(
+                    api, tmp / f"{key}.smez", backend, mesh, workload, depth,
+                    trees[key])
+                check(all(counts[k] > 0 for k in KERNELS_OF[backend]),
+                      f"mesh 1x1 {key} {backend}: a kernel of the path "
+                      f"never launched: {counts}")
+                for k in launches:
+                    launches[k] += counts[k]
+                st = eng.stats
+                run = one[(key, backend, workload)] = dict(
+                    tokens=tokens, bytes=tree_bytes(eng.params),
+                    ms=st["decode_s"] / st["decode_steps"] * 1e3,
+                    logits=slice_mesh_logits(api32, eng.params, eng.policy))
+                check(bool(torch.isfinite(run["logits"]).all())
+                      and run["logits"].shape == (4, cfg.vocab),
+                      f"mesh 1x1 {key} {backend}: logits non-finite or "
+                      f"misshapen")
+                print(f"mesh[{cfg.name} 1x1 {backend} {workload}]: an NCCL "
+                      f"group of world size 1 ({mesh.backend}); "
+                      f"{run['ms']:.2f} ms per decode step, "
+                      f"{run['bytes'] / 2 ** 20:.1f} MiB of params; launches "
+                      f"{counts} | {card}", flush=True)
+                out["runs"][f"{key} {backend} {workload} 1x1 nccl"] = dict(
+                    ms=run["ms"], bytes=run["bytes"])
+                del eng
+        finally:
+            dist.destroy_process_group()
+        del trees
+        free_card()
+        t_ready = time.perf_counter()
+        # the pool pauses while the ranks serve: their ms are readings
+        with quiet():
+            (tmp / "go").touch()
+            while not ctx.join(timeout=1):
+                pass
+        serve_s = time.perf_counter() - t_ready
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(tmp / f"slice{r}.pt", weights_only=False)
+             for r in range(SLICE_MESH_RANKS)]
+    for run in SLICE_MESH_RUNS:
+        key, backend, shape, workload = run
+        name = slice_config(key).name
+        label = f"{name} {shape[0]}x{shape[1]} {backend} {workload}"
+        ref = one[(key, backend, workload)]
+        got = [r["runs"][run] for r in ranks]
+        for i, g in enumerate(got):
+            check(g["tokens"] == ref["tokens"],
+                  f"mesh {label}: rank {i}'s tokens differ from 1x1")
+        summed = {k: sum(g["launches"][k] for g in got) for k in KERNELS}
+        check(all(summed[k] > 0 for k in KERNELS_OF[backend]),
+              f"mesh {label}: a kernel of the path never launched: {summed}")
+        for k in launches:
+            launches[k] += summed[k]
+        check(bool(torch.equal(got[0]["logits"], ref["logits"])),
+              f"mesh {label}: rank 0's f32 prefill logits differ from 1x1: "
+              f"{mismatch(got[0]['logits'], ref['logits'])}")
+        split = got[0]["split"]
+        want = "patch_proj" if key == "llava" else "kv_up"
+        check(any(want in n for n in split),
+              f"mesh {label}: no {want} split over 'model': {split}")
+        ms = [g["ms"] for g in got]
+        nbytes = [g["bytes"] for g in got]
+        out["runs"][label] = dict(ms=ms, bytes=nbytes,
+                                  bytes_1x1=ref["bytes"], launches=summed,
+                                  split=len(split), cache=got[0]["cache"])
+        frac = ", ".join(f"{b / ref['bytes']:.3f}" for b in nbytes)
+        print(f"mesh[{label}]: 4 ranks, every rank's tokens == 1x1, rank 0's "
+              f"f32 prefill logits == 1x1 bitwise, rank mismatches 0; params "
+              f"per rank {', '.join(f'{b / 2 ** 20:.1f}' for b in nbytes)} "
+              f"MiB against 1x1's {ref['bytes'] / 2 ** 20:.1f} MiB ({frac}); "
+              f"{len(split)} weights split over 'model' ({want} among them), "
+              f"rank 0's first cache {got[0]['cache']}; "
+              f"{', '.join(f'{t:.1f}' for t in ms)} ms per decode step "
+              f"(gloo, 4 ranks on one card: correctness only); launches "
+              f"{summed} | {card}", flush=True)
+    check(all(r["jax"] == [] for r in ranks), "a mesh rank imported jax")
+    out["serve_s"] = serve_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh[mla+vision]: phase {out['phase_s']:.1f}s of its 60 s budget "
+          f"({serve_s:.1f}s of gloo serving, the pool paused)", flush=True)
+    return out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3268,7 +3669,7 @@ RECURRENT_DEPTH = {"xlstm": 48, "jamba": 32}
 #: gates are 4 wide), 4 for the sLSTM layer, 1 head; Jamba 4 Mamba, 4
 #: attention, 3 + 3 MLP, 1 head
 RECURRENT_PER_PASS = {"xlstm": 19, "jamba": 15}
-RECURRENT_ENGINE = dict(slots=4, s_max=2048, chunk_len=32, page_tokens=16,
+RECURRENT_ENGINE = dict(slots=4, s_max=2048, chunk_len=256, page_tokens=16,
                         spec_len=4)
 #: the recurrent kernel rows: (model, label, weight, K, N); the ragged
 #: widths are ff_wi's 2730 (21.3 tiles), x_proj's 288 (2.25) and dt_w's K
@@ -4003,6 +4404,7 @@ def main() -> int:
                      **{key: recurrent_tasks(key, 100000 * (i + 4))
                         for i, key in enumerate(RECURRENT)},
                      "whisper": encdec_tasks(100000 * 6)})
+    slice_tmp = pathlib.Path(tempfile.mkdtemp(prefix="slice-mesh-"))
     try:
         card_tests()
         flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
@@ -4025,13 +4427,24 @@ def main() -> int:
         slice_launches = {name: 0 for name in KERNELS}
         slice_out = {}
         for key in SLICE:
+            # deepseek's and llava's packed trees are written for the
+            # mesh phase that follows
+            save_to = slice_tmp / f"{key}.smez" if key in ("deepseek",
+                                                          "llava") else None
             rows_k, launches_k, slice_out[key] = (
-                vision_phase(dev, card, packer.wait(key)) if key == "llava"
-                else moe_phase(dev, card, key, packer.wait(key)))
+                vision_phase(dev, card, packer.wait(key), save_to)
+                if key == "llava"
+                else moe_phase(dev, card, key, packer.wait(key), save_to))
             free_card()
             for name in KERNELS:
                 slice_rows[name].update(rows_k.get(name, {}))
                 slice_launches[name] += launches_k[name]
+        slice_out["mesh"], slice_mesh_launches = slice_mesh_phase(
+            dev, card, slice_tmp, slice_out["deepseek"]["draft_depth"])
+        shutil.rmtree(slice_tmp, ignore_errors=True)
+        free_card()
+        for name in KERNELS:
+            mesh_launches[name] += slice_mesh_launches[name]
         rec_rows = {name: {} for name in KERNELS}
         rec_launches = {name: 0 for name in KERNELS}
         rec_out = {}
@@ -4047,6 +4460,7 @@ def main() -> int:
         free_card()
     finally:
         packer.close()
+        shutil.rmtree(slice_tmp, ignore_errors=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
     rows = []
@@ -4071,8 +4485,9 @@ def main() -> int:
         # the train phase's serving runs of the trained artifacts, and the
         # CNN phase's conv matrices on their activations (rows per shape)
         row["train_launches"] = train_launches[name]
-        # the mesh phase's runs: the 1x1 mesh over NCCL in this process
-        # and the gloo ranks' meshes, summed over the ranks
+        # the mesh phases' runs: the 1x1 mesh over NCCL in this process
+        # and the gloo ranks' meshes, summed over the ranks (the trained
+        # qwen artifacts', then deepseek's and llava's)
         row["mesh_launches"] = mesh_launches[name]
         row["cnn_launches"] = cnn_launches[name]
         row["cnn"] = cnn_rows[name]

@@ -40,7 +40,16 @@ algorithm by batch count (a slice of heads and rows gives other bits,
 ``tests/test_torch_cuda.py``), so a prefill attends every head, and a
 decode step attends a whole cache whose other ranks' parts are zero, the
 ranks' own rows and heads then gathered before ``o``.  The sequence dim
-never splits.
+never splits.  MLA's cache has no head dim: a rank holds whole ``c`` and
+``k_pe`` rows of its own slots (over 'data'), and a decode step computes
+every head of the whole cache in the 1x1 shape (its other ranks' rows
+zero), then gathers its rows.  The absorbed form needs ``kv_up`` as one
+matrix: a column-split ``kv_up`` (its whole tiles over 'model', R10)
+gives this rank's columns (a packed one dequantized), gathered over
+'model' once per weight (``parallel.policy.whole_weight``).  A prefill
+computes as on the 1x1 mesh (q, k, v are whole after ``linear``'s
+gathers) and returns every row of its window, of which the engine keeps
+the slots this rank holds, as it does a GQA prefill's K/V.
 
 Decode positions are per batch row (``pos`` [B]) and ``active`` [B] masks
 which rows may write their cache slot.  Unlike the reference, decode
@@ -54,7 +63,7 @@ from typing import Optional
 import torch
 
 from ..core.backend import cached_dequant
-from ..parallel.policy import constrain, row_start, whole_cache
+from ..parallel.policy import constrain, row_start, whole_cache, whole_weight
 from .common import apply_rope, linear, norm_pos_active
 
 __all__ = ["gqa_prefill", "gqa_decode", "mla_prefill", "mla_decode",
@@ -259,11 +268,17 @@ def _mine(new, slot, active, cache, n_kv):
     """(this rank's part of the new K or V row [B, 1, KV, hd], its slots,
     its write mask), for a cache shard of some slot rows and KV heads."""
     new = constrain(new, "kv", n_kv=n_kv)[:, 0]
-    bl, b = cache["k"].shape[0], new.shape[0]
-    if bl == b:
-        return new, slot, active
-    r0 = row_start(bl, b)
-    return new[r0:r0 + bl], slot[r0:r0 + bl], active[r0:r0 + bl]
+    return _my_rows(cache["k"].shape[0], new, slot, active)
+
+
+def _my_rows(rows: int, *ts):
+    """This rank's ``rows`` slot rows of each [B, ...] tensor of ``ts``
+    (all of them where the rows are whole)."""
+    b = ts[0].shape[0]
+    if rows == b:
+        return ts
+    r0 = row_start(rows, b)
+    return tuple(t[r0:r0 + rows] for t in ts)
 
 
 def _mla_q(p, x, cfg, positions, backend):
@@ -319,16 +334,18 @@ def mla_prefill(p, x, cfg, cache_len: int = 0, plen=None,
 
 def _kv_up_matrix(p) -> torch.Tensor:
     """``kv_up``'s weight [kv_lora, H * (nope + v)] as a matrix: the dense
-    one, or a packed one dequantized once (R4)."""
+    one, or a packed one dequantized once (R4); on a mesh that splits its
+    columns, every rank's gathered once (``whole_weight``)."""
     we = p["kv_up"]["w"]
-    return cached_dequant(we) if isinstance(we, dict) else we
+    return whole_weight(we, cached_dequant(we) if isinstance(we, dict)
+                        else we)
 
 
 def mla_decode(p, x, cache, pos, cfg, active=None,
                backend: Optional[str] = None):
     """Absorbed-form decode over the compressed cache, updated in place.
     x: [B, 1, D]; pos: [B] per-row next position; active: [B] write
-    mask."""
+    mask.  On a mesh the cache holds this rank's slot rows."""
     b = x.shape[0]
     h, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
                      cfg.v_head_dim)
@@ -339,20 +356,28 @@ def mla_decode(p, x, cache, pos, cfg, active=None,
     c_t, k_pe_raw = ckv[..., :cfg.kv_lora], ckv[..., cfg.kv_lora:]
     k_pe_t = apply_rope(k_pe_raw[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
-    cc = _masked_row_scatter(cache["c"], c_t[:, 0], pos, active)
-    pc = _masked_row_scatter(cache["k_pe"], k_pe_t[:, 0], pos, active)
+    # the new position's row goes to the rank that holds its slot
+    rows = cache["c"].shape[0]
+    c_r, pe_r, pos_r, act_r = _my_rows(rows, c_t[:, 0], k_pe_t[:, 0], pos,
+                                       active)
+    cc = _masked_row_scatter(cache["c"], c_r, pos_r, act_r)
+    pc = _masked_row_scatter(cache["k_pe"], pe_r, pos_r, act_r)
     w_up = _kv_up_matrix(p).reshape(cfg.kv_lora, h, dn + dv).float()
     w_uk, w_uv = w_up[..., :dn], w_up[..., dn:]
+    # every einsum in the 1x1 shape (the whole batch, other ranks' rows
+    # zero): the card's batched matmuls pick their algorithm, and so their
+    # bits, by batch count; this rank's rows are gathered after w_uv
+    c_all, pe_all = whole_cache(cc, b).float(), whole_cache(pc, b).float()
     q_c = torch.einsum("bthn,khn->bthk", q_nope.float(), w_uk)
-    s_c = torch.einsum("bthk,bsk->bhs", q_c, cc.float())
-    s_pe = torch.einsum("bthr,bsr->bhs", q_pe.float(), pc.float())
+    s_c = torch.einsum("bthk,bsk->bhs", q_c, c_all)
+    s_pe = torch.einsum("bthr,bsr->bhs", q_pe.float(), pe_all)
     s = (s_c + s_pe) * (1.0 / ((dn + dr) ** 0.5))
     kpos = torch.arange(cc.shape[1], device=x.device)[None]
     s = torch.where((kpos <= pos[:, None])[:, None, :], s,
                     torch.full_like(s, NEG_INF))
     prob = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhs,bsk->bhk", prob, cc.float())
-    y = torch.einsum("bhk,khv->bhv", ctx, w_uv)
+    ctx = torch.einsum("bhs,bsk->bhk", prob, c_all)
+    y = constrain(torch.einsum("bhk,khv->bhv", ctx, w_uv), "rows", rows=rows)
     y = linear(y.reshape(b, 1, h * dv).to(x.dtype), p["o"], backend)
     return y, {"c": cc, "k_pe": pc}
 

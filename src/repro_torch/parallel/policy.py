@@ -19,11 +19,16 @@ rank at every op boundary, so
     count divides it, as the cache rule splits them; whole GQA groups),
     and ``"attn"`` gathers this rank's rows and heads of an attention
     output computed in the 1x1 shape (:func:`whole_cache`): heads over
-    'model', rows over 'data'.
+    'model', rows over 'data'; ``"rows"`` gathers this rank's rows of an
+    output computed in the 1x1 shape over 'data' alone (MLA's decode,
+    whose cache has no head dim and whose heads every rank computes).
 
-:func:`embed_rows` looks tokens up in a vocab-split embedding: each rank
-reads the rows it owns, and the owner's row is **selected** from the
-gathered parts, never summed.  Every collective is a gather or a select,
+:func:`whole_cache` gives a cache shard the whole cache's shape, zero
+where other ranks hold it (with or without a head dim), and
+:func:`whole_weight` a column-split weight's whole matrix, gathered once
+per weight (MLA's absorbed ``kv_up``).  :func:`embed_rows` looks tokens
+up in a vocab-split embedding: each rank reads the rows it owns, and the
+owner's row is **selected** from the gathered parts, never summed.  Every collective is a gather or a select,
 so the tokens and f32 logits equal the 1x1 mesh's bitwise.  Outside a
 policy, and on a 1x1 mesh, nothing is split and every kind is a no-op.
 """
@@ -32,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import weakref
 from typing import Any, Optional, Tuple
 
 import torch
@@ -41,7 +47,7 @@ from .sharding import split_of
 
 __all__ = ["ShardPolicy", "use_policy", "constrain", "current_policy",
            "policy_for", "embed_rows", "expert_rows", "local_heads",
-           "row_start", "whole_cache"]
+           "row_start", "whole_cache", "whole_weight"]
 
 _POLICY: contextvars.ContextVar = contextvars.ContextVar(
     "shard_policy", default=None)
@@ -140,18 +146,49 @@ def row_start(local: int, total: int) -> int:
     return current_policy().mesh.index("data") * local
 
 
-def whole_cache(t: torch.Tensor, rows: int, n_kv: int) -> torch.Tensor:
-    """A cache shard [B', W, KV', hd] in the whole cache's shape [rows, W,
-    n_kv, hd], zero where other ranks hold it (``t`` itself when it is
-    whole)."""
-    if t.shape[0] == rows and t.shape[2] == n_kv:
+def whole_cache(t: torch.Tensor, rows: int, n_kv: int = 0) -> torch.Tensor:
+    """A cache shard in the whole cache's shape, zero where other ranks
+    hold it (``t`` itself when it is whole): [B', W, KV', hd] -> [rows, W,
+    n_kv, hd] for a cache of ``n_kv`` KV heads, or, with ``n_kv`` 0 (no
+    head dim: MLA's ``c`` and ``k_pe``), [B', ...] -> [rows, ...]."""
+    heads = n_kv and t.shape[2] != n_kv
+    if t.shape[0] == rows and not heads:
         return t
-    first, count = local_heads(n_kv)
     r0 = row_start(t.shape[0], rows)
+    if not n_kv:
+        out = t.new_zeros((rows,) + tuple(t.shape[1:]))
+        out[r0:r0 + t.shape[0]] = t
+        return out
+    first, count = local_heads(n_kv)
     out = t.new_zeros((rows,) + tuple(t.shape[1:2]) + (n_kv,)
                       + tuple(t.shape[3:]))
     out[r0:r0 + t.shape[0], :, first:first + count] = t
     return out
+
+
+#: id(a split weight's anchor) -> (weakref to it, its whole matrix)
+_WHOLE: dict = {}
+
+
+def whole_weight(w, part: torch.Tensor) -> torch.Tensor:
+    """The whole [K, N] matrix of weight ``w`` given this rank's ``part``
+    of it as a matrix (its dense shard, or a packed shard dequantized):
+    ``part`` itself where ``w`` is whole, else every rank's columns
+    gathered over 'model', once per weight and kept while ``w`` lives.
+    The gather concatenates, so the matrix is bitwise the whole
+    weight's."""
+    sp = split_of(w)
+    if sp is None:
+        return part
+    anchor = w["sme_scale"] if isinstance(w, dict) else w
+    key = id(anchor)
+    hit = _WHOLE.get(key)
+    if hit is not None and hit[0]() is anchor:
+        return hit[1]
+    whole = _gather_split(part, sp, -1)
+    _WHOLE[key] = (weakref.ref(anchor, lambda _, k=key: _WHOLE.pop(k, None)),
+                   whole)
+    return whole
 
 
 def constrain(x: torch.Tensor, kind: str, w=None, *, n_kv: int = 0,
@@ -163,7 +200,9 @@ def constrain(x: torch.Tensor, kind: str, w=None, *, n_kv: int = 0,
     [B,S,KV,hd]: this rank's heads of ``n_kv`` KV heads | 'attn'
     [B,S,H,hd]: an attention output computed in the 1x1 shape whose valid
     part is this rank's ``rows`` rows and heads of ``n_kv`` KV-head
-    groups, every rank's part gathered."""
+    groups, every rank's part gathered | 'rows' [B, ...]: an output
+    computed in the 1x1 shape whose valid part is this rank's ``rows``
+    rows, every rank's rows gathered over 'data'."""
     if kind in ("act", "lhs"):
         return x
     if kind in ("features", "experts"):
@@ -176,6 +215,12 @@ def constrain(x: torch.Tensor, kind: str, w=None, *, n_kv: int = 0,
     pol = current_policy()
     if pol is None or pol.mesh is None or pol.mesh.size == 1:
         return x
+    if kind == "rows":
+        b = x.shape[0]
+        if rows == b:
+            return x
+        r0 = row_start(rows, b)
+        return pol.mesh.gather(x[r0:r0 + rows], "data", 0)
     first, count = local_heads(n_kv)
     if kind == "kv":
         return x if count == n_kv else x[:, :, first:first + count]

@@ -24,9 +24,12 @@ decode threshold).
   from generators seeded alike, on logits that are replicated and
   bitwise equal; rank 0's ids are broadcast each step and
   :attr:`rank_mismatches` counts the ranks' own ids that differed.
-  Mesh serving covers the dense and MoE families: MLA, the recurrent
-  layers, the encoder-decoder family and the vision frontend raise on a
-  mesh larger than 1x1 (a later slice).
+  Mesh serving covers the dense and MoE families, MLA (deepseek: its
+  ``c``/``k_pe`` rows over 'data', ``kv_up`` gathered whole once per
+  weight) and the vision frontend (llava: ``patch_proj`` column-split,
+  every rank admitting the same zero patches and ``plen``); the
+  recurrent layers and the encoder-decoder family raise on a mesh larger
+  than 1x1 (a later slice).
 
 * ``slots`` sequences decode together, each with its own cache row; a
   request joins by writing its prefill cache into a free row and leaves by
@@ -187,22 +190,21 @@ def _env_flag(name: str) -> bool:
 
 def check_mesh_family(api, mesh) -> None:
     """Raise ``NotImplementedError`` for a model this slice of mesh serving
-    does not cover on a mesh larger than 1x1."""
+    does not cover on a mesh larger than 1x1: the recurrent layers and
+    the encoder-decoder family."""
     if mesh.size == 1:
         return
     cfg = api.cfg
     left = [what for test, what in (
-        (cfg.attn_type == "mla", "MLA (deepseek)"),
         (any(k in ("mamba", "mlstm", "slstm") for k in cfg.pattern),
          "recurrent layers (jamba, xLSTM)"),
-        (api.encdec, "the encoder-decoder family (whisper)"),
-        (bool(cfg.frontend) and not api.encdec,
-         "the vision frontend (llava)")) if test]
+        (api.encdec, "the encoder-decoder family (whisper)")) if test]
     if left:
         raise NotImplementedError(
-            f"{cfg.name}: mesh serving covers the dense and MoE families; "
-            f"{', '.join(left)} on a {mesh.data}x{mesh.model} mesh waits for "
-            f"a later slice of the port (ROADMAP)")
+            f"{cfg.name}: mesh serving covers the dense and MoE families, "
+            f"MLA and the vision frontend; {', '.join(left)} on a "
+            f"{mesh.data}x{mesh.model} mesh waits for a later slice of the "
+            f"port (ROADMAP)")
 
 
 class ServeEngine:
@@ -458,7 +460,8 @@ class ServeEngine:
     def _init_caches(self) -> list:
         """The slot caches: ``api.init_cache`` on a mesh that splits none
         of them, else zero shards at ``cache_sharding(exact=True)``'s
-        shapes (the K/V caches of the families mesh serving covers).
+        shapes (GQA's K/V: KV heads over 'model', slot rows over 'data';
+        MLA's ``c``/``k_pe``: slot rows over 'data').
         Sets the slot rows this rank holds (``_row0``, ``_nrows``)."""
         meta = self.api.init_cache(self.slots, self.s_max, device="meta")
         specs = cache_sharding(self.mesh, meta, self.slots, exact=True)

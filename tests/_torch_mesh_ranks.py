@@ -5,8 +5,9 @@ the reference package, so that spawned ranks stay the port alone.
 1x1 mesh, every rank on its meshes); ``run_rank`` is one spawned ``gloo``
 rank on the CPU: it joins the group through a file store, builds the
 meshes (2, 2), (4, 1) and (1, 4) over the same four ranks, runs every
-case of the job file the test wrote and saves its results for the test
-process to read.
+case of the job file the test wrote (:data:`FAMILY_RUNS` for MLA and
+the vision frontend) and saves its results for the test process to
+read.
 """
 from __future__ import annotations
 
@@ -29,6 +30,10 @@ ENGINE = dict(slots=4, s_max=64, chunk_len=8, page_tokens=8,
               prefix_cache=True)
 #: v3 also drafts (self-speculative decode at two planes)
 SPEC = dict(spec_depth=2, spec_len=2)
+#: MLA (deepseek: MoE, shared experts, the dense ``first0``) and the
+#: vision frontend (llava): backend -> the meshes it serves on
+FAMILY_RUNS = {"mla": {None: MESHES, "v2": MESHES, "v3": ((2, 2),)},
+               "vision": {None: ((2, 2),), "v2": ((2, 2),)}}
 
 
 def requests(vocab: int, seed: int = 0):
@@ -73,14 +78,22 @@ def serve(api, params, backend, mesh=None, seed=0, artifact=None):
 
 
 def prefill_logits(api, params, policy=None):
-    """f32 logits of one ragged prefill window."""
+    """f32 logits of one ragged prefill window (behind seeded patches for
+    a vision model, which ``plen`` counts)."""
     reqs = requests(api.cfg.vocab)[:3]
     toks = np.zeros((3, 16), np.int64)
     for i, r in enumerate(reqs):
         toks[i, :min(len(r.prompt), 16)] = r.prompt[:16]
     plen = np.array([min(len(r.prompt), 16) for r in reqs])
+    extra = {}
+    if api.cfg.frontend == "vision_stub":
+        front = api.cfg.n_frontend_tokens
+        extra["patches"] = torch.as_tensor(np.random.default_rng(5)
+                                           .standard_normal(
+            (3, front, api.cfg.d_model), dtype=np.float32))
+        plen = plen + front
     with use_policy(policy):
-        return api.prefill(params, toks, s_max=32, plen=plen)[0]
+        return api.prefill(params, toks, s_max=32, plen=plen, **extra)[0]
 
 
 def _spy():
@@ -174,6 +187,24 @@ def run_rank(rank: int, world: int, store: str, tmp: str) -> None:
         out["tokens"][("moe", backend)] = toks
         out["mismatches"] += eng.rank_mismatches
         out.setdefault("moe_split", {})[backend] = _split_names(eng.params)
+    for fam, (fam_api, fam_params) in job["families"].items():
+        for backend, shapes in FAMILY_RUNS[fam].items():
+            for shape in shapes:
+                toks, eng = serve(fam_api, fam_params[backend], backend,
+                                  meshes[shape])
+                out["tokens"][(fam, backend, shape)] = toks
+                out["mismatches"] += eng.rank_mismatches
+                out.setdefault("engine", {})[(fam, backend, shape)] = {
+                    k: int(eng._m[k].value) for k in ("prefix_hits",
+                                                      "spec_rounds")}
+                if shape != (2, 2):
+                    continue
+                key = (fam, backend)
+                out["logits"][key] = prefill_logits(fam_api, eng.params,
+                                                    eng.policy)
+                out["split"][key] = _split_names(eng.params)
+                out["cache"][key] = [tuple(t.shape)
+                                     for t in eng.caches[0].values()]
     toks, eng = serve(api, None, None, mesh, artifact=job["artifact"])
     out["tokens"][("artifact", (2, 2))] = toks
     out["artifact_split"] = _split_names(eng.params)

@@ -12,7 +12,8 @@ scaling) on both of v1's and v2's paths, empty column tiles, the launch
 geometry of the four kernels, the launch counters, the operands each
 wrapper refuses, and the malformed lists the device refuses.  For mesh
 serving: the four wrappers on two shards of whole column tiles equal the
-whole launch bitwise, and so do the dense ops a mesh splits or pads."""
+whole launch bitwise, and so do the dense ops a mesh splits or pads and
+MLA's decode over one rank's rows of a whole-shaped cache."""
 import functools
 
 import numpy as np
@@ -868,3 +869,43 @@ def test_dense_products_on_shards_bitwise(cuda):
                 kz[mine], vz[mine] = k[mine], v[mine]
                 part = _decode_attend(q, kz, vz, kpos, pos, 0, hd ** -0.5)
                 assert torch.equal(part[mine], whole[mine]), (rows, heads)
+
+
+def test_mla_decode_on_two_of_four_rows_bitwise(cuda):
+    """MLA's absorbed decode at deepseek-v2-lite's widths (16 heads, a 512
+    ``c`` and 64-wide ``k_pe`` over 256 positions, bf16) over a cache
+    that is zero outside one rank's slot rows (``policy.whole_cache``)
+    gives that rank's rows bitwise as over the whole cache, for 2 of 4
+    rows and 1 of 4: its einsums run in the 1x1 shape, the batch count
+    of the whole batch, so the card's batched matmuls keep their
+    algorithm."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.attention import mla_decode
+    cfg = dataclasses.replace(ARCHS["deepseek-v2-lite-16b"], n_layers=1)
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def lin(k, n):
+        return {"w": (torch.randn(k, n, device=cuda, generator=g)
+                      * k ** -0.5).to(torch.bfloat16)}
+    p = {"q": lin(d, h * (dn + dr)), "kv_down": lin(d, cfg.kv_lora + dr),
+         "kv_up": lin(cfg.kv_lora, h * (dn + dv)), "o": lin(h * dv, d)}
+    b, s_len = 4, 256
+    x = torch.randn(b, 1, d, device=cuda, generator=g).to(torch.bfloat16)
+    cache = {"c": torch.randn(b, s_len, cfg.kv_lora, device=cuda,
+                              generator=g).to(torch.bfloat16),
+             "k_pe": torch.randn(b, s_len, dr, device=cuda,
+                                 generator=g).to(torch.bfloat16)}
+    pos = torch.tensor([200, 17, 255, 96], device=cuda)
+    whole, _ = mla_decode(p, x, {k: v.clone() for k, v in cache.items()},
+                          pos, cfg)
+    for rows in (2, 1):
+        for r0 in range(0, b, rows):
+            zeroed = {k: torch.zeros_like(v) for k, v in cache.items()}
+            for k in cache:
+                zeroed[k][r0:r0 + rows] = cache[k][r0:r0 + rows]
+            part, _ = mla_decode(p, x, zeroed, pos, cfg)
+            assert torch.equal(part[r0:r0 + rows], whole[r0:r0 + rows]), \
+                (rows, r0)

@@ -9,11 +9,18 @@ leaf equals the reference's ``PartitionSpec`` as a tuple; the same for
 the cache rules at batch 1, 2 and 4 and for ``batch_sharding``.  The
 port's per-layer trees get their stacked leaf's spec without the stacked
 dim.  ``place_tree``'s shards, one per mesh coordinate, reassemble to
-every leaf bitwise; and the four kernels' plain versions on a weight cut
-into two shards of whole column tiles (qwen's 1024x2816, 22 tiles) give
-the whole weight's columns bitwise at M = 8 and 512.
+every leaf bitwise (deepseek's and llava's at widths where ``kv_up`` and
+``patch_proj`` split into whole column tiles); the four kernels' plain
+versions on a weight cut into two shards of whole column tiles (qwen's
+1024x2816, 22 tiles) give the whole weight's columns bitwise at M = 8
+and 512; and MLA's decode on each rank's slot rows, with ``kv_up``
+gathered whole, gives the whole decode's output and cache rows bitwise
+(the ranks are threads of this process whose stand-in mesh gathers
+between them).
 """
+import dataclasses
 import functools
+import threading
 
 import jax
 import numpy as np
@@ -34,25 +41,33 @@ from repro_torch.parallel import sharding as sh
 MESHES = [(1, 1), (2, 2), (4, 1), (1, 4), (2, 4)]
 
 
-def _over(arch):
-    """The reference's SME-eligible small size per arch (128 wide)."""
+#: widths at which deepseek's ``kv_up`` (128 x 4 (64 + 64): 4 column
+#: tiles) and llava's ``patch_proj`` (512 x 512: 4 tiles) pack and split
+WIDE = {"deepseek-v2-lite-16b": dict(kv_lora=128, rope_head_dim=32,
+                                     nope_head_dim=64, v_head_dim=64),
+        "llava-next-34b": dict(d_model=512)}
+
+
+def _over(arch, wide=False):
+    """The reference's SME-eligible small size per arch (128 wide); with
+    ``wide``, :data:`WIDE`'s widths on top."""
     over = dict(d_model=128, d_ff=256, vocab=256, dtype="float32")
     if arch == "whisper-medium":
         over["n_layers"] = 2
     if arch in ("mixtral-8x7b", "deepseek-v2-lite-16b", "jamba-v0.1-52b"):
         over["expert_dff"] = 128
-    return over
+    return {**over, **WIDE[arch]} if wide else over
 
 
 @functools.lru_cache(maxsize=None)
-def _trees(arch):
+def _trees(arch, wide=False):
     """(reference config, dense abstract tree, packed numpy tree): the
     packed one is the port's numpy init in the reference's layout, packed
     by the reference's converter with every operand set."""
-    cfg = ref_scale_down(REF_ARCHS[arch], **_over(arch))
+    cfg = ref_scale_down(REF_ARCHS[arch], **_over(arch, wide))
     dense = jax.eval_shape(ref_build_model(cfg).init_params,
                            jax.random.key(0))
-    pcfg = scale_down(ARCHS[arch], **_over(arch))
+    pcfg = scale_down(ARCHS[arch], **_over(arch, wide))
     ref = to_reference(init_params(pcfg, np.random.default_rng(0)),
                        len(pcfg.pattern)) if not pcfg.n_enc_layers else \
         to_reference(init_params(pcfg, np.random.default_rng(0)))
@@ -217,19 +232,29 @@ def _join(parts, dim):
     return torch.cat(parts, dim=dim)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mixtral-8x7b",
+                                  "deepseek-v2-lite-16b", "llava-next-34b"])
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4), (2, 1)])
 def test_place_tree_shards_reassemble(arch, shape):
     """Every rank's shards of every leaf (dense and packed) join back into
-    the leaf bitwise; split leaves carry their Split, whole ones do not."""
-    _, _, packed = _trees(arch)
-    cfg = scale_down(ARCHS[arch], **_over(arch))
+    the leaf bitwise; split leaves carry their Split, whole ones do not;
+    deepseek's packed ``kv_up`` and llava's packed ``patch_proj`` split
+    into whole column tiles on every mesh with a 'model' axis."""
+    wide = arch in WIDE
+    _, _, packed = _trees(arch, wide)
+    cfg = scale_down(ARCHS[arch], **_over(arch, wide))
     dense = init_params(cfg, np.random.default_rng(0))
     for tree in (dense, from_reference(packed, device="cpu")):
         full = dict(_flat(tree))
         meshes = _coords(*shape)
+        whole_tree = sh.place_tree(tree, meshes[0])
         placed = [dict(_flat(sh.place_tree(tree, m))) for m in meshes]
         model = shape[1]
+        if wide and model > 1:
+            w = (whole_tree["first0"]["mix"]["kv_up"]["w"] if cfg.kv_lora
+                 else whole_tree["patch_proj"]["w"])
+            assert sh.split_of(w) is not None and sh.split_of(w).step * \
+                model == (cfg.kv_lora and cfg.n_heads * 128 or 512)
         n_split = 0
         for key, leaf in full.items():
             leaf = torch.as_tensor(np.asarray(leaf))
@@ -281,3 +306,102 @@ def test_plain_kernels_on_two_shards_bitwise(backend, m):
                                           mesh.index("model") * 11 * 128)
         parts.append(sme_apply(x, w, backend))
     assert torch.equal(torch.cat(parts, dim=-1), whole)
+
+
+class _Hub:
+    """Every thread-rank's tensor of one collective, in rank order."""
+
+    def __init__(self, n):
+        self.barrier = threading.Barrier(n, timeout=120)
+        self.slots = [None] * n
+
+    def exchange(self, rank, x):
+        self.barrier.wait()
+        self.slots[rank] = x
+        self.barrier.wait()
+        return list(self.slots)
+
+
+class _ThreadMesh(Mesh):
+    """A stand-in Mesh for one thread of this process: its gather
+    concatenates the tensors of the threads on its axis group, in
+    coordinate order, as ``Mesh.gather`` does over a process group."""
+
+    def __init__(self, data, model, rank, hub):
+        super().__init__(data, model, rank=rank, device="cpu",
+                         groups={"world": None})
+        self.hub = hub
+
+    def gather(self, x, axis, dim):
+        if self.shape[axis] == 1:
+            return x
+        got = self.hub.exchange(self.rank, x)
+        d, m = self.coords
+        ranks = ([self.global_rank(d, j) for j in range(self.model)]
+                 if axis == "model" else
+                 [self.global_rank(j, m) for j in range(self.data)])
+        return torch.cat([got[r] for r in ranks], dim=dim)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_mla_decode_on_row_shards_bitwise(shape, packed):
+    """``mla_decode`` on each rank's slot rows of the compressed cache,
+    its ``kv_up`` column-split into whole tiles and gathered whole once,
+    equals the whole decode bitwise on every rank: the output, and the
+    cache rows the rank holds (the new row written only where its slot
+    lives, an inactive row left alone)."""
+    from repro_torch.core.integrate import to_torch
+    from repro_torch.models.attention import mla_decode
+    from repro_torch.parallel.policy import policy_for, use_policy
+    arch = "deepseek-v2-lite-16b"
+    cfg = scale_down(ARCHS[arch], **_over(arch, True))
+    tree = from_reference(_trees(arch, True)[2], device="cpu") if packed \
+        else to_torch(init_params(cfg, np.random.default_rng(0)), "cpu")
+    mix = tree["first0"]["mix"]
+    rng = np.random.default_rng(11)
+    b, s_len = 4, 16
+    x = torch.as_tensor(rng.standard_normal((b, 1, cfg.d_model),
+                                            dtype=np.float32))
+    cache = {"c": torch.as_tensor(rng.standard_normal(
+        (b, s_len, cfg.kv_lora), dtype=np.float32)),
+        "k_pe": torch.as_tensor(rng.standard_normal(
+            (b, s_len, cfg.rope_head_dim), dtype=np.float32))}
+    pos = torch.tensor([5, 9, 3, 12])
+    active = torch.tensor([True, True, False, True])
+    want = {k: v.clone() for k, v in cache.items()}
+    y_want, _ = mla_decode(mix, x, want, pos, cfg, active=active)
+    n = shape[0] * shape[1]
+    hub, out = _Hub(n), [None] * n
+
+    def rank_main(rank):
+        try:
+            mesh = _ThreadMesh(*shape, rank, hub)
+            pol = dataclasses.replace(policy_for(mesh, cfg, "decode"),
+                                      exact=True)
+            p = sh.place_tree(mix, mesh)
+            rows = b // shape[0]
+            r0 = mesh.index("data") * rows
+            mine = {k: v[r0:r0 + rows].clone() for k, v in cache.items()}
+            with use_policy(pol):
+                y, c = mla_decode(p, x, mine, pos, cfg, active=active)
+            out[rank] = (y, c, r0, rows, sh.split_of(p["kv_up"]["w"]))
+        except BaseException as e:                  # noqa: BLE001
+            hub.barrier.abort()
+            out[rank] = e
+    threads = [threading.Thread(target=rank_main, args=(r,))
+               for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for res in out:
+        if isinstance(res, BaseException):
+            raise res
+    for y, c, r0, rows, split in out:
+        assert (split is not None) == (shape[1] > 1)
+        assert torch.equal(y, y_want)
+        for k in c:
+            assert c[k].shape[0] == rows
+            assert torch.equal(c[k], want[k][r0:r0 + rows]), k
