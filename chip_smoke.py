@@ -36,7 +36,12 @@
    xlstm-1.3b and jamba-v0.1-52b, then whisper-medium), beside
    the card tests and phases 2-5b, and is paused for every timed launch,
    profiled window, serving and engine run; each later phase waits for
-   its model.
+   its model.  Once a pooled model's packed tree is uploaded, every packed
+   operand is copied back from the card and compared byte for byte with
+   the host array it came from, on a line that names the host's CPU and
+   numpy's SIMD dispatch (F4, ROADMAP §3); where v2's and v3's f32 logits
+   part, the weights whose formats disagree on the card are also
+   dequantized by both formats on the host.
 3. Serving: qwen1.5-0.5b at full width, its depth cut to 4 of 24 layers
    (:data:`QWEN_LAYERS`; random weights from a numpy seed, every
    attention/MLP weight packed once to v1, v2 and v3)
@@ -88,7 +93,7 @@
 5a. Training (``train_phase``, while the pool packs; paused only for the
    timed window and the serving runs): ``launch/train.py``'s main path
    in-process on qwen1.5-0.5b at full width, :data:`QWEN_LAYERS` deep,
-   20 steps of 8 x 256 ``lm_batches`` tokens (AdamW, cosine, async
+   10 steps of 8 x 256 ``lm_batches`` tokens (AdamW, cosine, async
    checkpoints in a temporary directory), the latest checkpoint restored
    bitwise equal to the live params and AdamW state, one step more at
    ``--micro 2`` resumed from it; ms per step over a paused window of 5
@@ -171,9 +176,10 @@
    pass (a decode pass skips each packed ``kv_up``, read as its dequantized
    matrix), equal tokens, routing drops printed; f32 prefill logits v2 ==
    v3 bitwise and within 5e-5 of the ``torch`` backend; a profiled window;
-   the engine on v3 (``chunk_len`` 256): mixtral with spec and without
-   (equal tokens), deepseek with spec and the prefix cache, two prompts
-   sharing 256 tokens (a hit), MLA's ``c`` and ``k_pe`` classified paged
+   the engine on v3 (``chunk_len`` 256, prompts of 272-320 tokens:
+   :data:`ENGINE_PROMPTS`): mixtral with spec and without (equal tokens),
+   deepseek with spec and the prefix cache, two prompts sharing 256
+   tokens (a hit), MLA's ``c`` and ``k_pe`` classified paged
    and one dequantized ``kv_up`` per layer. llava: one-shot through the
    model API with seeded random patches under v2 and v3 (equal tokens,
    ``patch_proj`` launched at prefill only), f32 logits and a profiled
@@ -182,7 +188,7 @@
    no prefix cache).  Each of deepseek's and llava's packed trees is
    then written once as a ``.smez`` (``compiler.artifact.save_artifact``;
    no new packing).
-7'. Mesh serving of MLA and the vision frontend (``slice_mesh_phase``)
+7'. Mesh serving of MLA and the vision frontend (``mesh_family_phase``)
    from those artifacts, at phase 7's widths and depth: 4 prompts of
    64-128 tokens, 16 new tokens each, on the 1x1 mesh through an NCCL
    group of world size 1 in this process (deepseek v2 one-shot, deepseek
@@ -216,10 +222,26 @@
    == v3 bitwise and within 5e-5 of the ``torch`` backend; a profiled
    window; the ms of the Python time loops (sLSTM's, Mamba's) beside
    their layers' prefill.  The engine on v3 (``chunk_len`` 256,
-   ``page_tokens`` 16, prefix cache, ``spec_len`` 4) with spec and
-   without (equal tokens), two prompts sharing 256 tokens (a hit that
+   ``page_tokens`` 16, prefix cache, ``spec_len`` 4; prompts of 272-320
+   tokens) with spec and without (equal tokens), two prompts sharing 256
+   tokens (a hit that
    restores the recurrent side rows, and for Jamba the attention's
    pages); every recurrent leaf classified side, Jamba's K/V paged.
+   Each packed tree is then written once as a ``.smez``.
+8'. Mesh serving of the recurrent family (``mesh_family_phase``) from
+   those artifacts, at phase 8's widths and depth, with phase 7's
+   workloads: the 1x1 mesh through an NCCL group of world size 1 in this
+   process, made before any rank starts (Jamba v2 one-shot, Jamba v3
+   with spec and a prefix hit, xLSTM v2 one-shot; the ranks start
+   meanwhile); then 4 spawned ranks share the card over ``gloo`` and serve Jamba v2 on (2, 2)
+   and (1, 4), Jamba v3 with spec and the prefix hit on (2, 2) and xLSTM
+   v2 on (2, 2) and (1, 4) (:data:`RECURRENT_MESH_RUNS`).  Every rank's
+   tokens must equal 1x1's, rank 0's f32 prefill logits 1x1's bitwise,
+   every layer's cache rank 0's shard shapes under the engine's rule with
+   Mamba's ``conv``/``h`` and mLSTM's ``C`` split over 'model', and each
+   run's kernels launched.  Prints params and caches per rank against
+   1x1, ms per decode step (correctness only), the launches per kernel and
+   the phase's seconds (budget 60 s; the pool packs on meanwhile).
 9. The encoder-decoder family at full width (``encdec_phase``):
    whisper-medium (d_model 1024, 16 heads MHA, d_ff 4096, vocab 51865,
    LayerNorm, GELU, sinusoidal positions), depth cut from 24 + 24 to
@@ -243,14 +265,14 @@
    slot a longer one used (its stale cross keys past the source) serves
    a fresh engine's tokens.
 10. Prints the compile, train, cnn, gemma, slice (7' under ``mesh``),
-   recurrent and encdec readings as JSON, the
+   recurrent (8' under ``mesh``) and encdec readings as JSON, the
    kernels JSON line (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
    M = 8 in the top-level keys, every M a kernel ran at under ``at_m``;
    v3-decode adds ``draft_depth``, the draft passes' ``draft_launches``
    and ``draft_ms`` / ``draft_full_ms`` per layer on the model's own
    operands; ``artifact_launches`` counts the compile phase's runs,
    ``train_launches`` the train phase's serving runs, ``mesh_launches``
-   the mesh phases' (5a' and 7': the 1x1 NCCL runs and every rank's),
+   the mesh phases' (5a', 7' and 8': the 1x1 NCCL runs and every rank's),
    ``cnn_launches``
    the CNN phase's conv matrices on their activations and ``cnn`` its
    kernel rows per shape and M,
@@ -275,6 +297,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1586,7 +1609,7 @@ def compile_phase(dev, card, served):
 #: width and :data:`QWEN_LAYERS` deep): steps at ``--micro 1`` (its
 #: checkpoint every TRAIN_STEPS - 1 steps, so the last step is saved),
 #: then one at ``--micro 2`` resumed from it
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 256
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 8, 256
 #: steps of the paused timing window (the trained model, fresh batches)
 TRAIN_TIMED = 5
 #: the overfit: one fixed batch, AdamW at a constant rate (clip 1.0)
@@ -2365,17 +2388,25 @@ class Packer:
     packed numpy param}, seconds from the pool's start to its last result,
     seconds waited); :meth:`close` stops the pool."""
 
-    def __init__(self, groups):
+    def __init__(self, groups, dev=None):
         import multiprocessing
         global quiet
         self.t0 = time.perf_counter()
         self.paused_s = 0.0
+        self.pauses = 0
+        self.dev = dev
+        self.tasks = groups
         self.pool = multiprocessing.get_context("spawn").Pool(
             PACK_WORKERS, initializer=_low_priority)
-        self.pending = {model: [self.pool.apply_async(pack_task, (t,))
-                                for t in tasks]
-                        for model, tasks in groups.items()}
+        #: per model, seconds from the pool's start to its last result
+        self.done_s = {model: 0.0 for model in groups}
+        self.pending = {model: [self.pool.apply_async(
+            pack_task, (t,), callback=lambda _, m=model: self._done(m))
+            for t in tasks] for model, tasks in groups.items()}
         quiet = self.paused
+
+    def _done(self, model):
+        self.done_s[model] = time.perf_counter() - self.t0
 
     def _signal(self, sig):
         import os
@@ -2390,6 +2421,7 @@ class Packer:
         import signal
         t0 = time.perf_counter()
         self._signal(signal.SIGSTOP)
+        self.pauses += 1
         try:
             yield
         finally:
@@ -2397,9 +2429,16 @@ class Packer:
             self.paused_s += time.perf_counter() - t0
 
     def wait(self, model):
+        """One model's results, each checked on the card
+        (:func:`pack_check`) when the pool has a device."""
         t1 = time.perf_counter()
         got = dict(r.get() for r in self.pending.pop(model))
         t2 = time.perf_counter()
+        print(f"pack: {model}'s last result {self.done_s[model]:.1f}s from "
+              f"the pool's start, asked for at {t1 - self.t0:.1f}s",
+              flush=True)
+        if self.dev is not None:
+            pack_check(self.dev, got, self.tasks[model], model, self.pauses)
         return got, t2 - self.t0, t2 - t1
 
     def close(self):
@@ -2408,7 +2447,45 @@ class Packer:
         self.pool.terminate()
         self.pool.join()
         print(f"pack: the pool was paused {self.paused_s:.1f}s in all for "
-              f"device measurements", flush=True)
+              f"device measurements ({self.pauses} stops and continues)",
+              flush=True)
+
+
+def pack_check(dev, got, tasks, model, pauses):
+    """F4's guard on the pool's results of one model: each packed weight
+    uploaded alone and multiplied by one seeded random [8, K] input under
+    every format it carries (v1 and v3 where it has them, v2), whose
+    products must be bitwise equal (v1 == v2 == v3, the formats'
+    contract).  A weight whose formats disagree is packed again in this
+    process, which the pool's stops never reach, and checked again: the
+    line names it, and a second disagreement fails the run.  Packs in
+    place in ``got``."""
+    from repro_torch.core.backend import sme_apply
+    from repro_torch.core.integrate import to_torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+
+    def agree(p):
+        w = to_torch(p, dev)
+        x = torch.randn((8, w["sme_sign"].shape[-2]), generator=gen,
+                        device=dev)
+        outs = [sme_apply(x, w, be) for be in ("v1", "v2", "v3")
+                if f"sme_{be}_nnz" in w]
+        return all(torch.equal(outs[0], o) for o in outs[1:])
+    bad = [name for name, p in got.items() if not agree(p)]
+    by_name = {t[0]: t for t in tasks}
+    for name in bad:
+        got[name] = pack_task(by_name[name])[1]
+        check(agree(got[name]), f"pack check[{model}]: {name}'s formats "
+              "disagree again after an in-process pack")
+    torch.cuda.synchronize()
+    print(f"pack check[{model}]: {len(got)} packed weights, each format's "
+          f"product of one random input bitwise equal on the card"
+          + (f" but for {bad}: the pool's pack parted (F4), {pauses} stops "
+             f"and continues of the pool so far; packed again in this "
+             f"process, now equal" if bad else "")
+          + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
 
 
 def gemma_params(dev, cfg, got):
@@ -2430,9 +2507,11 @@ def gemma_params(dev, cfg, got):
                        "wo": {"w": got.pop(f"{i}/wo"),
                               "b": np.zeros(d, np.float32)}}}
               for i in range(cfg.n_layers)]
-    params = to_torch({"final_norm": {"w": ones}, "blocks": blocks,
-                       "lm_head": {"w": join_columns(slabs)}}, dev)
-    del slabs, blocks
+    tree = {"final_norm": {"w": ones}, "blocks": blocks,
+            "lm_head": {"w": join_columns(slabs)}}
+    params = to_torch(tree, dev)
+    upload_check(tree, params, cfg.name)
+    del slabs, blocks, tree
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     params["embed"] = {"w": torch.randn((cfg.vocab, d), generator=gen,
@@ -2752,6 +2831,9 @@ SLICE_ENGINE = dict(slots=4, s_max=2048, chunk_len=256, page_tokens=16,
 SLICE_PROMPTS = (400, 601)
 #: the prefix deepseek's first two requests share: one chunk of 256
 SLICE_SHARED = 256
+#: the engine runs' prompt lengths (phases 7 and 8): one chunk of
+#: :data:`SLICE_SHARED` and a tail of 16-64 tokens, a decode pass each
+ENGINE_PROMPTS = (272, 321)
 #: a weight of more than this many is packed in column slabs (the heads)
 SLAB_WEIGHTS = 64 * 2 ** 20
 #: f32 prefill logits of the slice's models against the ``torch`` backend,
@@ -2937,6 +3019,7 @@ def slice_params(dev, key, cfg, got):
         tree["patch_proj"] = lin("patch_proj")
     check(not got, f"{cfg.name}: packed weights left over: {sorted(got)}")
     params = to_torch(tree, dev)
+    upload_check(tree, params, cfg.name)
     del tree
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -2957,14 +3040,15 @@ def slice_kernel_rows(dev, key, rows_host, card):
     return kernel_rows(dev, shapes, card, SEED + 9) if shapes else {}
 
 
-def slice_workload(key, vocab):
-    """4 greedy requests of 400-600-token prompts, 16 new tokens; for
+def slice_workload(key, vocab, lens=SLICE_PROMPTS):
+    """4 greedy requests of prompts of ``lens`` tokens (400-600), 16 new
+    tokens; for
     deepseek the first two share :data:`SLICE_SHARED` tokens and the
     second is submitted once the first has scored them (a prefix-cache
     hit).  Returns (prompts, (first wave, second wave, ready))."""
     from repro_torch.serve import Request
     rng = np.random.default_rng(SEED + 11 + len(key))
-    lens = rng.integers(*SLICE_PROMPTS, size=4)
+    lens = rng.integers(*lens, size=4)
     prompts = [rng.integers(0, vocab, int(n)) for n in lens]
     if key == "deepseek":
         prompts[1][:SLICE_SHARED] = prompts[0][:SLICE_SHARED]
@@ -2978,6 +3062,109 @@ def slice_workload(key, vocab):
         slot = next((i for i, r in enumerate(eng.active) if r is a), None)
         return slot is not None and eng._pf_next[slot] >= SLICE_SHARED
     return prompts, ([a] + reqs[2:], [reqs[1]], ready)
+
+
+def host_cpu() -> str:
+    """The host's CPU model and numpy's SIMD dispatch (``np.show_runtime``'s
+    ``found``: the dispatched features this CPU has), to match a run to
+    its card host."""
+    import os
+    import platform
+    model = platform.processor() or "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")), model)
+    except OSError:
+        pass
+    model += (f", {os.cpu_count()} CPUs, {platform.system()} "
+              f"{platform.release()}")
+    try:
+        from numpy._core import _multiarray_umath as um
+    except ImportError:                       # numpy 1.x
+        from numpy.core import _multiarray_umath as um
+    found = [f for f in um.__cpu_dispatch__ if um.__cpu_features__.get(f)]
+    return f"host CPU {model}; numpy {np.__version__} SIMD found {found}"
+
+
+def same_bytes(a: np.ndarray, t: torch.Tensor, buf: torch.Tensor) -> bool:
+    """Whether card tensor ``t``, copied back through the pinned host
+    buffer ``buf`` a buffer's length at a time, is byte for byte host
+    array ``a`` (shape and dtype included)."""
+    if tuple(a.shape) != tuple(t.shape) or \
+            a.dtype != torch.empty(0, dtype=t.dtype).numpy().dtype:
+        return False
+    ab = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    tb = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    chunk = buf.numel()
+    with warnings.catch_warnings():         # a read-only host array
+        warnings.simplefilter("ignore", UserWarning)
+        for i in range(0, ab.size, chunk):
+            part = buf[:min(chunk, ab.size - i)]
+            part.copy_(tb[i:i + chunk])
+            if not torch.equal(part, torch.from_numpy(ab[i:i + chunk])):
+                return False
+    return True
+
+
+def upload_check(host, params, label):
+    """F4's first stage: every packed operand of ``params`` copied back
+    from the card, byte for byte against the host array it was uploaded
+    from (``host``, the same tree in numpy); one line per model with the
+    host's CPU and numpy's SIMD dispatch."""
+    t0 = time.perf_counter()
+    bad, n, nbytes = [], 0, 0
+    buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                      pin_memory=torch.cuda.is_available())
+
+    def walk(h, d, path):
+        nonlocal n, nbytes
+        if isinstance(h, dict):
+            for k, v in h.items():
+                if isinstance(v, (dict, list, tuple)) or "sme_codes" in h:
+                    walk(v, d[k], f"{path}/{k}")
+        elif isinstance(h, (list, tuple)):
+            for i, v in enumerate(h):
+                walk(v, d[i], f"{path}/{i}")
+        else:
+            n += 1
+            if not same_bytes(np.asarray(h), d, buf):
+                bad.append(path)
+            nbytes += np.asarray(h).nbytes
+    walk(host, params, "")
+    print(f"{label}: upload check: {n} packed operands ({nbytes / 2 ** 20:.1f}"
+          f" MiB) copied back from the card, {len(bad)} differ from the host "
+          f"arrays {bad[:8]} ({time.perf_counter() - t0:.1f}s); "
+          f"{host_cpu()}", flush=True)
+    check(not bad, f"{label}: packed operands changed in the upload: "
+          f"{bad[:8]}")
+
+
+def host_dequant_mismatches(params, found, rows=128):
+    """F4's second stage, for the weights :func:`format_mismatches` named:
+    v2's and v3's host dequantization (the plain versions on a CPU copy of
+    the operands, each row block of the identity) over the row block of
+    the card's first differing element; (path, differing elements on the
+    host) each.  Differences here are in the packed bytes themselves;
+    none here but some on the card point at the upload or the card."""
+    from repro_torch.core.backend import sme_apply
+    out = []
+    for path, _, first in found:
+        w = params
+        for k in path.strip("/").split("/"):
+            w = w[int(k)] if isinstance(w, (list, tuple)) else w[k]
+        w = {k: v.cpu() for k, v in w.items()}
+        lead = tuple(w["sme_codes"].shape[:-4])
+        kk = w["sme_sign"].shape[-2]
+        (idx, r0) = first
+        r0 = r0 + (idx[-2] // rows) * rows
+        b = min(rows, kk - r0)
+        eye = torch.zeros((b, kk))
+        eye[torch.arange(b), r0 + torch.arange(b)] = 1.0
+        x = eye.expand(lead + (b, kk)).contiguous()
+        ne = sme_apply(x, w, "v2") != sme_apply(x, w, "v3")
+        out.append((path, int(ne.sum())))
+    return out
 
 
 def format_mismatches(params, rows=1024):
@@ -3037,6 +3224,7 @@ def slice_logits(api32, params, toks, plen, label, patches=None):
             lp = {be: logits(be)[bad] for be in ("v2", "v3")}
         off = {be: float((lk[be][bad] - lp[be]).abs().max())
                for be in ("v2", "v3")}
+        found = format_mismatches(params)
         check(False, f"{label}: f32 prefill logits differ between v2 and "
               f"v3 ({mismatch(lk['v2'], lk['v3'])} at "
               f"{bad.nonzero()[:8].tolist()}; a second call reproduces v2: "
@@ -3044,7 +3232,9 @@ def slice_logits(api32, params, toks, plen, label, patches=None):
               f"are equal: {bool(torch.equal(lp['v2'], lp['v3']))}, and "
               f"|kernel - plain| is {off['v2']:.3e} (v2), {off['v3']:.3e} "
               f"(v3); weights whose v2 and v3 operands differ on the card: "
-              f"{format_mismatches(params)})")
+              f"{found}; their v2 and v3 host dequantizations differ in "
+              f"{host_dequant_mismatches(params, found)} elements; "
+              f"{host_cpu()})")
     check(bool(torch.isfinite(lk["v2"]).all())
           and lk["v2"].shape == (len(plen), api32.cfg.vocab),
           f"{label}: logits non-finite or misshapen")
@@ -3206,7 +3396,7 @@ def moe_phase(dev, card, key, packed, save_to=None):
     specs = (("spec", depth), ("spec off", None)) if key == "mixtral" \
         else (("spec+prefix", depth),)
     for name, spec in specs:
-        _, w = slice_workload(key, cfg.vocab)
+        _, w = slice_workload(key, cfg.vocab, ENGINE_PROMPTS)
         r = runs[name] = engine_run(api, params, "v3", spec, True,
                                     engine_kw=SLICE_ENGINE, waves=w)
         for k in launches:
@@ -3366,8 +3556,6 @@ SLICE_MESH_RUNS = (("deepseek", "v2", (2, 2), "one-shot"),
                    ("deepseek", "v3", (2, 2), "spec+prefix"),
                    ("llava", "v2", (2, 2), "one-shot"))
 #: the 1x1 runs they are held to: (model, backend, workload)
-SLICE_MESH_ONE = tuple(sorted({(k, b, w) for k, b, _, w in SLICE_MESH_RUNS}))
-SLICE_MESH_RANKS = 4
 #: 4 prompts of 64-128 tokens, 16 new tokens each
 SLICE_MESH_PROMPTS = (64, 129)
 SLICE_MESH_NEW = 16
@@ -3476,11 +3664,11 @@ def slice_mesh_logits(api32, params, policy):
                              **extra)[0].cpu()
 
 
-def slice_mesh_rank(rank, world, store, tmp, device, depth):
-    """One of the four gloo ranks on the one card: serve
-    :data:`SLICE_MESH_RUNS` from the artifacts phase 7 wrote, with each
-    run's f32 prefill logits (rank 0's kept); the results go to
-    ``tmp/slice{rank}.pt``."""
+def mesh_family_rank(rank, world, store, tmp, device, family, depths):
+    """One of the four gloo ranks on the one card: serve the runs of
+    :data:`MESH_FAMILIES` ``[family]`` from the artifacts its phase wrote
+    (``tmp/<model>.smez``), with each run's f32 prefill logits (rank 0's
+    kept); the results go to ``tmp/<family>{rank}.pt``."""
     import os
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -3495,86 +3683,139 @@ def slice_mesh_rank(rank, world, store, tmp, device, depth):
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     tmp = pathlib.Path(tmp)
+    fam = MESH_FAMILIES[family]
     apis = {}
-    for key in ("deepseek", "llava"):
-        cfg = slice_config(key)
+    for key in fam["keys"]:
+        cfg = family_config(family, key)
         apis[key] = (build_model(cfg, device=dev), build_model(
             dataclasses.replace(cfg, dtype="float32"), device=dev))
     (tmp / f"ready{rank}").touch()
     while not (tmp / "go").exists():
         time.sleep(0.05)
     out = {"runs": {}}
-    for run in SLICE_MESH_RUNS:
+    for run in fam["runs"]:
         key, backend, shape, workload = run
         mesh = make_local_mesh(*shape, device=dev)
         api, api32 = apis[key]
         tokens, eng, launches = slice_mesh_serve(
-            api, tmp / f"{key}.smez", backend, mesh, workload, depth)
+            api, tmp / f"{key}.smez", backend, mesh, workload, depths[key])
         logits = slice_mesh_logits(api32, eng.params, eng.policy)
         st = eng.stats
         out["runs"][run] = dict(
-            tokens=tokens, bytes=tree_bytes(eng.params), launches=launches,
+            tokens=tokens, bytes=tree_bytes(eng.params),
+            state_bytes=tree_bytes(eng.caches), launches=launches,
             ms=st["decode_s"] / st["decode_steps"] * 1e3,
             split=split_weights(eng.params),
             cache=[tuple(t.shape) for t in eng.caches[0].values()],
+            states=[{k: tuple(t.shape) for k, t in layer.items()}
+                    for layer in eng.caches],
             logits=logits if rank == 0 else None)
         del eng
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     out["jax"] = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "repro"))
-    torch.save(out, tmp / f"slice{rank}.pt")
+    torch.save(out, tmp / f"{family}{rank}.pt")
     dist.destroy_process_group()
     os._exit(0)
 
 
-def slice_mesh_phase(dev, card, tmp, depth):
-    """Mesh serving of MLA and the vision frontend from the artifacts of
-    phase 7's deepseek and llava trees (``tmp/deepseek.smez``,
-    ``tmp/llava.smez``): the 1x1 mesh through an NCCL group of world size
-    1 in this process (each tree booted while the ranks start, the group
-    made once they wait), then :data:`SLICE_MESH_RUNS` on four gloo ranks
-    sharing the card (correctness only).  Every rank's tokens must equal
-    the 1x1 run's and rank 0's f32 prefill logits its logits bitwise.  Returns the readings
-    and the launches per kernel of every run (the ranks' summed)."""
+def mesh_split(key, got, ref, shape):
+    """(what must be split over 'model' in a run of ``key`` on a ``shape``
+    mesh, whether rank 0's run ``got`` splits it against the 1x1 run
+    ``ref``): deepseek's ``kv_up`` and llava's ``patch_proj`` among its
+    split weights; for Jamba and xLSTM every layer's cache at the shard
+    shapes of the engine's rule (``cache_sharding(exact=True)``, rank 0's
+    coordinates) and, of Mamba's ``conv``/``h`` (layer 0) or mLSTM's
+    ``C``/``n``, those the rule splits narrower than 1x1's beyond their
+    slot rows (at full width all of them)."""
+    if key in ("deepseek", "llava"):
+        want = "patch_proj" if key == "llava" else "kv_up"
+        return want, any(want in n for n in got["split"])
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import cache_sharding, shard_shape
+    mesh = Mesh(*shape, rank=0, device="cpu", groups={"world": None})
+    whole = [{k: torch.empty(s, device="meta") for k, s in layer.items()}
+             for layer in ref["states"]]
+    specs = cache_sharding(mesh, whole, whole[0][next(iter(whole[0]))]
+                           .shape[0], exact=True)
+    rule = [{k: shard_shape(mesh, sp[k], t.shape) for k, t in layer.items()}
+            for layer, sp in zip(whole, specs)]
+    names = [n for n in (("conv", "h") if key == "jamba" else ("C", "n"))
+             if got["states"][0][n][1:] != ref["states"][0][n][1:]]
+    return ("/".join(names) or "nothing"), bool(names) and \
+        got["states"] == rule
+
+
+def mesh_family_phase(dev, card, tmp, family, depths):
+    """Mesh serving of one family (:data:`MESH_FAMILIES`) from the
+    artifacts of its models' packed trees (``tmp/<model>.smez``): the 1x1
+    mesh through an NCCL group of world size 1 in this process (each tree
+    booted whole on the card), then the family's runs on four gloo ranks
+    sharing the card (correctness only).  For MLA and the vision frontend
+    the ranks start first and the group is made once they wait; for the
+    recurrent family the group is made before any rank starts, and the
+    ranks start while the 1x1 runs serve.  Every rank's tokens must equal the 1x1 run's, rank 0's f32
+    prefill logits its logits bitwise, :func:`mesh_split`'s leaves must be
+    split and each run's kernels launched.  Returns the readings and the
+    launches per kernel of every run (the ranks' summed)."""
     import torch.distributed as dist
     from repro_torch.compiler.artifact import load_artifact
     from repro_torch.convert import split_reference
     from repro_torch.launch.mesh import Mesh, make_local_mesh
     from repro_torch.models.model import build_model
     from repro_torch.parallel.sharding import place_tree
+    fam = MESH_FAMILIES[family]
     t_phase = time.perf_counter()
     out, launches = {"runs": {}}, {name: 0 for name in KERNELS}
-    ctx = torch.multiprocessing.start_processes(
-        slice_mesh_rank, args=(SLICE_MESH_RANKS, str(tmp / "gloo"), str(tmp),
-                               str(dev), depth),
-        nprocs=SLICE_MESH_RANKS, join=False, start_method="spawn")
+    one_runs = sorted({(k, b, w) for k, b, _, w in fam["runs"]})
+    ctx = None
+
+    def spawn():
+        return torch.multiprocessing.start_processes(
+            mesh_family_rank,
+            args=(MESH_RANKS, str(tmp / f"gloo-{family}"), str(tmp),
+                  str(dev), family, depths),
+            nprocs=MESH_RANKS, join=False, start_method="spawn")
+
+    def ranks_ready():
+        while not all((tmp / f"ready{r}").exists()
+                      for r in range(MESH_RANKS)):
+            check(all(p.is_alive() for p in ctx.processes),
+                  f"a mesh rank died before serving ({family})")
+            time.sleep(0.1)
+
+    for r in range(MESH_RANKS):
+        (tmp / f"ready{r}").unlink(missing_ok=True)
+    (tmp / "go").unlink(missing_ok=True)
     try:
-        # while the ranks start: each tree booted once, whole on the card
-        # (the 1x1 mesh's placement, which its engines take as it is)
+        if fam["ranks_first"]:
+            ctx = spawn()
+        # each tree booted once, whole on the card (the 1x1 mesh's
+        # placement, which its engines take as it is)
         trees = {key: place_tree(split_reference(load_artifact(
             tmp / f"{key}.smez")[0]), Mesh(1, 1, device=dev))
-            for key in ("deepseek", "llava")}
-        while not all((tmp / f"ready{r}").exists()
-                      for r in range(SLICE_MESH_RANKS)):
-            check(all(p.is_alive() for p in ctx.processes),
-                  "a mesh rank died before serving")
-            time.sleep(0.1)
-        # NCCL starts once the ranks' CUDA contexts exist and they wait
+            for key in fam["keys"]}
+        if ctx is not None:
+            # NCCL starts once the ranks' CUDA contexts exist and they wait
+            ranks_ready()
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                init_method=f"file://{tmp}/nccl", rank=0,
-                                world_size=1)
+                                init_method=f"file://{tmp}/nccl-{family}",
+                                rank=0, world_size=1)
+        if ctx is None:
+            # the group made, the ranks start while the 1x1 runs serve
+            ctx = spawn()
         one = {}
         try:
             mesh = make_local_mesh(1, 1, device=dev)
-            for key, backend, workload in SLICE_MESH_ONE:
-                cfg = slice_config(key)
+            for key, backend, workload in one_runs:
+                cfg = family_config(family, key)
                 api = build_model(cfg, device=dev)
                 api32 = build_model(dataclasses.replace(cfg, dtype="float32"),
                                     device=dev)
                 tokens, eng, counts = slice_mesh_serve(
-                    api, tmp / f"{key}.smez", backend, mesh, workload, depth,
-                    trees[key])
+                    api, tmp / f"{key}.smez", backend, mesh, workload,
+                    depths[key], trees[key])
                 check(all(counts[k] > 0 for k in KERNELS_OF[backend]),
                       f"mesh 1x1 {key} {backend}: a kernel of the path "
                       f"never launched: {counts}")
@@ -3583,6 +3824,9 @@ def slice_mesh_phase(dev, card, tmp, depth):
                 st = eng.stats
                 run = one[(key, backend, workload)] = dict(
                     tokens=tokens, bytes=tree_bytes(eng.params),
+                    state_bytes=tree_bytes(eng.caches),
+                    states=[{k: tuple(t.shape) for k, t in layer.items()}
+                            for layer in eng.caches],
                     ms=st["decode_s"] / st["decode_steps"] * 1e3,
                     logits=slice_mesh_logits(api32, eng.params, eng.policy))
                 check(bool(torch.isfinite(run["logits"]).all())
@@ -3592,31 +3836,36 @@ def slice_mesh_phase(dev, card, tmp, depth):
                 print(f"mesh[{cfg.name} 1x1 {backend} {workload}]: an NCCL "
                       f"group of world size 1 ({mesh.backend}); "
                       f"{run['ms']:.2f} ms per decode step, "
-                      f"{run['bytes'] / 2 ** 20:.1f} MiB of params; launches "
-                      f"{counts} | {card}", flush=True)
+                      f"{run['bytes'] / 2 ** 20:.1f} MiB of params, "
+                      f"{run['state_bytes'] / 2 ** 20:.1f} MiB of caches; "
+                      f"launches {counts} | {card}", flush=True)
                 out["runs"][f"{key} {backend} {workload} 1x1 nccl"] = dict(
-                    ms=run["ms"], bytes=run["bytes"])
+                    ms=run["ms"], bytes=run["bytes"],
+                    state_bytes=run["state_bytes"])
                 del eng
         finally:
             dist.destroy_process_group()
         del trees
         free_card()
+        ranks_ready()
         t_ready = time.perf_counter()
-        # the pool pauses while the ranks serve: their ms are readings
-        with quiet():
+        # the pool pauses while the MLA and vision ranks serve (their ms
+        # are readings); it packs on beside the recurrent ranks
+        with (quiet() if fam["pause"] else contextlib.nullcontext()):
             (tmp / "go").touch()
             while not ctx.join(timeout=1):
                 pass
         serve_s = time.perf_counter() - t_ready
     finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    ranks = [torch.load(tmp / f"slice{r}.pt", weights_only=False)
-             for r in range(SLICE_MESH_RANKS)]
-    for run in SLICE_MESH_RUNS:
+        if ctx is not None:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+    ranks = [torch.load(tmp / f"{family}{r}.pt", weights_only=False)
+             for r in range(MESH_RANKS)]
+    for run in fam["runs"]:
         key, backend, shape, workload = run
-        name = slice_config(key).name
+        name = family_config(family, key).name
         label = f"{name} {shape[0]}x{shape[1]} {backend} {workload}"
         ref = one[(key, backend, workload)]
         got = [r["runs"][run] for r in ranks]
@@ -3631,30 +3880,41 @@ def slice_mesh_phase(dev, card, tmp, depth):
         check(bool(torch.equal(got[0]["logits"], ref["logits"])),
               f"mesh {label}: rank 0's f32 prefill logits differ from 1x1: "
               f"{mismatch(got[0]['logits'], ref['logits'])}")
-        split = got[0]["split"]
-        want = "patch_proj" if key == "llava" else "kv_up"
-        check(any(want in n for n in split),
-              f"mesh {label}: no {want} split over 'model': {split}")
+        want, ok = mesh_split(key, got[0], ref, shape)
+        check(ok, f"mesh {label}: {want} not split over 'model': "
+              f"{got[0]['split']}, {got[0]['states'][0]}")
         ms = [g["ms"] for g in got]
         nbytes = [g["bytes"] for g in got]
+        sbytes = [g["state_bytes"] for g in got]
+        split = got[0]["split"]
         out["runs"][label] = dict(ms=ms, bytes=nbytes,
-                                  bytes_1x1=ref["bytes"], launches=summed,
-                                  split=len(split), cache=got[0]["cache"])
+                                  bytes_1x1=ref["bytes"],
+                                  state_bytes=sbytes,
+                                  state_bytes_1x1=ref["state_bytes"],
+                                  launches=summed, split=len(split),
+                                  cache=got[0]["cache"],
+                                  states=got[0]["states"][0])
         frac = ", ".join(f"{b / ref['bytes']:.3f}" for b in nbytes)
+        sfrac = ", ".join(f"{b / ref['state_bytes']:.3f}" for b in sbytes)
         print(f"mesh[{label}]: 4 ranks, every rank's tokens == 1x1, rank 0's "
               f"f32 prefill logits == 1x1 bitwise, rank mismatches 0; params "
               f"per rank {', '.join(f'{b / 2 ** 20:.1f}' for b in nbytes)} "
               f"MiB against 1x1's {ref['bytes'] / 2 ** 20:.1f} MiB ({frac}); "
-              f"{len(split)} weights split over 'model' ({want} among them), "
-              f"rank 0's first cache {got[0]['cache']}; "
+              f"caches per rank "
+              f"{', '.join(f'{b / 2 ** 20:.1f}' for b in sbytes)} MiB "
+              f"against {ref['state_bytes'] / 2 ** 20:.1f} MiB ({sfrac}); "
+              f"{len(split)} weights split over 'model', {want} split; "
+              f"rank 0's first layer's cache {got[0]['states'][0]} "
+              f"(1x1: {ref['states'][0]}); "
               f"{', '.join(f'{t:.1f}' for t in ms)} ms per decode step "
               f"(gloo, 4 ranks on one card: correctness only); launches "
               f"{summed} | {card}", flush=True)
     check(all(r["jax"] == [] for r in ranks), "a mesh rank imported jax")
     out["serve_s"] = serve_s
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"mesh[mla+vision]: phase {out['phase_s']:.1f}s of its 60 s budget "
-          f"({serve_s:.1f}s of gloo serving, the pool paused)", flush=True)
+    print(f"mesh[{family}]: phase {out['phase_s']:.1f}s of its 60 s budget "
+          f"({serve_s:.1f}s of gloo serving, the pool "
+          f"{'paused' if fam['pause'] else 'packing on'})", flush=True)
     return out, launches
 
 
@@ -3696,6 +3956,16 @@ def recurrent_config(key):
     return dataclasses.replace(ARCHS["jamba-v0.1-52b"], n_layers=2,
                                block_pattern=("mamba", "attn"),
                                moe_pattern=(0, 0))
+
+
+#: phase 8': the recurrent family's gloo runs, on 4 ranks sharing the
+#: card, from phase 8's packed trees: (model, backend, (data, model),
+#: workload); the workloads are phase 7's (:data:`SLICE_MESH_ENGINE`)
+RECURRENT_MESH_RUNS = (("jamba", "v2", (2, 2), "one-shot"),
+                       ("jamba", "v2", (1, 4), "one-shot"),
+                       ("jamba", "v3", (2, 2), "spec+prefix"),
+                       ("xlstm", "v2", (2, 2), "one-shot"),
+                       ("xlstm", "v2", (1, 4), "one-shot"))
 
 
 def recurrent_leaves(cfg):
@@ -3772,6 +4042,7 @@ def recurrent_params(dev, key, cfg, got):
     del slabs
     check(not got, f"{cfg.name}: packed weights left over: {sorted(got)}")
     params = to_torch(tree, dev)
+    upload_check(tree, params, cfg.name)
     del tree
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3782,14 +4053,15 @@ def recurrent_params(dev, key, cfg, got):
     return params, rows
 
 
-def recurrent_workload(key, vocab):
-    """4 greedy requests of 400-600-token prompts, 16 new tokens; the first
+def recurrent_workload(key, vocab, lens=SLICE_PROMPTS):
+    """4 greedy requests of prompts of ``lens`` tokens (400-600), 16 new
+    tokens; the first
     two share :data:`SLICE_SHARED` tokens, and the engine submits the
     second once the first has scored them (a prefix-cache hit).  Returns
     (prompts, (first wave, second wave, ready))."""
     from repro_torch.serve import Request
     rng = np.random.default_rng(SEED + 14 + len(key))
-    lens = rng.integers(*SLICE_PROMPTS, size=4)
+    lens = rng.integers(*lens, size=4)
     prompts = [rng.integers(0, vocab, int(n)) for n in lens]
     prompts[1][:SLICE_SHARED] = prompts[0][:SLICE_SHARED]
     reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
@@ -3867,15 +4139,16 @@ def time_loops(dev, params, cfg, toks, plen, card):
     return out
 
 
-def recurrent_phase(dev, card, key, packed):
+def recurrent_phase(dev, card, key, packed, save_to=None):
     """A recurrent model at full width: its kernel rows; one-shot serving
     under auto (v2) and v3 (equal tokens, :data:`RECURRENT_PER_PASS`
     launches per pass); f32 prefill logits; a profiled window; the Python
     time loops' ms; the engine on v3 with spec and without, and without
     the prefix cache (equal tokens: a prefix hit restores the recurrent
     side rows and, for Jamba, the attention's pages as recomputing the
-    prefix leaves them).  Returns the kernel rows, launches per kernel and
-    readings."""
+    prefix leaves them).  The packed tree is then written to ``save_to``
+    (a ``.smez`` for phase 8').  Returns the kernel rows, launches per
+    kernel and readings."""
     from repro_torch.core.integrate import sme_operand_bytes, to_torch
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import layer_slots
@@ -3940,7 +4213,7 @@ def recurrent_phase(dev, card, key, packed):
     for name, spec, prefix in (("spec", depth, True),
                                ("spec off", None, True),
                                ("spec off, prefix off", None, False)):
-        _, w = recurrent_workload(key, cfg.vocab)
+        _, w = recurrent_workload(key, cfg.vocab, ENGINE_PROMPTS)
         r = runs[name] = engine_run(api, params, "v3", spec, prefix,
                                     engine_kw=RECURRENT_ENGINE, waves=w)
         for k in launches:
@@ -3975,11 +4248,33 @@ def recurrent_phase(dev, card, key, packed):
           f"restored {'side rows and pages' if paged else 'side rows only'}"
           f"; engine tokens with spec == without == without the prefix "
           f"cache; draft depth {depth} of {deepest}", flush=True)
-    del params, runs, eng
+    out["draft_depth"] = depth
+    del runs, eng
+    if save_to is not None:
+        out["save_s"] = save_slice(params, cfg, save_to, label)
+    del params
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"{label}: phase {out['phase_s']:.1f}s", flush=True)
     return rows, launches, out
+
+
+#: the mesh phases (7' and 8'): their models, runs and config functions,
+#: whether the ranks start before the 1x1 runs (and the NCCL group is made
+#: once they wait) or once the group is made, and whether the pool pauses
+#: while the ranks serve
+MESH_FAMILIES = {
+    "mla+vision": dict(keys=("deepseek", "llava"), runs=SLICE_MESH_RUNS,
+                       config="slice_config", ranks_first=True, pause=True),
+    "recurrent": dict(keys=("jamba", "xlstm"), runs=RECURRENT_MESH_RUNS,
+                      config="recurrent_config", ranks_first=False,
+                      pause=False)}
+
+
+def family_config(family, key):
+    """A mesh family's model config (its config function resolved by name
+    at call time, so that a rehearsal's patch reaches it)."""
+    return globals()[MESH_FAMILIES[family]["config"]](key)
 
 
 # ---------------------------------------------------------------------------
@@ -4082,6 +4377,7 @@ def encdec_params(dev, cfg, got):
     del layers
     check(not got, f"{cfg.name}: packed weights left over: {sorted(got)}")
     params = to_torch(tree, dev)
+    upload_check(tree, params, cfg.name)
     del tree
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -4403,7 +4699,7 @@ def main() -> int:
                         for i, key in enumerate(SLICE)},
                      **{key: recurrent_tasks(key, 100000 * (i + 4))
                         for i, key in enumerate(RECURRENT)},
-                     "whisper": encdec_tasks(100000 * 6)})
+                     "whisper": encdec_tasks(100000 * 6)}, dev)
     slice_tmp = pathlib.Path(tempfile.mkdtemp(prefix="slice-mesh-"))
     try:
         card_tests()
@@ -4439,9 +4735,10 @@ def main() -> int:
             for name in KERNELS:
                 slice_rows[name].update(rows_k.get(name, {}))
                 slice_launches[name] += launches_k[name]
-        slice_out["mesh"], slice_mesh_launches = slice_mesh_phase(
-            dev, card, slice_tmp, slice_out["deepseek"]["draft_depth"])
-        shutil.rmtree(slice_tmp, ignore_errors=True)
+        slice_out["mesh"], slice_mesh_launches = mesh_family_phase(
+            dev, card, slice_tmp, "mla+vision",
+            {"deepseek": slice_out["deepseek"]["draft_depth"],
+             "llava": None})
         free_card()
         for name in KERNELS:
             mesh_launches[name] += slice_mesh_launches[name]
@@ -4449,12 +4746,20 @@ def main() -> int:
         rec_launches = {name: 0 for name in KERNELS}
         rec_out = {}
         for key in RECURRENT:
+            # each packed tree is written for phase 8'
             rows_k, launches_k, rec_out[key] = recurrent_phase(
-                dev, card, key, packer.wait(key))
+                dev, card, key, packer.wait(key), slice_tmp / f"{key}.smez")
             free_card()
             for name in KERNELS:
                 rec_rows[name].update(rows_k.get(name, {}))
                 rec_launches[name] += launches_k[name]
+        rec_out["mesh"], rec_mesh_launches = mesh_family_phase(
+            dev, card, slice_tmp, "recurrent",
+            {key: rec_out[key]["draft_depth"] for key in RECURRENT})
+        shutil.rmtree(slice_tmp, ignore_errors=True)
+        free_card()
+        for name in KERNELS:
+            mesh_launches[name] += rec_mesh_launches[name]
         enc_rows, enc_launches, enc_out = encdec_phase(
             dev, card, packer.wait("whisper"))
         free_card()
@@ -4487,7 +4792,8 @@ def main() -> int:
         row["train_launches"] = train_launches[name]
         # the mesh phases' runs: the 1x1 mesh over NCCL in this process
         # and the gloo ranks' meshes, summed over the ranks (the trained
-        # qwen artifacts', then deepseek's and llava's)
+        # qwen artifacts', then deepseek's and llava's, then Jamba's and
+        # xLSTM's)
         row["mesh_launches"] = mesh_launches[name]
         row["cnn_launches"] = cnn_launches[name]
         row["cnn"] = cnn_rows[name]

@@ -20,6 +20,10 @@ from .bitslice import tile_codes, tiled_plane_occupancy, untile_codes
 from .quant import quantize
 from .squeeze import squeeze_out
 
+#: (plane, tile) entries whose bitmaps :meth:`SMEWeight.pack_plane_csc`
+#: builds at once (its temporaries: 8 bytes per weight of each entry)
+PLANE_BLOCK = 2048
+
 __all__ = ["SMEWeight", "sme_compress", "sme_matmul_ref_np", "csc_tile_order",
            "plane_csc_order"]
 
@@ -227,9 +231,14 @@ class SMEWeight:
         col, row, q, slot = plane_csc_order(occp)
         if col.size:
             sh = (self.n_bits - 1 - q).astype(np.int64)
-            bits = ((self.tiled_codes[row, col] >> sh[:, None, None]) & 1
-                    ).astype(np.uint8)                       # [E, tr, tc]
-            planes[col, slot] = np.packbits(bits, axis=1)
+            # the bitmaps of PLANE_BLOCK entries at a time: the int64 shift
+            # of all E tiles at once would hold 8 bytes per weight and plane
+            # (gigabytes for a head slab)
+            for e0 in range(0, col.size, PLANE_BLOCK):
+                e = slice(e0, e0 + PLANE_BLOCK)
+                bits = ((self.tiled_codes[row[e], col[e]]
+                         >> sh[e, None, None]) & 1).astype(np.uint8)
+                planes[col[e], slot[e]] = np.packbits(bits, axis=1)
             shift[col, slot] = sh.astype(np.int32)
             rowid[col, slot] = row
             grp_end = np.ones(col.size, dtype=bool)

@@ -36,8 +36,8 @@ serves the Prometheus text at ``/metrics`` on 127.0.0.1 for the process
 lifetime (0: an ephemeral port).
 
 ``--mesh data,model`` (default ``1,1``) serves on a mesh of ``data *
-model`` ranks (``launch.mesh``; the dense and MoE families, MLA and the
-vision frontend): the launcher spawns them (``torch.multiprocessing``, a
+model`` ranks (``launch.mesh``; the dense, MoE and recurrent families,
+MLA and the vision frontend): the launcher spawns them (``torch.multiprocessing``, a
 file store in a temporary directory for the rendezvous), or joins an
 existing group when ``RANK``/``WORLD_SIZE`` are set
 (``init_method="env://"``).
@@ -60,6 +60,8 @@ places only its shard on its device; only rank 0 prints.
         --sme --backend v2 --mesh 2,2
     PYTHONPATH=src python -m repro_torch.launch.serve --small --device cpu \\
         --arch deepseek-v2-lite-16b --sme --backend v2 --mesh 2,2
+    PYTHONPATH=src python -m repro_torch.launch.serve --small --device cpu \\
+        --arch jamba-v0.1-52b --sme --backend v2 --mesh 2,2
 """
 from __future__ import annotations
 

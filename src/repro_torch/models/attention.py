@@ -63,7 +63,7 @@ from typing import Optional
 import torch
 
 from ..core.backend import cached_dequant
-from ..parallel.policy import constrain, row_start, whole_cache, whole_weight
+from ..parallel.policy import constrain, row_start, whole_state, whole_weight
 from .common import apply_rope, linear, norm_pos_active
 
 __all__ = ["gqa_prefill", "gqa_decode", "mla_prefill", "mla_decode",
@@ -258,9 +258,13 @@ def gqa_decode(p, x, cache, pos, cfg, active=None,
     # attention in the 1x1 shape (a whole cache, zero where another rank
     # holds it): the library picks its algorithm by shape, so a rank's rows
     # and heads compute as on the 1x1 mesh; the ranks' parts are gathered
-    y = _decode_attend(q, whole_cache(kc, b, nkv), whole_cache(vc, b, nkv),
+    whole = (b,) + tuple(kc.shape[1:2]) + (nkv,) + tuple(kc.shape[3:])
+    y = _decode_attend(q, whole_state(kc, whole), whole_state(vc, whole),
                        kpos, pos, window, 1.0 / (cfg.hd ** 0.5))
-    y = constrain(y, "attn", n_kv=nkv, rows=kc.shape[0])
+    # this rank's rows and the query heads of its KV heads
+    g = cfg.n_heads // nkv
+    y = constrain(y, "block", part=(kc.shape[0], 1, kc.shape[2] * g,
+                                    y.shape[3]))
     return linear(y.reshape(b, 1, -1), p["o"], backend), {"k": kc, "v": vc}
 
 
@@ -367,7 +371,8 @@ def mla_decode(p, x, cache, pos, cfg, active=None,
     # every einsum in the 1x1 shape (the whole batch, other ranks' rows
     # zero): the card's batched matmuls pick their algorithm, and so their
     # bits, by batch count; this rank's rows are gathered after w_uv
-    c_all, pe_all = whole_cache(cc, b).float(), whole_cache(pc, b).float()
+    c_all = whole_state(cc, (b,) + tuple(cc.shape[1:])).float()
+    pe_all = whole_state(pc, (b,) + tuple(pc.shape[1:])).float()
     q_c = torch.einsum("bthn,khn->bthk", q_nope.float(), w_uk)
     s_c = torch.einsum("bthk,bsk->bhs", q_c, c_all)
     s_pe = torch.einsum("bthr,bsr->bhs", q_pe.float(), pe_all)
@@ -377,7 +382,8 @@ def mla_decode(p, x, cache, pos, cfg, active=None,
                     torch.full_like(s, NEG_INF))
     prob = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhs,bsk->bhk", prob, c_all)
-    y = constrain(torch.einsum("bhk,khv->bhv", ctx, w_uv), "rows", rows=rows)
+    y = torch.einsum("bhk,khv->bhv", ctx, w_uv)
+    y = constrain(y, "block", part=(rows,) + tuple(y.shape[1:]))
     y = linear(y.reshape(b, 1, h * dv).to(x.dtype), p["o"], backend)
     return y, {"c": cc, "k_pe": pc}
 

@@ -21,7 +21,21 @@ through ``sme_apply``); every recurrence runs in f32.
 
 The reference keeps mLSTM's and sLSTM's states as tuples in that order;
 the port names them, so every layer's cache is one ``{name: tensor}`` with
-batch on dim 0 (the engine's contract).  ``jax.nn.softplus`` is
+batch on dim 0 (the engine's contract).
+
+On a serving mesh (``parallel.policy``) a state shard holds this rank's
+slot rows (over 'data') and, for Mamba's ``conv``/``h`` and mLSTM's
+``C``/``n``, its share of d_in, dv or heads (over 'model';
+``sharding.state_spec``).  A prefill starts from zero and computes every
+row and channel in the 1x1 shape, then keeps this rank's channels.  A
+decode step takes the shards in the whole state's shape
+(``whole_state``: zero where other ranks hold it), so every einsum, scan
+and reduction runs in the 1x1 shape and this rank's block of each result
+is the 1x1 mesh's bitwise; what a contraction reads whole (Mamba's conv
+output and scan output, mLSTM's ``den`` and ``h``, sLSTM's ``h``) is
+gathered from every rank's block (``constrain(..., "block")``), and the
+new state is cut back to the shard (``state_part``).  No float sum
+crosses a rank.  ``jax.nn.softplus`` is
 ``logaddexp(x, 0)``, here ``torch.logaddexp`` (``F.softplus`` switches to
 ``x`` above 20).
 """
@@ -33,6 +47,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.policy import (constrain, row_start, state_part,
+                               state_shape, whole_state)
 from .common import linear
 
 __all__ = ["mamba_dims", "mamba_apply", "mamba_decode", "mamba_state_init",
@@ -44,14 +60,32 @@ MLSTM_CHUNK = 1024
 
 
 def _mask_state(active, new: dict, old: dict) -> dict:
-    """Rows with ``active[i]`` false keep their old state bit for bit."""
+    """The new state cut to the old one's shard (the whole state outside a
+    mesh); rows with ``active[i]`` false keep their old state bit for
+    bit."""
+    new = {k: state_part(n, old[k].shape) for k, n in new.items()}
     if active is None:
         return new
+    rows = next(iter(old.values())).shape[0]
+    r0 = row_start(rows, active.shape[0])
+    active = active[r0:r0 + rows]
     out = {}
     for k, n in new.items():
         a = active.reshape((active.shape[0],) + (1,) * (n.dim() - 1))
         out[k] = torch.where(a, n, old[k])
     return out
+
+
+def _shards(kind: str, state: dict) -> dict:
+    """A prefill's whole state cut to the channels this rank keeps (every
+    slot row: the engine writes each to the rank that holds its slot)."""
+    return {k: state_part(t, state_shape(kind, k, t.shape))
+            for k, t in state.items()}
+
+
+def _wholes(state: dict, shapes: dict) -> dict:
+    """Each state shard in its whole shape (``shapes``)."""
+    return {k: whole_state(t, shapes[k]) for k, t in state.items()}
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -149,16 +183,24 @@ def mamba_apply(p, x, cfg, plen=None, backend: Optional[str] = None):
     tmask = None if plen is None else _valid(plen, s, x.device)
     y, h = _mamba_core(p, xc, z, cfg, h0, tmask, backend)
     rows = torch.full((b,), s, device=x.device) if plen is None else plen
-    return linear(y, p["out_proj"], backend), {
-        "conv": _tail_window(xr, rows, cfg.ssm_conv), "h": h}
+    return linear(y, p["out_proj"], backend), _shards("mamba", {
+        "conv": _tail_window(xr, rows, cfg.ssm_conv), "h": h})
 
 
 def mamba_decode(p, x1, state, cfg, active=None,
                  backend: Optional[str] = None):
     """x1 [B, 1, D]: one step; ``active`` [B] freezes the other rows."""
+    d_in, _, n = mamba_dims(cfg)
+    b = x1.shape[0]
+    cs, hs = state["conv"].shape, state["h"].shape
+    whole = _wholes(state, {"conv": (b, cfg.ssm_conv - 1, d_in),
+                            "h": (b, d_in, n)})
     xr, z = torch.chunk(linear(x1, p["in_proj"], backend), 2, dim=-1)
-    xc, conv = _causal_conv_step(xr, state["conv"], p["conv_w"], p["conv_b"])
-    y, h = _mamba_core(p, xc, z, cfg, state["h"], backend=backend)
+    xc, conv = _causal_conv_step(xr, whole["conv"], p["conv_w"], p["conv_b"])
+    # x_proj contracts over d_in: every rank's rows and channels of xc
+    xc = constrain(xc, "block", part=(cs[0], 1, cs[2]))
+    y, h = _mamba_core(p, xc, z, cfg, whole["h"], backend=backend)
+    y = constrain(y, "block", part=(hs[0], 1, hs[1]))
     return linear(y, p["out_proj"], backend), \
         _mask_state(active, {"conv": conv, "h": h}, state)
 
@@ -265,7 +307,7 @@ def mlstm_apply(p, x, cfg, plen=None, backend: Optional[str] = None,
     h, state = _mlstm_chunk_scan(q, k, v, ig, fg, chunk,
                                  mlstm_state_init(cfg, b, None, x.device))
     h = h[:, :s].reshape(b, s, d_in).to(x.dtype) * p["norm_w"].to(x.dtype)
-    return linear(h * F.silu(z), p["down"], backend), state
+    return linear(h * F.silu(z), p["down"], backend), _shards("mlstm", state)
 
 
 def mlstm_decode(p, x1, state, cfg, active=None,
@@ -277,7 +319,9 @@ def mlstm_decode(p, x1, state, cfg, active=None,
     q, k, v, ig, fg = _mlstm_qkv(p, xr, nh, dh, backend)
     qf, kf, vf = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
     a_t, f_t = ig[:, 0], fg[:, 0]                             # [B, NH]
-    c_st, n_st, m_st = state["C"], state["n"], state["m"]
+    whole = _wholes(state, {"C": (b, nh, dh, dh), "n": (b, nh, dh),
+                            "m": (b, nh)})
+    c_st, n_st, m_st = whole["C"], whole["n"], whole["m"]
     m_new = torch.maximum(f_t + m_st, a_t)
     wf = torch.exp(f_t + m_st - m_new)
     wi = torch.exp(a_t - m_new)
@@ -286,7 +330,12 @@ def mlstm_decode(p, x1, state, cfg, active=None,
     n_new = n_st * wf[..., None] + kf * wi[..., None]
     num = torch.einsum("bnd,bnde->bne", qf, c_new)
     den = torch.einsum("bnd,bnd->bn", qf, n_new)
+    # every head's den beside this rank's dv columns of num; then every
+    # rank's rows and columns of h for the down projection
+    den = constrain(den, "block", part=state["n"].shape[:2])
     h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
+    cs = state["C"].shape
+    h = constrain(h, "block", part=(cs[0], nh, cs[3]))
     h = h.reshape(b, 1, d_in).to(x1.dtype) * p["norm_w"].to(x1.dtype)
     return linear(h * F.silu(z), p["down"], backend), \
         _mask_state(active, {"C": c_new, "n": n_new, "m": m_new}, state)
@@ -343,11 +392,15 @@ def slstm_apply(p, x, cfg, plen=None, backend: Optional[str] = None):
     tmask = None if plen is None else _valid(plen, s, x.device)
     hs, state = _slstm_scan(p, wx, cfg,
                             slstm_state_init(cfg, b, None, x.device), tmask)
-    return _slstm_ffn(p, hs.to(x.dtype), backend), state
+    return _slstm_ffn(p, hs.to(x.dtype), backend), _shards("slstm", state)
 
 
 def slstm_decode(p, x1, state, cfg, active=None,
                  backend: Optional[str] = None):
-    hs, new = _slstm_scan(p, linear(x1, p["wx"], backend), cfg, state)
+    b = x1.shape[0]
+    whole = _wholes(state, {k: (b, cfg.d_model) for k in state})
+    hs, new = _slstm_scan(p, linear(x1, p["wx"], backend), cfg, whole)
+    # the FFN's rows: every rank's
+    hs = constrain(hs, "block", part=(state["h"].shape[0],) + hs.shape[1:])
     return _slstm_ffn(p, hs.to(x1.dtype), backend), \
         _mask_state(active, new, state)

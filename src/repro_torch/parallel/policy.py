@@ -17,20 +17,24 @@ rank at every op boundary, so
   * ``"kv"`` takes this rank's KV heads of a K or V [B, S, KV, hd], the
     ones its cache shard holds (KV heads split over 'model' where their
     count divides it, as the cache rule splits them; whole GQA groups),
-    and ``"attn"`` gathers this rank's rows and heads of an attention
-    output computed in the 1x1 shape (:func:`whole_cache`): heads over
-    'model', rows over 'data'; ``"rows"`` gathers this rank's rows of an
-    output computed in the 1x1 shape over 'data' alone (MLA's decode,
-    whose cache has no head dim and whose heads every rank computes).
+    and ``"block"`` gathers an output computed in the 1x1 shape
+    (:func:`whole_state`) whose valid part is the block of a shard of
+    shape ``part``: slot rows (dim 0) over 'data', a channel or head dim
+    over 'model' (an attention output's heads, MLA's rows, a recurrent
+    layer's rows and channels).
 
-:func:`whole_cache` gives a cache shard the whole cache's shape, zero
-where other ranks hold it (with or without a head dim), and
-:func:`whole_weight` a column-split weight's whole matrix, gathered once
-per weight (MLA's absorbed ``kv_up``).  :func:`embed_rows` looks tokens
-up in a vocab-split embedding: each rank reads the rows it owns, and the
-owner's row is **selected** from the gathered parts, never summed.  Every collective is a gather or a select,
-so the tokens and f32 logits equal the 1x1 mesh's bitwise.  Outside a
-policy, and on a 1x1 mesh, nothing is split and every kind is a no-op.
+:func:`whole_state` gives a cache or state shard the whole leaf's shape,
+zero where other ranks hold it, and :func:`state_part` cuts a state
+computed in that shape back to this rank's shard; :func:`state_shape` is
+the shard shape of a recurrent state the engine keeps (the cache rule's
+split, slot rows left whole).  :func:`whole_weight` gives a
+column-split weight's whole matrix, gathered once per weight (MLA's
+absorbed ``kv_up``).  :func:`embed_rows` looks tokens up in a
+vocab-split embedding: each rank reads the rows it owns, and the owner's
+row is **selected** from the gathered parts, never summed.  Every
+collective is a gather or a select, so the tokens and f32 logits equal
+the 1x1 mesh's bitwise.  Outside a policy, and on a 1x1 mesh, nothing
+is split and every kind is a no-op.
 """
 from __future__ import annotations
 
@@ -43,11 +47,12 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .sharding import split_of
+from .sharding import shard_shape, split_of, state_spec
 
 __all__ = ["ShardPolicy", "use_policy", "constrain", "current_policy",
            "policy_for", "embed_rows", "expert_rows", "local_heads",
-           "row_start", "whole_cache", "whole_weight"]
+           "row_start", "whole_state", "state_part", "state_shape",
+           "whole_weight"]
 
 _POLICY: contextvars.ContextVar = contextvars.ContextVar(
     "shard_policy", default=None)
@@ -146,24 +151,58 @@ def row_start(local: int, total: int) -> int:
     return current_policy().mesh.index("data") * local
 
 
-def whole_cache(t: torch.Tensor, rows: int, n_kv: int = 0) -> torch.Tensor:
-    """A cache shard in the whole cache's shape, zero where other ranks
-    hold it (``t`` itself when it is whole): [B', W, KV', hd] -> [rows, W,
-    n_kv, hd] for a cache of ``n_kv`` KV heads, or, with ``n_kv`` 0 (no
-    head dim: MLA's ``c`` and ``k_pe``), [B', ...] -> [rows, ...]."""
-    heads = n_kv and t.shape[2] != n_kv
-    if t.shape[0] == rows and not heads:
+def _block(part, shape) -> tuple:
+    """The index of this rank's ``part`` of a leaf of whole ``shape``: slot
+    rows (dim 0) at this rank's row start over 'data', any other dim that
+    differs at this rank's share of it over 'model'."""
+    idx = []
+    for d, (p, n) in enumerate(zip(part, shape)):
+        if p == n:
+            idx.append(slice(None))
+            continue
+        o = row_start(p, n) if d == 0 else \
+            current_policy().mesh.index("model") * p
+        idx.append(slice(o, o + p))
+    return tuple(idx)
+
+
+def whole_state(t: torch.Tensor, shape) -> torch.Tensor:
+    """A cache or state shard in the whole leaf's ``shape``, zero where
+    other ranks hold it (``t`` itself when it is whole): its slot rows over
+    'data', a KV-head, head or channel dim over 'model'.  The model then
+    computes in the 1x1 shape, and this rank's block of the result is the
+    1x1 mesh's bitwise."""
+    shape = tuple(shape)
+    if tuple(t.shape) == shape:
         return t
-    r0 = row_start(t.shape[0], rows)
-    if not n_kv:
-        out = t.new_zeros((rows,) + tuple(t.shape[1:]))
-        out[r0:r0 + t.shape[0]] = t
-        return out
-    first, count = local_heads(n_kv)
-    out = t.new_zeros((rows,) + tuple(t.shape[1:2]) + (n_kv,)
-                      + tuple(t.shape[3:]))
-    out[r0:r0 + t.shape[0], :, first:first + count] = t
+    out = t.new_zeros(shape)
+    out[_block(t.shape, shape)] = t
     return out
+
+
+def state_part(t: torch.Tensor, part) -> torch.Tensor:
+    """This rank's shard, of shape ``part``, of a state ``t`` computed in
+    the whole shape (all of ``t`` when ``part`` is whole), contiguous on
+    every mesh: the next step's contractions read it."""
+    part = tuple(part)
+    if tuple(t.shape) == part:
+        return t.contiguous()
+    return t[_block(part, t.shape)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def state_shape(kind: str, name: str, shape) -> tuple:
+    """The shard shape of recurrent state ``name`` of a ``kind`` layer
+    (``mamba``, ``mlstm``, ``slstm``) of whole ``shape`` under the engine's
+    cache rule (``sharding.state_spec``, exact), its slot rows whole: a
+    prefill's state, every row of which the engine writes to the rank that
+    holds the slot.  ``shape`` itself outside a mesh."""
+    pol = current_policy()
+    shape = tuple(shape)
+    if pol is None or pol.mesh is None or pol.mesh.size == 1:
+        return shape
+    spec = state_spec(pol.mesh, kind, name, shape, shape[0], exact=True)
+    return (shape[0],) + shard_shape(pol.mesh, spec, shape)[1:]
 
 
 #: id(a split weight's anchor) -> (weakref to it, its whole matrix)
@@ -192,17 +231,16 @@ def whole_weight(w, part: torch.Tensor) -> torch.Tensor:
 
 
 def constrain(x: torch.Tensor, kind: str, w=None, *, n_kv: int = 0,
-              rows: int = 0) -> torch.Tensor:
+              part=None) -> torch.Tensor:
     """kind: 'act' [B,S,D] | 'lhs' (a matmul's left operand): nothing to
     do | 'features' [..., N]: the product of weight ``w`` gathered over
     'model' when ``w`` is column-split | 'experts' [E, ..., N]: an
     expert-parallel ``w``'s outputs gathered on dim 0 | 'kv'
-    [B,S,KV,hd]: this rank's heads of ``n_kv`` KV heads | 'attn'
-    [B,S,H,hd]: an attention output computed in the 1x1 shape whose valid
-    part is this rank's ``rows`` rows and heads of ``n_kv`` KV-head
-    groups, every rank's part gathered | 'rows' [B, ...]: an output
-    computed in the 1x1 shape whose valid part is this rank's ``rows``
-    rows, every rank's rows gathered over 'data'."""
+    [B,S,KV,hd]: this rank's heads of ``n_kv`` KV heads | 'block': an
+    output computed in the 1x1 shape whose valid part is this rank's
+    block of shape ``part`` (:func:`whole_state`'s placement), every
+    rank's block gathered, a dim over 'model' first, then the rows over
+    'data'."""
     if kind in ("act", "lhs"):
         return x
     if kind in ("features", "experts"):
@@ -213,29 +251,25 @@ def constrain(x: torch.Tensor, kind: str, w=None, *, n_kv: int = 0,
             return _gather_split(x, sp, 0)
         return _gather_split(x, sp, -1)
     pol = current_policy()
+    if kind == "block":
+        # contiguous on every mesh: a gathered block is, and the next
+        # contraction's bits follow its operand's layout
+        whole = tuple(x.shape)
+        part = tuple(part)
+        if part == whole:
+            return x.contiguous()
+        x = x[_block(part, whole)]
+        for d in range(1, x.dim()):
+            if part[d] != whole[d]:
+                x = pol.mesh.gather(x, "model", d)
+        if part[0] != whole[0]:
+            x = pol.mesh.gather(x, "data", 0)
+        return x.contiguous()
     if pol is None or pol.mesh is None or pol.mesh.size == 1:
         return x
-    if kind == "rows":
-        b = x.shape[0]
-        if rows == b:
-            return x
-        r0 = row_start(rows, b)
-        return pol.mesh.gather(x[r0:r0 + rows], "data", 0)
-    first, count = local_heads(n_kv)
     if kind == "kv":
+        first, count = local_heads(n_kv)
         return x if count == n_kv else x[:, :, first:first + count]
-    if kind == "attn":
-        mesh, b = pol.mesh, x.shape[0]
-        if count == n_kv and rows == b:
-            return x
-        g = x.shape[2] // n_kv              # query heads per KV head
-        r0 = row_start(rows, b)
-        x = x[r0:r0 + rows, :, first * g:(first + count) * g]
-        if count != n_kv:
-            x = mesh.gather(x, "model", 2)
-        if rows != b:
-            x = mesh.gather(x, "data", 0)
-        return x
     raise ValueError(f"unknown constrain kind {kind!r}")
 
 

@@ -54,7 +54,7 @@ import torch
 __all__ = ["param_sharding", "cache_sharding", "batch_sharding",
            "dp_axes", "axis_size", "tree_shardings", "replicated",
            "leaf_sharding", "place_tree", "Split", "split_of",
-           "shard_shape", "EXACT_MIN_SHARD"]
+           "shard_shape", "state_spec", "EXACT_MIN_SHARD"]
 
 
 def axis_size(mesh, name: str) -> int:
@@ -274,13 +274,17 @@ def param_sharding(mesh, params, fsdp: bool = True, tp: bool = True,
 
 # ---------------------------------------------------------------- caches
 
+def _batch_axis(mesh, batch: int) -> Any:
+    dp = dp_axes(mesh)
+    dpn = int(np.prod([axis_size(mesh, a) for a in dp]))
+    return dp if (batch % max(dpn, 1) == 0 and dpn > 1) else (
+        "data" if batch % axis_size(mesh, "data") == 0 else None)
+
+
 def _cache_spec(mesh, path: str, shape, batch: int,
                 exact: bool = False) -> tuple:
     nd = len(shape)
-    dp = dp_axes(mesh)
-    dpn = int(np.prod([axis_size(mesh, a) for a in dp]))
-    batch_ax: Any = dp if (batch % max(dpn, 1) == 0 and dpn > 1) else (
-        "data" if batch % axis_size(mesh, "data") == 0 else None)
+    batch_ax = _batch_axis(mesh, batch)
     # SP-decode: the sequence dim of attention caches shards over 'model'
     # (+ 'data' when batch == 1); exact never sequence-shards: attention
     # softmax-sums over the sequence, so heads/channels shard instead
@@ -316,19 +320,57 @@ def _cache_spec(mesh, path: str, shape, batch: int,
     return P(*([None] * nd))
 
 
+#: the port's named recurrent states: a layer's leaf names -> its kind
+_STATE_KINDS = {frozenset(("conv", "h")): "mamba",
+               frozenset(("C", "n", "m")): "mlstm",
+               frozenset(("c", "n", "h", "m")): "slstm"}
+#: the states whose channel or head split is the reference rule's
+_SPLIT_STATES = {("mamba", "conv"), ("mamba", "h"), ("mlstm", "C"),
+                 ("mlstm", "n")}
+
+
+def state_spec(mesh, kind: str, name: str, shape, batch: int,
+               exact: bool = False) -> tuple:
+    """The spec of one recurrent state leaf of a port layer (slot rows on
+    dim 0), keyed on the layer's kind: Mamba's ``conv`` (d_in) and ``h``
+    (d_in), mLSTM's ``C`` (dv) and ``n`` (heads) take the reference's
+    stacked spec without the superblock dim; mLSTM's ``m`` and sLSTM's
+    ``c``/``n``/``h``/``m`` are whole apart from their slot rows (ROADMAP
+    R11: the reference's rule reads a stacked [L, B, NH] or [L, B, D]
+    state as unstacked, so it puts the superblock dim over 'data' and the
+    slot rows over 'model', and sLSTM's ``c`` and ``h`` take MLA's and
+    Mamba's rules by name)."""
+    shape = tuple(shape)
+    if (kind, name) in _SPLIT_STATES:
+        return _cache_spec(mesh, "blocks/slot/" + name, (1,) + shape, batch,
+                           exact=exact)[1:]
+    return _spec(mesh, shape, _batch_axis(mesh, batch),
+                 *([None] * (len(shape) - 1)))
+
+
 def cache_sharding(mesh, caches, batch: int, exact: bool = False,
                    port: bool = True):
     """Tree of specs matching a cache tree (the port's list of per-layer
     dicts with ``port``, each leaf asked as a stacked superblock slot's,
-    else the reference's tree)."""
-    def one(path, leaf):
-        def rule(p, shape):
-            return _cache_spec(mesh, p, shape, batch, exact=exact)
-        if port:
-            return rule("blocks/slot/" + "/".join(path[1:]),
-                        (1,) + tuple(leaf.shape))[1:]
-        return rule("/".join(path), tuple(leaf.shape))
-    return _walk(caches, one)
+    a recurrent layer's states by :func:`state_spec`; else the
+    reference's tree)."""
+    if not port:
+        return _walk(caches, lambda path, leaf: _cache_spec(
+            mesh, "/".join(path), tuple(leaf.shape), batch, exact=exact))
+
+    def layer(cache):
+        kind = _STATE_KINDS.get(frozenset(cache)) \
+            if isinstance(cache, dict) else None
+
+        def one(path, leaf):
+            if kind is not None:
+                return state_spec(mesh, kind, path[-1], leaf.shape, batch,
+                                  exact=exact)
+            return _cache_spec(mesh, "blocks/slot/" + "/".join(path),
+                               (1,) + tuple(leaf.shape), batch,
+                               exact=exact)[1:]
+        return _walk(cache, one)
+    return [layer(c) for c in caches]
 
 
 # ---------------------------------------------------------------- batches

@@ -26,10 +26,14 @@ decode threshold).
   :attr:`rank_mismatches` counts the ranks' own ids that differed.
   Mesh serving covers the dense and MoE families, MLA (deepseek: its
   ``c``/``k_pe`` rows over 'data', ``kv_up`` gathered whole once per
-  weight) and the vision frontend (llava: ``patch_proj`` column-split,
-  every rank admitting the same zero patches and ``plen``); the
-  recurrent layers and the encoder-decoder family raise on a mesh larger
-  than 1x1 (a later slice).
+  weight), the vision frontend (llava: ``patch_proj`` column-split,
+  every rank admitting the same zero patches and ``plen``) and the
+  recurrent layers (jamba's Mamba, xLSTM's mLSTM and sLSTM: their states'
+  slot rows over 'data', Mamba's ``conv``/``h`` d_in and mLSTM's ``C``
+  dv and ``n`` heads over 'model', ``sharding.state_spec``; the side
+  slabs of the prefix cache and a draft's saved states hold each rank's
+  shard); the encoder-decoder family raises on a mesh larger than 1x1
+  (a later slice).
 
 * ``slots`` sequences decode together, each with its own cache row; a
   request joins by writing its prefill cache into a free row and leaves by
@@ -190,21 +194,14 @@ def _env_flag(name: str) -> bool:
 
 def check_mesh_family(api, mesh) -> None:
     """Raise ``NotImplementedError`` for a model this slice of mesh serving
-    does not cover on a mesh larger than 1x1: the recurrent layers and
-    the encoder-decoder family."""
-    if mesh.size == 1:
+    does not cover on a mesh larger than 1x1: the encoder-decoder family."""
+    if mesh.size == 1 or not api.encdec:
         return
-    cfg = api.cfg
-    left = [what for test, what in (
-        (any(k in ("mamba", "mlstm", "slstm") for k in cfg.pattern),
-         "recurrent layers (jamba, xLSTM)"),
-        (api.encdec, "the encoder-decoder family (whisper)")) if test]
-    if left:
-        raise NotImplementedError(
-            f"{cfg.name}: mesh serving covers the dense and MoE families, "
-            f"MLA and the vision frontend; {', '.join(left)} on a "
-            f"{mesh.data}x{mesh.model} mesh waits for a later slice of the "
-            f"port (ROADMAP)")
+    raise NotImplementedError(
+        f"{api.cfg.name}: mesh serving covers the dense, MoE and recurrent "
+        f"families, MLA and the vision frontend; the encoder-decoder family "
+        f"(whisper) on a {mesh.data}x{mesh.model} mesh waits for a later "
+        f"slice of the port (ROADMAP)")
 
 
 class ServeEngine:
@@ -461,7 +458,8 @@ class ServeEngine:
         """The slot caches: ``api.init_cache`` on a mesh that splits none
         of them, else zero shards at ``cache_sharding(exact=True)``'s
         shapes (GQA's K/V: KV heads over 'model', slot rows over 'data';
-        MLA's ``c``/``k_pe``: slot rows over 'data').
+        MLA's ``c``/``k_pe``: slot rows over 'data'; a recurrent layer's
+        states by ``sharding.state_spec``).
         Sets the slot rows this rank holds (``_row0``, ``_nrows``)."""
         meta = self.api.init_cache(self.slots, self.s_max, device="meta")
         specs = cache_sharding(self.mesh, meta, self.slots, exact=True)

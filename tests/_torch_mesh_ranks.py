@@ -1,13 +1,17 @@
-"""The rank side of ``test_torch_mesh.py``: imports no jax and nothing of
-the reference package, so that spawned ranks stay the port alone.
+"""The rank side of the ``test_torch_mesh*.py`` files: imports no jax and
+nothing of the reference package, so that spawned ranks stay the port
+alone.
 
 ``serve`` is the one serving run both sides make (the test process on the
-1x1 mesh, every rank on its meshes); ``run_rank`` is one spawned ``gloo``
-rank on the CPU: it joins the group through a file store, builds the
-meshes (2, 2), (4, 1) and (1, 4) over the same four ranks, runs every
-case of the job file the test wrote (:data:`FAMILY_RUNS` for MLA and
-the vision frontend) and saves its results for the test process to
-read.
+1x1 mesh, every rank on its meshes); :func:`worlds` spawns four ranks on
+each job file while the test process runs its own 1x1 runs; ``run_rank`` is
+one spawned ``gloo`` rank on the CPU: it joins the group through a file
+store, builds the meshes (2, 2), (4, 1) and (1, 4) over the same four
+ranks, runs the job's cases (:data:`JOBS`: the dense model's matrix,
+mixtral and the artifact, or a family's runs such as
+:data:`FAMILY_RUNS`) and saves its results for the test process to read.
+Each test file spawns its own world, so that ``--dist loadfile`` runs
+them side by side.
 """
 from __future__ import annotations
 
@@ -59,17 +63,19 @@ def engine_kw(backend):
             "backend": backend}
 
 
-def serve(api, params, backend, mesh=None, seed=0, artifact=None):
+def serve(api, params, backend, mesh=None, seed=0, artifact=None,
+          engine=None):
     """(tokens per request, the engine) of the requests through one engine
-    (from ``artifact`` when given), two admission waves so the second
-    wave's shared prompt hits the first's snapshot."""
+    (from ``artifact`` when given; ``engine`` overrides :data:`ENGINE`'s
+    settings), two admission waves so the second wave's shared prompt
+    hits the first's snapshot."""
     if artifact is not None:
         eng = ServeEngine.from_artifact(api, artifact, mesh=mesh,
                                         device="cpu", seed=seed,
                                         **{k: v for k, v in ENGINE.items()})
     else:
         eng = ServeEngine(api, params, mesh=mesh, device="cpu", seed=seed,
-                          **engine_kw(backend))
+                          **{**engine_kw(backend), **(engine or {})})
     reqs = requests(api.cfg.vocab, seed)
     eng.run(reqs[:3], max_steps=200)
     eng.run(reqs[3:], max_steps=200)
@@ -114,6 +120,25 @@ def _spy():
     return seen
 
 
+def _draft_spy(out):
+    """Count the drafts, and the side leaves (recurrent states, rings) a
+    draft left changed on this rank, which must be none."""
+    inner = ServeEngine._draft
+    out["drafts"], out["draft_changed"] = 0, []
+
+    def draft(self, spec_rows):
+        side = [{k: t.clone() for k, t in layer.items()
+                 if self._paged is None or not self._paged[i].get(k)}
+                for i, layer in enumerate(self.caches)]
+        got = inner(self, spec_rows)
+        out["drafts"] += 1
+        out["draft_changed"] += [(i, k) for i, keep in enumerate(side)
+                                 for k, t in keep.items()
+                                 if not torch.equal(self.caches[i][k], t)]
+        return got
+    ServeEngine._draft = draft
+
+
 def _bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_bytes(v) for v in tree.values())
@@ -134,15 +159,25 @@ def _split_names(tree, path=""):
     return [path] if split_of(tree) is not None else []
 
 
-def run_rank(rank: int, world: int, store: str, tmp: str) -> None:
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=world)
-    tmp = pathlib.Path(tmp)
-    job = torch.load(tmp / "job.pt", weights_only=False)
-    seen = _spy()
-    meshes = {s: make_local_mesh(*s, device="cpu") for s in MESHES}
-    out = {"tokens": {}, "mismatches": 0, "logits": {}}
+def _record(out, key, eng, api, shape):
+    """A family run's tokens' bookkeeping, and on (2, 2) its prefill
+    logits, split leaves and cache shard shapes."""
+    out["mismatches"] += eng.rank_mismatches
+    out["engine"][key] = {k: int(eng._m[k].value) for k in ("prefix_hits",
+                                                           "spec_rounds")}
+    out["states"][key] = [{k: tuple(t.shape) for k, t in layer.items()}
+                          for layer in eng.caches]
+    if shape != (2, 2):
+        return
+    fkey = key[:2]
+    out["logits"][fkey] = prefill_logits(api, eng.params, eng.policy)
+    out["split"][fkey] = _split_names(eng.params)
+    out["cache"][fkey] = [tuple(t.shape) for t in eng.caches[0].values()]
+
+
+def dense_job(job, meshes, out) -> None:
+    """``_torch_small``'s qwen dense and v1-v3 on every mesh, one
+    ``decode_chunk`` per engine step, and the families that still raise."""
     api = job["api"]
     for backend, params in job["params"].items():
         for shape, mesh in meshes.items():
@@ -152,10 +187,9 @@ def run_rank(rank: int, world: int, store: str, tmp: str) -> None:
             if shape == (2, 2):
                 out["logits"][backend] = prefill_logits(api, eng.params,
                                                         eng.policy)
-                out.setdefault("split", {})[backend] = _split_names(
-                    eng.params)
-                out.setdefault("bytes", {})[backend] = _bytes(eng.params)
-                out.setdefault("cache", {})[backend] = [
+                out["split"][backend] = _split_names(eng.params)
+                out["bytes"][backend] = _bytes(eng.params)
+                out["cache"][backend] = [
                     tuple(t.shape) for t in eng.caches[0].values()]
     # one decode_chunk call per engine step on a mesh
     mesh = meshes[(2, 2)]
@@ -181,41 +215,90 @@ def run_rank(rank: int, world: int, store: str, tmp: str) -> None:
         assert steps < 300
     api.decode_chunk = inner
     out["chunk_calls"] = (calls[0], eng.stats["decode_steps"], steps)
-    moe_api, moe = job["moe"]
-    for backend, params in moe.items():
-        toks, eng = serve(moe_api, params, backend, mesh)
-        out["tokens"][("moe", backend)] = toks
-        out["mismatches"] += eng.rank_mismatches
-        out.setdefault("moe_split", {})[backend] = _split_names(eng.params)
-    for fam, (fam_api, fam_params) in job["families"].items():
-        for backend, shapes in FAMILY_RUNS[fam].items():
-            for shape in shapes:
-                toks, eng = serve(fam_api, fam_params[backend], backend,
-                                  meshes[shape])
-                out["tokens"][(fam, backend, shape)] = toks
-                out["mismatches"] += eng.rank_mismatches
-                out.setdefault("engine", {})[(fam, backend, shape)] = {
-                    k: int(eng._m[k].value) for k in ("prefix_hits",
-                                                      "spec_rounds")}
-                if shape != (2, 2):
-                    continue
-                key = (fam, backend)
-                out["logits"][key] = prefill_logits(fam_api, eng.params,
-                                                    eng.policy)
-                out["split"][key] = _split_names(eng.params)
-                out["cache"][key] = [tuple(t.shape)
-                                     for t in eng.caches[0].values()]
-    toks, eng = serve(api, None, None, mesh, artifact=job["artifact"])
-    out["tokens"][("artifact", (2, 2))] = toks
-    out["artifact_split"] = _split_names(eng.params)
     out["raises"] = {}
     for name, fam_api in job["left_out"].items():
         try:
             ServeEngine(fam_api, {}, mesh=mesh, device="cpu")
         except NotImplementedError as e:
             out["raises"][name] = str(e)
+
+
+def moe_job(job, meshes, out) -> None:
+    """mixtral dense and v2 on (2, 2); a reference ``.smez`` booted with
+    ``from_artifact(mesh=)``."""
+    mesh = meshes[(2, 2)]
+    moe_api, moe = job["moe"]
+    for backend, params in moe.items():
+        toks, eng = serve(moe_api, params, backend, mesh)
+        out["tokens"][("moe", backend)] = toks
+        out["mismatches"] += eng.rank_mismatches
+        out.setdefault("moe_split", {})[backend] = _split_names(eng.params)
+    toks, eng = serve(job["api"], None, None, mesh, artifact=job["artifact"])
+    out["tokens"][("artifact", (2, 2))] = toks
+    out["artifact_split"] = _split_names(eng.params)
+
+
+def family_job(job, meshes, out) -> None:
+    """Each family's runs (``job["runs"]``: family -> backend -> meshes)
+    on its params (``job["families"]``: family -> (api, backend ->
+    params)), the engine's settings overridden by ``job["engine"]``."""
+    for fam, (fam_api, fam_params) in job["families"].items():
+        for backend, shapes in job["runs"][fam].items():
+            for shape in shapes:
+                toks, eng = serve(fam_api, fam_params[backend], backend,
+                                  meshes[shape], engine=job.get("engine"))
+                key = (fam, backend, shape)
+                out["tokens"][key] = toks
+                _record(out, key, eng, fam_api, shape)
+
+
+#: job kind -> what a rank runs
+JOBS = {"dense": dense_job, "moe": moe_job, "family": family_job}
+
+
+def run_rank(rank: int, world: int, store: str, tmp: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    tmp = pathlib.Path(tmp)
+    job = torch.load(tmp / "job.pt", weights_only=False)
+    seen = _spy()
+    meshes = {s: make_local_mesh(*s, device="cpu") for s in MESHES}
+    out = {"tokens": {}, "mismatches": 0, "logits": {}, "split": {},
+           "bytes": {}, "cache": {}, "engine": {}, "states": {}}
+    _draft_spy(out)
+    JOBS[job["kind"]](job, meshes, out)
     out["summed"] = list(seen)
     out["jax"] = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "repro"))
     torch.save(out, tmp / f"rank{rank}.pt")
     dist.destroy_process_group()
+
+
+def worlds(tmp, jobs: dict, local):
+    """(``local()``, {name: every rank's results}): for each of ``jobs``
+    ({name: job}) a world of four ``gloo`` ranks, all spawned at once (a
+    rank mostly waits on its gathers, so the worlds overlap), while this
+    process runs ``local``, its own 1x1 runs."""
+    procs = {}
+    for name, job in jobs.items():
+        d = pathlib.Path(tmp) / name
+        d.mkdir(parents=True, exist_ok=True)
+        torch.save(job, d / "job.pt")
+        procs[name] = (d, torch.multiprocessing.start_processes(
+            run_rank, args=(4, str(d / "store"), str(d)), nprocs=4,
+            join=False, start_method="spawn"))
+    ref = local()
+    for _, ctx in procs.values():
+        while not ctx.join():
+            pass
+    return ref, {name: [torch.load(d / f"rank{r}.pt", weights_only=False)
+                        for r in range(4)]
+                 for name, (d, _) in procs.items()}
+
+
+def world(tmp, job: dict, local):
+    """(``local()``, every rank's results) of one world on ``job``
+    (:func:`worlds`)."""
+    ref, ranks = worlds(tmp, {"world": job}, local)
+    return ref, ranks["world"]

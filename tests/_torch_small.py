@@ -3,10 +3,12 @@
 into the port with ``convert.from_reference``.  The embedding is scaled to
 0.05 so the layers, not the tied head's echo of the input token, pick the
 next token."""
+import os
 import types
 
 import jax
 import numpy as np
+import torch
 
 from repro.configs import ARCHS as REF_ARCHS, scale_down as ref_scale_down
 from repro.core.integrate import convert_params_to_sme as ref_convert
@@ -14,6 +16,20 @@ from repro.models import build_model as ref_build_model
 from repro_torch.configs import ARCHS, scale_down
 from repro_torch.convert import from_reference
 from repro_torch.models.model import build_model
+
+
+def share_cores() -> None:
+    """Give torch's intra-op pool this process's share of the cores when
+    pytest-xdist runs ``PYTEST_XDIST_WORKER_COUNT`` workers: each worker's
+    pool would otherwise start a thread per core, so that the machine
+    runs workers x cores busy threads, and the one-thread gloo ranks of
+    the mesh tests wait out a time slice at every gather."""
+    n = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if n > 1:
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // n))
+
+
+share_cores()
 
 SMALL = dict(d_model=128, d_ff=256, head_dim=32, n_heads=4, n_kv_heads=4,
              vocab=256, n_layers=2, dtype="float32")

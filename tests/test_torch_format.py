@@ -60,6 +60,22 @@ def test_compress_and_pack_byte_identical(n_bits, window, squeeze,
         _same(rd[key], pd[key], key)
 
 
+@pytest.mark.parametrize("block", [1, 5, 2048])
+def test_plane_bitmaps_in_blocks_byte_identical(monkeypatch, block):
+    """``pack_plane_csc`` builds its bitmaps ``PLANE_BLOCK`` (plane, tile)
+    entries at a time (bounded host memory for a head slab); any block
+    gives the reference's operands byte for byte, over 4 x 3 tiles with
+    several planes each."""
+    import repro_torch.core.sme as sme
+    w = _weight(5, (512, 384))
+    want = ref_compress(w).pack_plane_csc()
+    monkeypatch.setattr(sme, "PLANE_BLOCK", block)
+    got = sme_compress(w).pack_plane_csc()
+    assert int(got["nnz"].sum()) > 5          # blocks of 1 and 5: several
+    for op in want:
+        _same(want[op], got[op], op)
+
+
 def test_row_perm_param_byte_identical():
     w = _weight(5, (256, 128))
     perm = np.random.default_rng(5).permutation(256)

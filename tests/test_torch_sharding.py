@@ -203,6 +203,83 @@ def test_port_cache_specs_and_batch_sharding():
                 assert got == want, (b, shape, inc)
 
 
+#: the recurrent archs 256 wide and two superblocks deep (mLSTM's dv 128
+#: and Mamba's d_in 512 split at 'model' 2; the stacked dim is 2)
+RECURRENT_WIDE = {
+    "jamba-v0.1-52b": dict(d_model=256, d_ff=256, vocab=256, expert_dff=128,
+                           n_layers=16, dtype="float32"),
+    "xlstm-1.3b": dict(d_model=256, d_ff=0, vocab=256, n_layers=16,
+                       dtype="float32")}
+#: the reference's tuple states, in its order (the port names them)
+STATE_NAMES = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "h", "m")}
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT_WIDE))
+def test_recurrent_cache_specs_follow_reference_and_r11(arch):
+    """A recurrent layer's per-layer state specs (``sharding.state_spec``,
+    keyed on the layer's kind) equal the reference's stacked spec without
+    the superblock dim wherever the reference puts the slot rows over
+    'data' (Mamba's ``conv``/``h``, mLSTM's ``C``/``n``); elsewhere
+    (mLSTM's ``m``, sLSTM's states) they follow ROADMAP R11: the slot rows
+    over 'data' where they divide, every other dim whole.  Attention
+    layers keep the stacked rule."""
+    over = RECURRENT_WIDE[arch]
+    cfg = ref_scale_down(REF_ARCHS[arch], **over)
+    papi = build_model(scale_down(ARCHS[arch], **over), device="cpu")
+    kinds = list(papi.cfg.pattern)
+    n_slots = len(kinds)
+    seen = {"reference": 0, "R11": 0}
+    for batch in (1, 2, 4):
+        acache = ref_build_model(cfg).abstract_cache(batch=batch, s_max=32)
+        port = papi.init_cache(batch, 32, device="meta")
+        for shape in MESHES:
+            mesh = AbstractMesh(shape, ("data", "model"))
+            want = _ref_specs(ref_sh.cache_sharding(mesh, acache, batch,
+                                                    exact=True))
+            got = _specs(port, sh.cache_sharding(mesh, port, batch,
+                                                 exact=True))
+            rows = "data" if batch % shape[0] == 0 else None
+            for path, leaf in _flat(port):
+                kind = kinds[path[0] % n_slots]
+                name = path[-1]
+                whole = kind == "slstm" or (kind, name) == ("mlstm", "m")
+                if kind in STATE_NAMES:
+                    name = STATE_NAMES[kind].index(name)
+                key = _keystr(("blocks", f"slot{path[0] % n_slots}", name))
+                ref = want[key]
+                spec = got[_keystr(path)]
+                if ref[1] == "data" or not whole:
+                    assert spec == ref[1:], (path, shape, batch, ref)
+                    seen["reference"] += ref[1] == "data"
+                else:
+                    assert spec == (rows,) + (None,) * (leaf.dim() - 1), \
+                        (path, shape, batch, spec)
+                    seen["R11"] += 1
+    assert seen["reference"] > 0
+    assert seen["R11"] > 0 or arch == "jamba-v0.1-52b"
+
+
+def test_reference_stacked_state_rule_puts_rows_over_model():
+    """What the reference's exact rule gives its stacked [L, B, NH] (mLSTM's
+    ``m``) and [L, B, D] (sLSTM's states) on (2, 2) at batch 4: the
+    superblock dim over 'data' and the slot rows over 'model' (ROADMAP
+    R11), while its [L, B, NH, dh] and [L, B, NH, dh, dv] put the rows
+    over 'data'."""
+    S = jax.ShapeDtypeStruct
+    tree = {"blocks": {
+        "slot0": (S((2, 4, 4, 128, 128), np.float32),
+                  S((2, 4, 4, 128), np.float32), S((2, 4, 4), np.float32)),
+        "slot7": tuple(S((2, 4, 256), np.float32) for _ in range(4))}}
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    got = _ref_specs(ref_sh.cache_sharding(mesh, tree, 4, exact=True))
+    assert got["['blocks']['slot0'][0]"] == (None, "data", None, None,
+                                             "model")
+    assert got["['blocks']['slot0'][1]"] == (None, "data", "model", None)
+    assert got["['blocks']['slot0'][2]"] == ("data", "model", None)
+    for i in range(4):
+        assert got[f"['blocks']['slot7'][{i}]"] == ("data", "model", None)
+
+
 def test_parse_and_serve_mesh_errors():
     """``parse_mesh``'s messages are the reference's; a mesh that needs
     more ranks than run raises with the launcher's way to get them."""
@@ -372,21 +449,34 @@ def test_mla_decode_on_row_shards_bitwise(shape, packed):
     active = torch.tensor([True, True, False, True])
     want = {k: v.clone() for k, v in cache.items()}
     y_want, _ = mla_decode(mix, x, want, pos, cfg, active=active)
+
+    def rank_main(mesh):
+        pol = dataclasses.replace(policy_for(mesh, cfg, "decode"),
+                                  exact=True)
+        p = sh.place_tree(mix, mesh)
+        rows = b // shape[0]
+        r0 = mesh.index("data") * rows
+        mine = {k: v[r0:r0 + rows].clone() for k, v in cache.items()}
+        with use_policy(pol):
+            y, c = mla_decode(p, x, mine, pos, cfg, active=active)
+        return y, c, r0, rows, sh.split_of(p["kv_up"]["w"])
+    for y, c, r0, rows, split in _on_threads(shape, rank_main):
+        assert (split is not None) == (shape[1] > 1)
+        assert torch.equal(y, y_want)
+        for k in c:
+            assert c[k].shape[0] == rows
+            assert torch.equal(c[k], want[k][r0:r0 + rows]), k
+
+
+def _on_threads(shape, fn):
+    """``fn(mesh)`` on one thread per rank of a ``shape`` mesh of
+    :class:`_ThreadMesh` es; every rank's result, in rank order."""
     n = shape[0] * shape[1]
     hub, out = _Hub(n), [None] * n
 
     def rank_main(rank):
         try:
-            mesh = _ThreadMesh(*shape, rank, hub)
-            pol = dataclasses.replace(policy_for(mesh, cfg, "decode"),
-                                      exact=True)
-            p = sh.place_tree(mix, mesh)
-            rows = b // shape[0]
-            r0 = mesh.index("data") * rows
-            mine = {k: v[r0:r0 + rows].clone() for k, v in cache.items()}
-            with use_policy(pol):
-                y, c = mla_decode(p, x, mine, pos, cfg, active=active)
-            out[rank] = (y, c, r0, rows, sh.split_of(p["kv_up"]["w"]))
+            out[rank] = fn(_ThreadMesh(*shape, rank, hub))
         except BaseException as e:                  # noqa: BLE001
             hub.barrier.abort()
             out[rank] = e
@@ -399,9 +489,85 @@ def test_mla_decode_on_row_shards_bitwise(shape, packed):
     for res in out:
         if isinstance(res, BaseException):
             raise res
-    for y, c, r0, rows, split in out:
-        assert (split is not None) == (shape[1] > 1)
+    return out
+
+
+#: kind -> (arch, widths, layer): Mamba at the recurrent tests' widths
+#: (d_in 256: ``conv``/``h`` split at 'model' 2 and 4), mLSTM and sLSTM
+#: 256 wide (``C``'s dv 128 splits at 'model' 2, ``n``'s 4 heads at 2 and
+#: 4)
+STATE_LAYERS = {
+    "mamba": ("jamba-v0.1-52b", dict(d_model=128, d_ff=256, vocab=256,
+                                     expert_dff=128, dtype="float32"), 0),
+    "mlstm": ("xlstm-1.3b", dict(d_model=256, d_ff=0, vocab=256,
+                                 dtype="float32"), 0),
+    "slstm": ("xlstm-1.3b", dict(d_model=256, d_ff=0, vocab=256,
+                                 dtype="float32"), 7)}
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", sorted(STATE_LAYERS))
+def test_recurrent_decode_on_state_shards_bitwise(kind, shape, packed):
+    """``mamba_decode``/``mlstm_decode``/``slstm_decode`` on each rank's
+    state shard (slot rows over 'data'; Mamba's ``conv``/``h`` d_in,
+    mLSTM's ``C`` dv and ``n`` heads over 'model', as
+    ``sharding.state_spec`` splits them), their projections column-split
+    into whole tiles, equal the whole decode bitwise on every rank: the
+    output, and the state block the rank holds (an inactive row left as
+    it was); the prefill keeps every row and this rank's channels of the
+    whole prefill's state."""
+    from repro_torch.core.integrate import convert_params_to_sme, to_torch
+    from repro_torch.models.blocks import SSM_KINDS
+    from repro_torch.parallel.policy import (policy_for, state_part,
+                                             use_policy)
+    arch, over, layer = STATE_LAYERS[kind]
+    cfg = scale_down(ARCHS[arch], **over)
+    tree = init_params(cfg, np.random.default_rng(0))
+    mix = tree["blocks"][layer]["mix"]
+    mix = convert_params_to_sme(mix, squeeze=1, backend="v2",
+                                device="cpu") if packed else \
+        to_torch(mix, "cpu")
+    apply_fn, decode_fn, init_fn = SSM_KINDS[kind]
+    rng = np.random.default_rng(12)
+    b = 4
+    x = torch.as_tensor(rng.standard_normal((b, 1, cfg.d_model),
+                                            dtype=np.float32))
+    xs = torch.as_tensor(rng.standard_normal((b, 5, cfg.d_model),
+                                             dtype=np.float32))
+    plen = np.array([5, 3, 1, 4])
+    state = {k: torch.as_tensor(rng.standard_normal(tuple(v.shape),
+                                                    dtype=np.float32))
+             for k, v in init_fn(cfg, b, torch.float32, "cpu").items()}
+    active = torch.tensor([True, False, True, True])
+    y_want, s_want = decode_fn(mix, x, state, cfg, active=active)
+    yp_want, sp_want = apply_fn(mix, xs, cfg, plen=plen)
+    n_split = 0
+
+    def rank_main(mesh):
+        pol = dataclasses.replace(policy_for(mesh, cfg, "decode"),
+                                  exact=True)
+        p = sh.place_tree(mix, mesh)
+        with use_policy(pol):
+            mine = {k: state_part(v, sh.shard_shape(mesh, sh.state_spec(
+                mesh, kind, k, v.shape, b, exact=True), v.shape))
+                for k, v in state.items()}
+            y, new = decode_fn(p, x, mine, cfg, active=active)
+            yp, pre = apply_fn(p, xs, cfg, plen=plen)
+            blocks = {k: state_part(s_want[k], mine[k].shape)
+                      for k in mine}
+            pre_want = {k: state_part(sp_want[k], pre[k].shape)
+                        for k in pre}
+        return y, yp, new, blocks, pre, pre_want
+    for y, yp, new, blocks, pre, pre_want in _on_threads(shape, rank_main):
         assert torch.equal(y, y_want)
-        for k in c:
-            assert c[k].shape[0] == rows
-            assert torch.equal(c[k], want[k][r0:r0 + rows]), k
+        assert torch.equal(yp, yp_want)
+        for k in new:
+            assert new[k].shape == blocks[k].shape, k
+            assert torch.equal(new[k], blocks[k]), k
+            assert pre[k].shape[0] == b
+            assert torch.equal(pre[k], pre_want[k]), k
+            n_split += new[k].shape != state[k].shape
+    # sLSTM's states split only their rows
+    assert (n_split > 0) == (kind != "slstm" or shape[0] > 1)
