@@ -34,9 +34,12 @@
    priority draws and packs the weights of phases 6-8 (gemma3-12b, then
    mixtral-8x7b, deepseek-v2-lite-16b and llava-next-34b, then
    xlstm-1.3b and jamba-v0.1-52b, then whisper-medium), beside
-   the card tests and phases 2-5b, and is paused for every timed launch,
-   profiled window, serving and engine run; each later phase waits for
-   its model.  Once a pooled model's packed tree is uploaded, every packed
+   the card tests and phases 2-5b, in units of at most
+   :data:`UNIT_WEIGHTS` weights, and is paused for every block of timed
+   launches, profiled window, serving and engine run without a signal
+   (its workers begin no unit while a shared flag is clear, and the pause
+   waits for the units in flight); each later phase waits for its
+   model.  Once a pooled model's packed tree is uploaded, every packed
    operand is copied back from the card and compared byte for byte with
    the host array it came from, on a line that names the host's CPU and
    numpy's SIMD dispatch (F4, ROADMAP §3); where v2's and v3's f32 logits
@@ -263,16 +266,37 @@
    decoder's plane occupancy) and without: every cache leaf paged, equal
    tokens, equal to the one-shot run's; and a request admitted into the
    slot a longer one used (its stale cross keys past the source) serves
-   a fresh engine's tokens.
+   a fresh engine's tokens.  The packed tree is then written once as a
+   ``.smez``.
+9'. Mesh serving of the encoder-decoder family (``mesh_family_phase``)
+   from that artifact, at phase 9's widths and depth, with phase 7's
+   prompts (4 of 64-128 tokens, 8 new tokens each, s_max 1024, one
+   request per admission window behind its zero frames): the 1x1 mesh
+   through an NCCL group of world size 1 in this process, made before
+   any rank starts (whisper v2 one-shot and v3 with spec; the ranks start
+   meanwhile); then 4 spawned ranks share the card over ``gloo`` and
+   serve whisper v2 on (2, 2) and (1, 4) and v3 with spec on (2, 2)
+   (:data:`ENCDEC_MESH_RUNS`).  Every rank's tokens must equal 1x1's,
+   rank 0's f32 prefill logits (4 x 64 tokens over seeded random frames)
+   1x1's bitwise, every layer's self and cross K/V rank 0's shard shapes
+   under the engine's rule with the cross K/V's heads split over
+   'model', the head's 406 column tiles split over a 'model' axis of 2
+   and whole over 4 (``place_tree`` splits whole tiles where the count
+   divides), and each run's kernels launched.  Prints params and the
+   self and cross caches per rank against 1x1, ms per decode step
+   (correctness only), the launches per kernel and the phase's seconds
+   (budget 60 s).
 10. Prints the compile, train, cnn, gemma, slice (7' under ``mesh``),
-   recurrent (8' under ``mesh``) and encdec readings as JSON, the
+   recurrent (8' under ``mesh``) and encdec (9' under ``mesh``) readings
+   as JSON, the
    kernels JSON line (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
    M = 8 in the top-level keys, every M a kernel ran at under ``at_m``;
    v3-decode adds ``draft_depth``, the draft passes' ``draft_launches``
    and ``draft_ms`` / ``draft_full_ms`` per layer on the model's own
    operands; ``artifact_launches`` counts the compile phase's runs,
    ``train_launches`` the train phase's serving runs, ``mesh_launches``
-   the mesh phases' (5a', 7' and 8': the 1x1 NCCL runs and every rank's),
+   the mesh phases' (5a', 7', 8' and 9': the 1x1 NCCL runs and every
+   rank's),
    ``cnn_launches``
    the CNN phase's conv matrices on their activations and ``cnn`` its
    kernel rows per shape and M,
@@ -283,7 +307,7 @@
    phase 9; every number measured in this run but
    ``bound_ms``), the card line and, last, ``{"ok": true,
    "device": {...}}``.  Any failed check raises first; the pool's
-   processes are stopped either way.
+   processes end either way.
 """
 from __future__ import annotations
 
@@ -1189,8 +1213,9 @@ def draft_layer_ms(params, depth, flush):
     def layer(truncate):
         for x, args, d in calls:
             dec(x, *args, plane_depth=d if truncate else None)
-    return time_ms(lambda: layer(False), flush), \
-        time_ms(lambda: layer(True), flush)
+    with quiet():
+        return time_ms(lambda: layer(False), flush), \
+            time_ms(lambda: layer(True), flush)
 
 
 def engine_phase(dev, card, params):
@@ -1412,9 +1437,10 @@ def measured_replan(dev, tree, plan_bytes, tmp, card):
         x = torch.zeros((8, K), device=dev)
         x[0] = torch.randn(K, device=dev)
         us = {}
-        for be, (fn, args) in calls.items():
-            us[be] = 1e3 * time_ms(lambda: fn(x, *args), flush)
-            cache.record(TuneKey(be, 1, K, N, 128, device_kind()), us[be])
+        with quiet():
+            for be, (fn, args) in calls.items():
+                us[be] = 1e3 * time_ms(lambda: fn(x, *args), flush)
+                cache.record(TuneKey(be, 1, K, N, 128, device_kind()), us[be])
         print(f"compile: M = 1 decode kernels at {K}x{N} ({device_kind()}): "
               + ", ".join(f"{be} {t:.1f} us" for be, t in us.items())
               + f" | {card}", flush=True)
@@ -1842,6 +1868,23 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def cache_kinds(caches) -> dict:
+    """Bytes of an enc-dec engine's caches by kind, its ``self`` and
+    ``cross`` K/V summed over the layers (empty for another family's)."""
+    out = {}
+    for layer in caches:
+        for kind in ("self", "cross"):
+            if isinstance(layer.get(kind), dict):
+                out[kind] = out.get(kind, 0) + tree_bytes(layer[kind])
+    return out
+
+
+def kinds_mib(kinds) -> str:
+    """``cache_kinds`` as a log phrase ("" when empty)."""
+    return "".join(f", {k} K/V {b / 2 ** 20:.1f} MiB" for k, b in
+                   kinds.items())
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -2250,18 +2293,28 @@ GEMMA_LAYERS = 6
 #: would hold ~110 GB of host intermediates)
 HEAD_SLABS = 16
 HEAD_STD = 0.02                       # lm_init's head std
-#: every head slab is clipped to +-6 std and holds +6 std at [0, 0]: each
-#: slab's per-tensor scale (max |w|) is the whole head's, so the joined
-#: slabs are bitwise one compression of the head (everything after the
-#: scale works per tile or per column tile; checked at a small size)
-HEAD_CLIP = 6 * HEAD_STD
+#: every column slab of a weight cut in several (a head slab, a pool
+#: unit) is clipped to +-this many std and holds +that at [0, 0]: each
+#: slab's per-tensor scale (max |w|) is then the whole weight's, so the
+#: joined slabs are bitwise one compression of the weight (everything
+#: after the scale works per tile or per column tile; checked at a small
+#: size)
+SLAB_CLIP = 6
 #: host processes that compress and pack the full-width models' weights
-#: (gemma, mixtral, deepseek, llava) beside the card tests and the qwen
-#: phases, at the lowest CPU priority.  Measurements pause them
-#: (:data:`quiet`): beside them, CUDA-event times of the qwen kernel rows
-#: came out 30-300x too long, the host's launches falling behind the
-#: flush, and host-bound engine steps several times slower
+#: (gemma, mixtral, deepseek, llava, the recurrent models, whisper)
+#: beside the card tests and the qwen phases, at the lowest CPU priority.
+#: Measurements pause them (:data:`quiet`): beside them, CUDA-event times
+#: of the qwen kernel rows came out 30-300x too long, the host's launches
+#: falling behind the flush, and host-bound engine steps several times
+#: slower
 PACK_WORKERS = 6
+#: the pool's unit of work: a column slab of whole column tiles of one
+#: weight, at most this many weights (one tile where a tile holds more:
+#: 1.97 M at gemma's K of 15,360), so that a pause waits for little: on
+#: the host of an NVIDIA H100 80GB HBM3 (700.00 W) the script's 102
+#: pauses waited 1.9 s in all, 0.253 s at most, and the pool's last
+#: result came 352 s after its start (whole weights as units: 835.8 s)
+UNIT_WEIGHTS = 2 ** 19
 GEMMA_ONE_SHOT = dict(slots=4, s_max=2048, chunk_len=2048, prefix_cache=False)
 GEMMA_ENGINE = dict(slots=4, s_max=2048, chunk_len=544, page_tokens=16,
                     spec_len=4)
@@ -2304,26 +2357,56 @@ def gemma_tasks(cfg):
     return sorted(tasks, key=lambda t: -t[2][0] * t[2][1])
 
 
-def head_slab(w):
-    """A head slab's values with the head's max |w|: clipped to
-    :data:`HEAD_CLIP`, which [0, 0] holds (in place)."""
-    np.clip(w, -HEAD_CLIP, HEAD_CLIP, out=w)
-    w[0, 0] = HEAD_CLIP
+def slab_values(w, std):
+    """A column slab's values with the whole weight's max |w|: clipped to
+    :data:`SLAB_CLIP` std, which [0, 0] holds (in place)."""
+    clip = np.float32(SLAB_CLIP * std)
+    np.clip(w, -clip, clip, out=w)
+    w[0, 0] = clip
     return w
 
 
-def pack_task(task):
-    """Pool worker: one weight (or head slab) drawn from its own seed,
-    compressed once (8 bits, window 3, squeeze 1) and packed for the
-    backends the task names ("all", or a tuple); numpy arrays."""
-    from repro_torch.core.integrate import convert_params_to_sme
-    name, seed, (k, n), std, backend = task
-    w = np.random.default_rng(seed).standard_normal((k, n), dtype=np.float32)
+def units(task):
+    """The pool's units of one task, in column order: (task, first column,
+    columns) of each column slab of whole column tiles and at most
+    :data:`UNIT_WEIGHTS` weights (one tile at least); one unit, the whole
+    weight, where it fits."""
+    _, _, (k, n), _, _ = task
+    per = max(1, UNIT_WEIGHTS // (k * 128)) * 128
+    return [(task, c, min(per, n - c)) for c in range(0, n, per)]
+
+
+def unit_values(unit):
+    """One unit's f32 values times its task's std: the whole weight drawn
+    from the task's seed, or a slab of a weight cut in several from (seed,
+    first column) and given the whole's max |w| (:func:`slab_values`, as
+    every head slab is)."""
+    (name, seed, (k, n), std, _), c0, cols = unit
+    whole = cols == n
+    w = np.random.default_rng(seed if whole else (seed, c0)) \
+        .standard_normal((k, cols), dtype=np.float32)
     w *= np.float32(std)
-    if name.startswith("head/"):
-        head_slab(w)
-    packed = convert_params_to_sme({"w": w}, backend=backend, device="cpu")
-    return name, {key: t.numpy() for key, t in packed["w"].items()}
+    if name.startswith("head/") or not whole:
+        slab_values(w, std)
+    return w
+
+
+def pack_unit(unit):
+    """One unit compressed once (8 bits, window 3, squeeze 1) and packed
+    for the backends its task names ("all", or a tuple); numpy arrays.  A
+    ragged last slab narrower than a tile is packed too."""
+    from repro_torch.core.integrate import convert_params_to_sme
+    packed = convert_params_to_sme({"w": unit_values(unit)},
+                                   backend=unit[0][4], device="cpu",
+                                   predicate=lambda *_: True)
+    return {key: t.numpy() for key, t in packed["w"].items()}
+
+
+def pack_task(task):
+    """One weight (or head slab) packed in this process: (name, its
+    units' packs joined), what the pool gives for it."""
+    parts = [pack_unit(u) for u in units(task)]
+    return task[0], parts[0] if len(parts) == 1 else join_columns(parts)
 
 
 def join_columns(parts):
@@ -2358,8 +2441,8 @@ def check_slab_join():
     w = np.random.default_rng(SEED + 5).standard_normal(
         (384, 1024), dtype=np.float32) * np.float32(HEAD_STD)
     w[128:256, 512:] = 0.0
-    head_slab(w[:, :512])
-    head_slab(w[:, 512:])
+    slab_values(w[:, :512], HEAD_STD)
+    slab_values(w[:, 512:], HEAD_STD)
 
     def pack(a):
         p = convert_params_to_sme({"w": a}, backend="all", device="cpu")
@@ -2378,15 +2461,51 @@ def _low_priority():
     os.nice(19)
 
 
+#: a pool worker's (flag, busy count): set by :func:`_pool_worker`
+_GATE = None
+
+
+def _pool_worker(gate, busy):
+    """The pool's initializer: the lowest CPU priority, and the pause's
+    shared flag and busy count (:class:`Packer`)."""
+    global _GATE
+    _low_priority()
+    _GATE = (gate, busy)
+
+
+def pool_unit(unit):
+    """Pool worker: :func:`pack_unit` of one unit, begun only while the
+    pool's flag is set, and counted busy from before that check to its
+    end, so that a pause which cleared the flag and then read a count of
+    0 has no unit running until it sets the flag again."""
+    gate, busy = _GATE
+    while True:
+        gate.wait()
+        with busy.get_lock():
+            busy.value += 1
+        if gate.is_set():
+            break
+        with busy.get_lock():         # paused since the wait: stand back
+            busy.value -= 1
+    try:
+        return pack_unit(unit)
+    finally:
+        with busy.get_lock():
+            busy.value -= 1
+
+
 class Packer:
     """Draws and packs the weights of every full-width model of the later
     phases (:data:`PACK_WORKERS` spawned host processes at the lowest CPU
     priority) from the script's start: gemma's, then the MoE and vision
-    models', largest first within each.  While it runs, :data:`quiet`
-    stops its processes (SIGSTOP) for the length of a measurement and
-    continues them after.  :meth:`wait` returns one model's ({name:
-    packed numpy param}, seconds from the pool's start to its last result,
-    seconds waited); :meth:`close` stops the pool."""
+    models', largest first within each, each weight in units of at most
+    :data:`UNIT_WEIGHTS` weights (:func:`units`), joined when its model is
+    asked for.  While it runs, :data:`quiet` pauses it for the length of
+    a measurement without a signal: the workers begin no unit while the
+    pool's flag is clear, and the pause waits for the units in flight
+    (:func:`pool_unit`).  :meth:`wait` returns one model's ({name: packed
+    numpy param}, seconds from the pool's start to its last result,
+    seconds waited); :meth:`close` ends the pool."""
 
     def __init__(self, groups, dev=None):
         import multiprocessing
@@ -2394,60 +2513,93 @@ class Packer:
         self.t0 = time.perf_counter()
         self.paused_s = 0.0
         self.pauses = 0
+        #: seconds the pauses waited for the units in flight: in all, most
+        self.drain_s = 0.0
+        self.drain_max = 0.0
+        self.depth = 0
         self.dev = dev
         self.tasks = groups
-        self.pool = multiprocessing.get_context("spawn").Pool(
-            PACK_WORKERS, initializer=_low_priority)
+        ctx = multiprocessing.get_context("spawn")
+        self.gate = ctx.Event()
+        self.gate.set()
+        self.busy = ctx.Value("i", 0)
+        self.pool = ctx.Pool(PACK_WORKERS, initializer=_pool_worker,
+                             initargs=(self.gate, self.busy))
         #: per model, seconds from the pool's start to its last result
         self.done_s = {model: 0.0 for model in groups}
-        self.pending = {model: [self.pool.apply_async(
-            pack_task, (t,), callback=lambda _, m=model: self._done(m))
-            for t in tasks] for model, tasks in groups.items()}
+        self.pending = {model: [(t[0], [self.pool.apply_async(
+            pool_unit, (u,), callback=lambda _, m=model: self._done(m))
+            for u in units(t)]) for t in tasks]
+            for model, tasks in groups.items()}
         quiet = self.paused
 
     def _done(self, model):
         self.done_s[model] = time.perf_counter() - self.t0
 
-    def _signal(self, sig):
-        import os
-        for proc in self.pool._pool:
-            try:
-                os.kill(proc.pid, sig)
-            except (ProcessLookupError, TypeError):
-                pass                     # exited, or not started yet
-
     @contextlib.contextmanager
     def paused(self):
-        import signal
+        """No unit of packing work runs while this is held: the flag
+        cleared, then the units in flight waited for (the drain).
+        Re-entrant: a block of readings holds one pause."""
+        if self.depth:
+            self.depth += 1
+            try:
+                yield
+            finally:
+                self.depth -= 1
+            return
         t0 = time.perf_counter()
-        self._signal(signal.SIGSTOP)
+        self.depth = 1
+        self.gate.clear()
+        while self.busy.value:
+            time.sleep(0.001)
+        drain = time.perf_counter() - t0
+        self.drain_s += drain
+        self.drain_max = max(self.drain_max, drain)
         self.pauses += 1
         try:
             yield
         finally:
-            self._signal(signal.SIGCONT)
+            self.depth = 0
+            self.gate.set()
             self.paused_s += time.perf_counter() - t0
 
     def wait(self, model):
-        """One model's results, each checked on the card
-        (:func:`pack_check`) when the pool has a device."""
+        """One model's results, each weight's units joined, each checked
+        on the card (:func:`pack_check`) when the pool has a device."""
         t1 = time.perf_counter()
-        got = dict(r.get() for r in self.pending.pop(model))
+        got, n_units, join_s = {}, 0, 0.0
+        for name, results in self.pending.pop(model):
+            parts = [r.get() for r in results]
+            t_join = time.perf_counter()
+            got[name] = parts[0] if len(parts) == 1 else join_columns(parts)
+            join_s += time.perf_counter() - t_join
+            n_units += len(parts)
         t2 = time.perf_counter()
         print(f"pack: {model}'s last result {self.done_s[model]:.1f}s from "
-              f"the pool's start, asked for at {t1 - self.t0:.1f}s",
-              flush=True)
+              f"the pool's start, asked for at {t1 - self.t0:.1f}s; "
+              f"{len(got)} weights from {n_units} units, joined in "
+              f"{join_s:.1f}s", flush=True)
         if self.dev is not None:
             pack_check(self.dev, got, self.tasks[model], model, self.pauses)
         return got, t2 - self.t0, t2 - t1
 
     def close(self):
+        """The workers leave once every unit is done (no signal is sent
+        to them); a failed run's pool, with units still queued, is
+        terminated."""
         global quiet
         quiet = contextlib.nullcontext
-        self.pool.terminate()
+        self.gate.set()
+        if self.pending:
+            self.pool.terminate()
+        else:
+            self.pool.close()
         self.pool.join()
         print(f"pack: the pool was paused {self.paused_s:.1f}s in all for "
-              f"device measurements ({self.pauses} stops and continues)",
+              f"device measurements ({self.pauses} pauses, no signal sent "
+              f"to it); draining the units in flight took "
+              f"{self.drain_s:.1f}s in all, {self.drain_max:.3f}s at most",
               flush=True)
 
 
@@ -2457,9 +2609,8 @@ def pack_check(dev, got, tasks, model, pauses):
     every format it carries (v1 and v3 where it has them, v2), whose
     products must be bitwise equal (v1 == v2 == v3, the formats'
     contract).  A weight whose formats disagree is packed again in this
-    process, which the pool's stops never reach, and checked again: the
-    line names it, and a second disagreement fails the run.  Packs in
-    place in ``got``."""
+    process, outside the pool, and checked again: the line names it, and
+    a second disagreement fails the run.  Packs in place in ``got``."""
     from repro_torch.core.backend import sme_apply
     from repro_torch.core.integrate import to_torch
     t0 = time.perf_counter()
@@ -2482,9 +2633,9 @@ def pack_check(dev, got, tasks, model, pauses):
     torch.cuda.synchronize()
     print(f"pack check[{model}]: {len(got)} packed weights, each format's "
           f"product of one random input bitwise equal on the card"
-          + (f" but for {bad}: the pool's pack parted (F4), {pauses} stops "
-             f"and continues of the pool so far; packed again in this "
-             f"process, now equal" if bad else "")
+          + (f" but for {bad}: the pool's pack parted (F4), {pauses} "
+             f"pauses of the pool so far; packed again in this process, "
+             f"now equal" if bad else "")
           + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
 
 
@@ -2589,66 +2740,73 @@ def kernel_rows(dev, shapes, card, seed):
         macs = int((real_rows * real_cols).sum())
         w32 = sme_dequant(p, torch.float32)
         w16 = w32.to(torch.bfloat16)
-        for m in ms:
-            mp = -(-m // 8) * 8
-            x = torch.zeros((mp, kp), device=dev)
-            x[:m, :K] = torch.as_tensor(rng.standard_normal((m, K)),
-                                        dtype=torch.float32, device=dev)
-            ref = sme_matmul_ref_np(x[:m, :K].cpu().numpy(), smew)
-            x128 = torch.zeros((-(-mp // 128) * 128, kp), device=dev)
-            x128[:mp] = x
-            y_pre = (ws["sme_spmm_planes"](x128, *a3)[:mp] * scale
-                     * 2.0 ** -8)
-            runs = []
-            if m <= 64:
-                runs.append(("sme_spmm_planes_decode", lambda: ws[
-                    "sme_spmm_planes_decode"](x, *a3[:3], colscale, *a3[3:]),
-                    lambda: plains["sme_spmm_planes_decode"](
-                        x, *a3[:3], colscale, *a3[3:]), 1.0))
-            else:
-                runs.append(("sme_spmm_planes", lambda: ws["sme_spmm_planes"](
-                    x128, *a3)[:mp], lambda: plains["sme_spmm_planes"](
-                        x128, *a3)[:mp], 2.0 ** -8))
-            runs.append(("sme_spmm", lambda: ws["sme_spmm"](x, *a1),
-                         lambda: plains["sme_spmm"](x, *a1), 2.0 ** -8))
-            runs.append(("sme_spmm6", lambda: ws["sme_spmm6"](x, *a2),
-                         lambda: plains["sme_spmm6"](x, *a2), 2.0 ** -1))
-            xm = x[:m, :K]
-            lib_ms = time_ms(lambda: torch.matmul(xm, w32), flush)
-            bf16_ms = time_ms(lambda: torch.matmul(xm.bfloat16(), w16),
-                              flush)
-            for name, kern, plain, q in runs:
-                s = scale if name != "sme_spmm_planes_decode" else 1.0
-                y, yp = kern() * s * q, plain() * s * q
-                torch.cuda.synchronize()
-                err, rel = check_close(name, y[:m], yp[:m], ref,
-                                       f"{label} M={m}")
-                check(bool(torch.equal(y, y_pre)),
-                      f"{name} {label} M={m}: != v3 prefill bitwise")
-                ms_ = time_ms(kern, flush)
-                plain_ms = time_ms(plain, flush, iters=3)
-                if name.startswith("sme_spmm_planes"):
-                    nbytes = (m * K * 4 + planes * 2048 + groups * (2048 + 512)
-                              + nt * 128 * 4 + m * N * 4)
+        # one pause for the shape's readings (quiet is re-entrant)
+        with quiet():
+            for m in ms:
+                mp = -(-m // 8) * 8
+                x = torch.zeros((mp, kp), device=dev)
+                x[:m, :K] = torch.as_tensor(rng.standard_normal((m, K)),
+                                            dtype=torch.float32, device=dev)
+                ref = sme_matmul_ref_np(x[:m, :K].cpu().numpy(), smew)
+                x128 = torch.zeros((-(-mp // 128) * 128, kp), device=dev)
+                x128[:mp] = x
+                y_pre = (ws["sme_spmm_planes"](x128, *a3)[:mp] * scale
+                         * 2.0 ** -8)
+                runs = []
+                if m <= 64:
+                    runs.append(("sme_spmm_planes_decode", lambda: ws[
+                        "sme_spmm_planes_decode"](x, *a3[:3], colscale,
+                                                  *a3[3:]),
+                        lambda: plains["sme_spmm_planes_decode"](
+                            x, *a3[:3], colscale, *a3[3:]), 1.0))
                 else:
-                    tile = 16384 + 2048 + 512 if name == "sme_spmm" \
-                        else 12288 + 512
-                    nbytes = (m * K * 4 + occ * tile + occ * 4 + nt * 4
-                              + m * N * 4)
-                flops = 2.0 * m * macs
-                bound, by = bound_of(nbytes, flops)
-                print(f"kernel {name:22s} {label:22s} M={m:3d}: "
-                      f"{ms_ * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
-                      f"torch.matmul f32 {lib_ms * 1e3:.1f} us (bf16 "
-                      f"{bf16_ms * 1e3:.1f} us), bound {bound * 1e3:.2f} us "
-                      f"({by}: {nbytes} B, {flops:.3g} FLOP) | max|k-p|="
-                      f"{err:.2e} oracle_rel={rel:.2e} (first "
-                      f"{ref.shape[1]} columns) == v3 prefill | {card}",
-                      flush=True)
-                rows[name].setdefault(label, {})[str(m)] = dict(
-                    ms=ms_, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                    library_ms=lib_ms, bf16_matmul_ms=bf16_ms,
-                    max_abs_err=err)
+                    runs.append((
+                        "sme_spmm_planes",
+                        lambda: ws["sme_spmm_planes"](x128, *a3)[:mp],
+                        lambda: plains["sme_spmm_planes"](x128, *a3)[:mp],
+                        2.0 ** -8))
+                runs.append(("sme_spmm", lambda: ws["sme_spmm"](x, *a1),
+                             lambda: plains["sme_spmm"](x, *a1), 2.0 ** -8))
+                runs.append(("sme_spmm6", lambda: ws["sme_spmm6"](x, *a2),
+                             lambda: plains["sme_spmm6"](x, *a2), 2.0 ** -1))
+                xm = x[:m, :K]
+                lib_ms = time_ms(lambda: torch.matmul(xm, w32), flush)
+                bf16_ms = time_ms(lambda: torch.matmul(xm.bfloat16(), w16),
+                                  flush)
+                for name, kern, plain, q in runs:
+                    s = scale if name != "sme_spmm_planes_decode" else 1.0
+                    y, yp = kern() * s * q, plain() * s * q
+                    torch.cuda.synchronize()
+                    err, rel = check_close(name, y[:m], yp[:m], ref,
+                                           f"{label} M={m}")
+                    check(bool(torch.equal(y, y_pre)),
+                          f"{name} {label} M={m}: != v3 prefill bitwise")
+                    ms_ = time_ms(kern, flush)
+                    plain_ms = time_ms(plain, flush, iters=3)
+                    if name.startswith("sme_spmm_planes"):
+                        nbytes = (m * K * 4 + planes * 2048
+                                  + groups * (2048 + 512) + nt * 128 * 4
+                                  + m * N * 4)
+                    else:
+                        tile = 16384 + 2048 + 512 if name == "sme_spmm" \
+                            else 12288 + 512
+                        nbytes = (m * K * 4 + occ * tile + occ * 4 + nt * 4
+                                  + m * N * 4)
+                    flops = 2.0 * m * macs
+                    bound, by = bound_of(nbytes, flops)
+                    print(f"kernel {name:22s} {label:22s} M={m:3d}: "
+                          f"{ms_ * 1e3:.1f} us, plain "
+                          f"{plain_ms * 1e3:.1f} us, torch.matmul f32 "
+                          f"{lib_ms * 1e3:.1f} us (bf16 {bf16_ms * 1e3:.1f} "
+                          f"us), bound {bound * 1e3:.2f} us "
+                          f"({by}: {nbytes} B, {flops:.3g} FLOP) | max|k-p|="
+                          f"{err:.2e} oracle_rel={rel:.2e} (first "
+                          f"{ref.shape[1]} columns) == v3 prefill | {card}",
+                          flush=True)
+                    rows[name].setdefault(label, {})[str(m)] = dict(
+                        ms=ms_, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        library_ms=lib_ms, bf16_matmul_ms=bf16_ms,
+                        max_abs_err=err)
         del w32, w16
         torch.cuda.empty_cache()
     del flush
@@ -3567,6 +3725,9 @@ SLICE_MESH_NEW = 16
 SLICE_MESH_CHUNK = 64
 SLICE_MESH_ENGINE = {
     "one-shot": dict(slots=4, s_max=1024, chunk_len=1024, prefix_cache=False),
+    # an enc-dec model's (one request per window, no prefix cache)
+    "spec": dict(slots=4, s_max=1024, chunk_len=1024, prefix_cache=False,
+                 spec_len=2),
     "spec+prefix": dict(slots=4, s_max=1024, chunk_len=SLICE_MESH_CHUNK,
                         page_tokens=16, prefix_cache=True, spec_len=2)}
 
@@ -3597,24 +3758,25 @@ def split_weights(tree, path=""):
 
 
 def slice_mesh_serve(api, path, backend, mesh, workload, depth,
-                     params=None):
+                     params=None, new=SLICE_MESH_NEW):
     """Serve the 4 prompts once from the artifact at ``path`` on ``mesh``
-    (or from ``params``, its tree booted whole on the card):
+    (or from ``params``, its tree booted whole on the card), ``new`` new
+    tokens each:
     (tokens in request order, the engine, launches per kernel), the counts
     set to 0 just before the run.  ``spec+prefix`` drafts at ``depth``
     and submits the second request once the others are admitted, so that
-    it hits the first's snapshot."""
+    it hits the first's snapshot; ``spec`` drafts at ``depth`` alone."""
     from repro_torch.serve import Request, ServeEngine
     kw = dict(SLICE_MESH_ENGINE[workload])
-    if workload == "spec+prefix":
+    if workload.startswith("spec"):
         kw["spec_depth"] = depth
     eng = ServeEngine.from_artifact(api, path, mesh=mesh, backend=backend,
                                     **kw) if params is None else \
         ServeEngine(api, params, mesh=mesh, backend=backend, **kw)
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=SLICE_MESH_NEW)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
             for i, p in enumerate(slice_mesh_prompts(api.cfg.vocab,
                                                      workload))]
-    waves = [reqs] if workload == "one-shot" else \
+    waves = [reqs] if workload != "spec+prefix" else \
         [[reqs[0]] + reqs[2:], [reqs[1]]]
     sync(mesh.device)
     zero_counts()
@@ -3633,24 +3795,38 @@ def slice_mesh_serve(api, path, backend, mesh, workload, depth,
     label = (f"{api.cfg.name} {mesh.data}x{mesh.model} {backend} "
              f"{workload}")
     check(all(r.outcome == "completed" and len(r.out_tokens)
-              == SLICE_MESH_NEW for r in reqs)
+              == new for r in reqs)
           and eng.rank_mismatches == 0 and eng.stats["backend"] == backend,
           f"mesh {label}: outcomes {[r.outcome for r in reqs]}, rank "
           f"mismatches {eng.rank_mismatches}, backend {eng.stats['backend']}")
     if workload == "spec+prefix":
-        check(eng._m["prefix_hits"].value >= 1
-              and eng._m["spec_rounds"].value > 0,
-              f"mesh {label}: no prefix hit or no spec round")
+        check(eng._m["prefix_hits"].value >= 1,
+              f"mesh {label}: no prefix hit")
+    if workload.startswith("spec"):
+        check(eng._m["spec_rounds"].value > 0,
+              f"mesh {label}: no spec round")
     return [r.out_tokens for r in reqs], eng, launches
 
 
 def slice_mesh_logits(api32, params, policy):
     """f32 logits of the 4 prompts' prefill window (llava's behind seeded
-    patches), computed on every rank of the policy's mesh."""
+    patches; an enc-dec model's not ragged: the prompts cut to the
+    shortest, over as many seeded random frames), computed on every rank
+    of the policy's mesh."""
     from repro_torch.parallel.policy import use_policy
     cfg = api32.cfg
     s_max = SLICE_MESH_ENGINE["one-shot"]["s_max"]
-    toks, lens = prefill_window(slice_mesh_prompts(cfg.vocab), s_max)
+    prompts = slice_mesh_prompts(cfg.vocab)
+    if api32.encdec:
+        n = min(len(q) for q in prompts)
+        frames = torch.as_tensor(np.random.default_rng(SEED + 22)
+                                 .standard_normal((4, n, cfg.d_model),
+                                                  dtype=np.float32),
+                                 device=api32.device)
+        with use_policy(policy):
+            return api32.prefill(params, np.stack([q[:n] for q in prompts]),
+                                 s_max=s_max, frames=frames)[0].cpu()
+    toks, lens = prefill_window(prompts, s_max)
     plen, extra = np.array(lens), {}
     if cfg.frontend == "vision_stub":
         front = cfg.n_frontend_tokens
@@ -3674,6 +3850,7 @@ def mesh_family_rank(rank, world, store, tmp, device, family, depths):
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import _leaves
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -3698,7 +3875,8 @@ def mesh_family_rank(rank, world, store, tmp, device, family, depths):
         mesh = make_local_mesh(*shape, device=dev)
         api, api32 = apis[key]
         tokens, eng, launches = slice_mesh_serve(
-            api, tmp / f"{key}.smez", backend, mesh, workload, depths[key])
+            api, tmp / f"{key}.smez", backend, mesh, workload, depths[key],
+            new=fam["new"])
         logits = slice_mesh_logits(api32, eng.params, eng.policy)
         st = eng.stats
         out["runs"][run] = dict(
@@ -3706,9 +3884,10 @@ def mesh_family_rank(rank, world, store, tmp, device, family, depths):
             state_bytes=tree_bytes(eng.caches), launches=launches,
             ms=st["decode_s"] / st["decode_steps"] * 1e3,
             split=split_weights(eng.params),
-            cache=[tuple(t.shape) for t in eng.caches[0].values()],
-            states=[{k: tuple(t.shape) for k, t in layer.items()}
+            cache=[tuple(t.shape) for _, t in _leaves(eng.caches[0])],
+            states=[{k: tuple(t.shape) for k, t in _leaves(layer)}
                     for layer in eng.caches],
+            kinds=cache_kinds(eng.caches),
             logits=logits if rank == 0 else None)
         del eng
         if dev.type == "cuda":
@@ -3724,11 +3903,13 @@ def mesh_split(key, got, ref, shape):
     """(what must be split over 'model' in a run of ``key`` on a ``shape``
     mesh, whether rank 0's run ``got`` splits it against the 1x1 run
     ``ref``): deepseek's ``kv_up`` and llava's ``patch_proj`` among its
-    split weights; for Jamba and xLSTM every layer's cache at the shard
-    shapes of the engine's rule (``cache_sharding(exact=True)``, rank 0's
-    coordinates) and, of Mamba's ``conv``/``h`` (layer 0) or mLSTM's
-    ``C``/``n``, those the rule splits narrower than 1x1's beyond their
-    slot rows (at full width all of them)."""
+    split weights; for Jamba, xLSTM and whisper every layer's cache at
+    the shard shapes of the engine's rule (``cache_sharding(exact=True)``,
+    rank 0's coordinates) and, of Mamba's ``conv``/``h`` (layer 0),
+    mLSTM's ``C``/``n`` or whisper's cross ``k``/``v``, those the rule
+    splits narrower than 1x1's beyond their slot rows (at full width all
+    of them); for whisper also the head, split where 'model' divides its
+    column tiles (406: on 2, not on 4) and whole elsewhere."""
     if key in ("deepseek", "llava"):
         want = "patch_proj" if key == "llava" else "kv_up"
         return want, any(want in n for n in got["split"])
@@ -3741,10 +3922,16 @@ def mesh_split(key, got, ref, shape):
                            .shape[0], exact=True)
     rule = [{k: shard_shape(mesh, sp[k], t.shape) for k, t in layer.items()}
             for layer, sp in zip(whole, specs)]
-    names = [n for n in (("conv", "h") if key == "jamba" else ("C", "n"))
+    names = [n for n in {"jamba": ("conv", "h"), "xlstm": ("C", "n"),
+                         "whisper": ("cross/k", "cross/v")}[key]
              if got["states"][0][n][1:] != ref["states"][0][n][1:]]
-    return ("/".join(names) or "nothing"), bool(names) and \
-        got["states"] == rule
+    ok = bool(names) and got["states"] == rule
+    if key == "whisper":
+        nc = -(-family_config("encdec", key).vocab // 128)
+        head = "/lm_head/w" in got["split"]
+        names += ["lm_head"] if head else []
+        ok = ok and head == (nc % shape[1] == 0)
+    return ("/".join(names) or "nothing"), ok
 
 
 def mesh_family_phase(dev, card, tmp, family, depths):
@@ -3765,6 +3952,7 @@ def mesh_family_phase(dev, card, tmp, family, depths):
     from repro_torch.launch.mesh import Mesh, make_local_mesh
     from repro_torch.models.model import build_model
     from repro_torch.parallel.sharding import place_tree
+    from repro_torch.serve.engine import _leaves
     fam = MESH_FAMILIES[family]
     t_phase = time.perf_counter()
     out, launches = {"runs": {}}, {name: 0 for name in KERNELS}
@@ -3815,7 +4003,7 @@ def mesh_family_phase(dev, card, tmp, family, depths):
                                     device=dev)
                 tokens, eng, counts = slice_mesh_serve(
                     api, tmp / f"{key}.smez", backend, mesh, workload,
-                    depths[key], trees[key])
+                    depths[key], trees[key], fam["new"])
                 check(all(counts[k] > 0 for k in KERNELS_OF[backend]),
                       f"mesh 1x1 {key} {backend}: a kernel of the path "
                       f"never launched: {counts}")
@@ -3825,8 +4013,9 @@ def mesh_family_phase(dev, card, tmp, family, depths):
                 run = one[(key, backend, workload)] = dict(
                     tokens=tokens, bytes=tree_bytes(eng.params),
                     state_bytes=tree_bytes(eng.caches),
-                    states=[{k: tuple(t.shape) for k, t in layer.items()}
+                    states=[{k: tuple(t.shape) for k, t in _leaves(layer)}
                             for layer in eng.caches],
+                    kinds=cache_kinds(eng.caches),
                     ms=st["decode_s"] / st["decode_steps"] * 1e3,
                     logits=slice_mesh_logits(api32, eng.params, eng.policy))
                 check(bool(torch.isfinite(run["logits"]).all())
@@ -3837,11 +4026,12 @@ def mesh_family_phase(dev, card, tmp, family, depths):
                       f"group of world size 1 ({mesh.backend}); "
                       f"{run['ms']:.2f} ms per decode step, "
                       f"{run['bytes'] / 2 ** 20:.1f} MiB of params, "
-                      f"{run['state_bytes'] / 2 ** 20:.1f} MiB of caches; "
+                      f"{run['state_bytes'] / 2 ** 20:.1f} MiB of caches"
+                      f"{kinds_mib(run['kinds'])}; "
                       f"launches {counts} | {card}", flush=True)
                 out["runs"][f"{key} {backend} {workload} 1x1 nccl"] = dict(
                     ms=run["ms"], bytes=run["bytes"],
-                    state_bytes=run["state_bytes"])
+                    state_bytes=run["state_bytes"], kinds=run["kinds"])
                 del eng
         finally:
             dist.destroy_process_group()
@@ -3893,7 +4083,8 @@ def mesh_family_phase(dev, card, tmp, family, depths):
                                   state_bytes_1x1=ref["state_bytes"],
                                   launches=summed, split=len(split),
                                   cache=got[0]["cache"],
-                                  states=got[0]["states"][0])
+                                  states=got[0]["states"][0],
+                                  kinds=got[0]["kinds"])
         frac = ", ".join(f"{b / ref['bytes']:.3f}" for b in nbytes)
         sfrac = ", ".join(f"{b / ref['state_bytes']:.3f}" for b in sbytes)
         print(f"mesh[{label}]: 4 ranks, every rank's tokens == 1x1, rank 0's "
@@ -3902,7 +4093,8 @@ def mesh_family_phase(dev, card, tmp, family, depths):
               f"MiB against 1x1's {ref['bytes'] / 2 ** 20:.1f} MiB ({frac}); "
               f"caches per rank "
               f"{', '.join(f'{b / 2 ** 20:.1f}' for b in sbytes)} MiB "
-              f"against {ref['state_bytes'] / 2 ** 20:.1f} MiB ({sfrac}); "
+              f"against {ref['state_bytes'] / 2 ** 20:.1f} MiB ({sfrac})"
+              f"{kinds_mib(got[0]['kinds'])} on rank 0; "
               f"{len(split)} weights split over 'model', {want} split; "
               f"rank 0's first layer's cache {got[0]['states'][0]} "
               f"(1x1: {ref['states'][0]}); "
@@ -3914,7 +4106,7 @@ def mesh_family_phase(dev, card, tmp, family, depths):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"mesh[{family}]: phase {out['phase_s']:.1f}s of its 60 s budget "
           f"({serve_s:.1f}s of gloo serving, the pool "
-          f"{'paused' if fam['pause'] else 'packing on'})", flush=True)
+          f"{'paused' if fam['pause'] else 'not paused'})", flush=True)
     return out, launches
 
 
@@ -4259,24 +4451,6 @@ def recurrent_phase(dev, card, key, packed, save_to=None):
     return rows, launches, out
 
 
-#: the mesh phases (7' and 8'): their models, runs and config functions,
-#: whether the ranks start before the 1x1 runs (and the NCCL group is made
-#: once they wait) or once the group is made, and whether the pool pauses
-#: while the ranks serve
-MESH_FAMILIES = {
-    "mla+vision": dict(keys=("deepseek", "llava"), runs=SLICE_MESH_RUNS,
-                       config="slice_config", ranks_first=True, pause=True),
-    "recurrent": dict(keys=("jamba", "xlstm"), runs=RECURRENT_MESH_RUNS,
-                      config="recurrent_config", ranks_first=False,
-                      pause=False)}
-
-
-def family_config(family, key):
-    """A mesh family's model config (its config function resolved by name
-    at call time, so that a rehearsal's patch reaches it)."""
-    return globals()[MESH_FAMILIES[family]["config"]](key)
-
-
 # ---------------------------------------------------------------------------
 # the encoder-decoder family: whisper-medium at full width
 
@@ -4295,6 +4469,16 @@ ENCDEC_ONE_SHOT = dict(slots=4, s_max=2048, chunk_len=2048,
 ENCDEC_ENGINE = dict(slots=4, s_max=2048, spec_len=4)
 #: whisper's kernel rows: (label, weight, K, N); the head's 51,865
 #: columns are 405.2 column tiles
+#: phase 9's runs: (model, backend, (data, model), workload), each held
+#: to the 1x1 run of its model, backend and workload
+ENCDEC_MESH_RUNS = (("whisper", "v2", (2, 2), "one-shot"),
+                    ("whisper", "v2", (1, 4), "one-shot"),
+                    ("whisper", "v3", (2, 2), "spec"))
+#: their new tokens per request: 8, not the other mesh phases' 16, to
+#: keep the phase inside its 60 s budget: whisper's 6 decoder layers take
+#: 200-780 ms per decode step on the 4 gloo ranks sharing an NVIDIA H100
+#: 80GB HBM3 (700.00 W; PERF.md §6)
+ENCDEC_MESH_NEW = 8
 ENCDEC_ROWS = (("q 1024x1024", "e0/attn/q", 1024, 1024),
                ("wi 1024x4096", "e0/mlp/wi", 1024, 4096),
                ("wo 4096x1024", "e0/mlp/wo", 4096, 1024),
@@ -4303,8 +4487,32 @@ ENCDEC_ROWS = (("q 1024x1024", "e0/attn/q", 1024, 1024),
 ENCDEC_MS = (4, 512)
 
 
-def encdec_config():
-    """whisper-medium, both stacks :data:`WHISPER_LAYERS` deep."""
+#: the mesh phases (7', 8' and 9'): their models, runs, new tokens per
+#: request and config functions,
+#: whether the ranks start before the 1x1 runs (and the NCCL group is made
+#: once they wait) or once the group is made, and whether the pool pauses
+#: while the ranks serve
+MESH_FAMILIES = {
+    "mla+vision": dict(keys=("deepseek", "llava"), runs=SLICE_MESH_RUNS,
+                       new=SLICE_MESH_NEW, config="slice_config",
+                       ranks_first=True, pause=True),
+    "recurrent": dict(keys=("jamba", "xlstm"), runs=RECURRENT_MESH_RUNS,
+                      new=SLICE_MESH_NEW, config="recurrent_config",
+                      ranks_first=False, pause=False),
+    "encdec": dict(keys=("whisper",), runs=ENCDEC_MESH_RUNS,
+                   new=ENCDEC_MESH_NEW, config="encdec_config",
+                   ranks_first=False, pause=False)}
+
+
+def family_config(family, key):
+    """A mesh family's model config (its config function resolved by name
+    at call time, so that a rehearsal's patch reaches it)."""
+    return globals()[MESH_FAMILIES[family]["config"]](key)
+
+
+def encdec_config(key="whisper"):
+    """whisper-medium, both stacks :data:`WHISPER_LAYERS` deep (``key``:
+    the mesh phase's name of it)."""
     from repro_torch.configs import ARCHS
     return dataclasses.replace(ARCHS["whisper-medium"],
                                n_layers=WHISPER_LAYERS,
@@ -4552,14 +4760,15 @@ def reused_slot(api, params, prompts, card):
     return runs["fresh"][0], launches
 
 
-def encdec_phase(dev, card, packed):
+def encdec_phase(dev, card, packed, save_to=None):
     """whisper-medium at full width: its kernel rows; the ragged head
     exact; one-shot serving under auto (v2) and v3 (equal tokens, 6
     launches per encoder layer, 10 per decoder layer and the head per
     prefill pass, 8 per decoder layer and the head per decode pass); the
     prefill split into encoder and decoder; f32 prefill
     logits; a profiled window; the engine on v3 with spec and without
-    (equal tokens, equal to the one-shot run's); a reused slot.  Returns
+    (equal tokens, equal to the one-shot run's); a reused slot.  With
+    ``save_to`` the packed tree is written there as a ``.smez``.  Returns
     the kernel rows, launches per kernel and readings."""
     from repro_torch.core.integrate import sme_operand_bytes, to_torch
     from repro_torch.models.model import build_model
@@ -4662,6 +4871,9 @@ def encdec_phase(dev, card, packed):
           f"{depth} of {deepest}; the reused-slot request's tokens "
           f"{'==' if fresh == tokens['v3'][short] else '!='} its one-shot "
           f"tokens (not required: other rows were live there)", flush=True)
+    out["draft_depth"] = depth
+    if save_to is not None:
+        out["save_s"] = save_slice(params, cfg, save_to, label)
     del params
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
@@ -4704,7 +4916,8 @@ def main() -> int:
     try:
         card_tests()
         flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-        agg, tile_agg = kernel_phase(dev, flush)
+        with quiet():         # one pause for the qwen kernel rows
+            agg, tile_agg = kernel_phase(dev, flush)
         del flush                # not part of the serving peak memory
         launches, params, served = serve_phase(dev, card)
         draft = engine_phase(dev, card, params)
@@ -4756,13 +4969,20 @@ def main() -> int:
         rec_out["mesh"], rec_mesh_launches = mesh_family_phase(
             dev, card, slice_tmp, "recurrent",
             {key: rec_out[key]["draft_depth"] for key in RECURRENT})
-        shutil.rmtree(slice_tmp, ignore_errors=True)
         free_card()
         for name in KERNELS:
             mesh_launches[name] += rec_mesh_launches[name]
+        # whisper's packed tree is written for phase 9'
         enc_rows, enc_launches, enc_out = encdec_phase(
-            dev, card, packer.wait("whisper"))
+            dev, card, packer.wait("whisper"), slice_tmp / "whisper.smez")
         free_card()
+        enc_out["mesh"], enc_mesh_launches = mesh_family_phase(
+            dev, card, slice_tmp, "encdec",
+            {"whisper": enc_out["draft_depth"]})
+        shutil.rmtree(slice_tmp, ignore_errors=True)
+        free_card()
+        for name in KERNELS:
+            mesh_launches[name] += enc_mesh_launches[name]
     finally:
         packer.close()
         shutil.rmtree(slice_tmp, ignore_errors=True)
@@ -4793,7 +5013,7 @@ def main() -> int:
         # the mesh phases' runs: the 1x1 mesh over NCCL in this process
         # and the gloo ranks' meshes, summed over the ranks (the trained
         # qwen artifacts', then deepseek's and llava's, then Jamba's and
-        # xLSTM's)
+        # xLSTM's, then whisper's)
         row["mesh_launches"] = mesh_launches[name]
         row["cnn_launches"] = cnn_launches[name]
         row["cnn"] = cnn_rows[name]

@@ -49,7 +49,12 @@ gives this rank's columns (a packed one dequantized), gathered over
 'model' once per weight (``parallel.policy.whole_weight``).  A prefill
 computes as on the 1x1 mesh (q, k, v are whole after ``linear``'s
 gathers) and returns every row of its window, of which the engine keeps
-the slots this rank holds, as it does a GQA prefill's K/V.
+the slots this rank holds, as it does a GQA prefill's K/V.  The
+cross-attention follows GQA's pattern: a prefill attends every head of
+the whole cross K/V (the caller keeps this rank's heads for the cache),
+and ``cross_decode`` attends the whole cross cache in the 1x1 shape
+(other ranks' rows and heads zero, each row masked past its source
+length) and gathers its rows and heads before ``o``.
 
 Decode positions are per batch row (``pos`` [B]) and ``active`` [B] masks
 which rows may write their cache slot.  Unlike the reference, decode
@@ -409,15 +414,23 @@ def cross_apply(p, x, kv, cfg, backend: Optional[str] = None,
 
 def cross_decode(p, x, kv, cfg, src_len=None,
                  backend: Optional[str] = None) -> torch.Tensor:
-    """One step's cross-attention. x: [B, 1, D]; kv k/v: [B, T, H, hd];
-    ``src_len`` [B]: row ``i`` attends its first ``src_len[i]`` keys
-    (None: all ``T``)."""
+    """One step's cross-attention. x: [B, 1, D]; kv k/v: [B, T, H, hd]
+    (on a mesh this rank's shard: its slot rows and heads); ``src_len``
+    [B]: row ``i`` attends its first ``src_len[i]`` keys (None: all
+    ``T``)."""
     b = x.shape[0]
-    q = linear(x, p["q"], backend).reshape(b, 1, cfg.n_heads, cfg.hd)
-    t = kv["k"].shape[1]
+    h = cfg.n_heads
+    q = linear(x, p["q"], backend).reshape(b, 1, h, cfg.hd)
+    kc, vc = kv["k"], kv["v"]
+    t = kc.shape[1]
     kpos = torch.arange(t, device=x.device).expand(b, t)
     last = torch.full((b,), t, device=x.device) if src_len is None else \
         torch.as_tensor(src_len, device=x.device).long().expand(b) - 1
-    y = _decode_attend(q, kv["k"], kv["v"], kpos, last, 0,
-                       1.0 / (cfg.hd ** 0.5))
+    # attention in the 1x1 shape (every row and head, zero where another
+    # rank holds them), then this rank's block gathered, as gqa_decode's
+    whole = (b, t, h) + tuple(kc.shape[3:])
+    y = _decode_attend(q, whole_state(kc, whole), whole_state(vc, whole),
+                       kpos, last, 0, 1.0 / (cfg.hd ** 0.5))
+    y = constrain(y, "block", part=(kc.shape[0], 1, kc.shape[2],
+                                    y.shape[3]))
     return linear(y.reshape(b, 1, -1), p["o"], backend)

@@ -23,7 +23,11 @@ goes through ``sme_apply`` with f32 output (the reference's ``x @ w``
 cannot take a packed head, ROADMAP R7), a dense one is ``x @ w`` in the
 compute dtype, then f32.  Decode takes each row's source length
 (``src_len``), so that a cross cache longer than the row's source is
-attended only over its own keys (ROADMAP R6).  Training
+attended only over its own keys (ROADMAP R6).  On a mesh the decoder's
+embedding goes through ``parallel.policy.embed_rows`` (vocab rows split
+over 'model' where they divide), and the prefill's self and cross K/V
+keep this rank's heads (``constrain(..., "kv")``), the cache shard's; the
+encoder and the positions are whole on every rank.  Training
 (``encdec_train_loss``) runs the prefill's decoder layers without caches
 and scores them through ``transformer.chunked_ce_loss`` on the dense
 ``lm_head``.
@@ -35,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.policy import constrain, embed_rows
 from . import attention as att
 from .common import apply_norm, mlp_apply, norm_pos_active, sinusoidal_pos
 from .transformer import (_head_logits, _lin, chunked_ce_loss,
@@ -115,7 +120,7 @@ def _dec_embed(params, tokens: torch.Tensor, cfg, pos0: int = 0
     """Token embeddings (rows gathered, then cast) plus the sinusoidal
     positions ``pos0 ..``."""
     dt = compute_dtype(cfg)
-    x = params["embed"]["w"][tokens].to(dt)
+    x = embed_rows(params["embed"]["w"], tokens).to(dt)
     s = tokens.shape[1]
     pos = sinusoidal_pos(pos0 + s, cfg.d_model, tokens.device)
     return x + pos[pos0:].to(dt)[None]
@@ -155,7 +160,9 @@ def _decoder(params, x, enc, cfg, cache_len: int, backend, block_q: int,
                                 block_k)
         m = apply_norm(x, p["norm3"], cfg.norm)
         x = x + mlp_apply(m, p["mlp"], backend, cfg.act)
-        caches.append({"self": self_c, "cross": ckv})
+        # on a mesh the cache keeps this rank's heads (the cache rule's)
+        caches.append({"self": self_c, "cross": {
+            k: constrain(t, "kv", n_kv=cfg.n_heads) for k, t in ckv.items()}})
     return apply_norm(x, params["dec_norm"], cfg.norm), caches
 
 
@@ -199,7 +206,7 @@ def encdec_decode_step(params, token: torch.Tensor, caches: list, pos, cfg,
     dt = compute_dtype(cfg)
     s_max = caches[0]["self"]["k"].shape[1]
     table = sinusoidal_pos(s_max, cfg.d_model, token.device)
-    x = params["embed"]["w"][token].to(dt) \
+    x = embed_rows(params["embed"]["w"], token).to(dt) \
         + table[pos.clamp(0, s_max - 1)].to(dt)[:, None]
     new = []
     for p, c in zip(params["dec"], caches):

@@ -32,8 +32,9 @@ decode threshold).
   slot rows over 'data', Mamba's ``conv``/``h`` d_in and mLSTM's ``C``
   dv and ``n`` heads over 'model', ``sharding.state_spec``; the side
   slabs of the prefix cache and a draft's saved states hold each rank's
-  shard); the encoder-decoder family raises on a mesh larger than 1x1
-  (a later slice).
+  shard) and the encoder-decoder family (whisper: the self and cross
+  K/V's slot rows over 'data' and heads over 'model', every rank
+  recording each slot's source length).  No family raises on a mesh.
 
 * ``slots`` sequences decode together, each with its own cache row; a
   request joins by writing its prefill cache into a free row and leaves by
@@ -192,18 +193,6 @@ def _env_flag(name: str) -> bool:
     return os.environ.get(name, "0").lower() in ("1", "on", "true", "yes")
 
 
-def check_mesh_family(api, mesh) -> None:
-    """Raise ``NotImplementedError`` for a model this slice of mesh serving
-    does not cover on a mesh larger than 1x1: the encoder-decoder family."""
-    if mesh.size == 1 or not api.encdec:
-        return
-    raise NotImplementedError(
-        f"{api.cfg.name}: mesh serving covers the dense, MoE and recurrent "
-        f"families, MLA and the vision frontend; the encoder-decoder family "
-        f"(whisper) on a {mesh.data}x{mesh.model} mesh waits for a later "
-        f"slice of the port (ROADMAP)")
-
-
 class ServeEngine:
     def __init__(self, api, params, *, slots: int = 4, s_max: int = 128,
                  seed: int = 0, backend: Optional[str] = None, device=None,
@@ -243,7 +232,6 @@ class ServeEngine:
         if self.mesh.device != self.device:
             raise ValueError(f"mesh on {self.mesh.device}, engine on "
                              f"{self.device}")
-        check_mesh_family(api, self.mesh)
         self.policy = dataclasses.replace(
             policy_for(self.mesh, api.cfg, "decode"), exact=True)
         if self.mesh.model > 1 and self.device.type == "cuda" and \

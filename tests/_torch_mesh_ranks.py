@@ -26,6 +26,7 @@ from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.parallel.policy import use_policy
 from repro_torch.parallel.sharding import split_of
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve.engine import _leaves
 
 MESHES = ((2, 2), (4, 1), (1, 4))
 #: the engine of every run: chunked prefill over two chunks, a prefix
@@ -85,13 +86,19 @@ def serve(api, params, backend, mesh=None, seed=0, artifact=None,
 
 def prefill_logits(api, params, policy=None):
     """f32 logits of one ragged prefill window (behind seeded patches for
-    a vision model, which ``plen`` counts)."""
+    a vision model, which ``plen`` counts; an enc-dec model's window is
+    not ragged: 16 tokens over 16 seeded frames)."""
     reqs = requests(api.cfg.vocab)[:3]
     toks = np.zeros((3, 16), np.int64)
     for i, r in enumerate(reqs):
         toks[i, :min(len(r.prompt), 16)] = r.prompt[:16]
     plen = np.array([min(len(r.prompt), 16) for r in reqs])
     extra = {}
+    if api.encdec:
+        frames = torch.as_tensor(np.random.default_rng(6).standard_normal(
+            (3, 16, api.cfg.d_model), dtype=np.float32))
+        with use_policy(policy):
+            return api.prefill(params, toks, s_max=32, frames=frames)[0]
     if api.cfg.frontend == "vision_stub":
         front = api.cfg.n_frontend_tokens
         extra["patches"] = torch.as_tensor(np.random.default_rng(5)
@@ -127,14 +134,14 @@ def _draft_spy(out):
     out["drafts"], out["draft_changed"] = 0, []
 
     def draft(self, spec_rows):
-        side = [{k: t.clone() for k, t in layer.items()
+        side = [{k: t.clone() for k, t in _leaves(layer)
                  if self._paged is None or not self._paged[i].get(k)}
                 for i, layer in enumerate(self.caches)]
         got = inner(self, spec_rows)
         out["drafts"] += 1
-        out["draft_changed"] += [(i, k) for i, keep in enumerate(side)
-                                 for k, t in keep.items()
-                                 if not torch.equal(self.caches[i][k], t)]
+        out["draft_changed"] += [
+            (i, k) for i, keep in enumerate(side) for k, t in keep.items()
+            if not torch.equal(dict(_leaves(self.caches[i]))[k], t)]
         return got
     ServeEngine._draft = draft
 
@@ -159,25 +166,44 @@ def _split_names(tree, path=""):
     return [path] if split_of(tree) is not None else []
 
 
+def leaf_shapes(layer) -> dict:
+    """{'/'-joined leaf name: shape} of one layer's cache (an enc-dec
+    layer's ``self/k`` ... ``cross/v``, a recurrent layer's states)."""
+    return {k: tuple(t.shape) for k, t in _leaves(layer)}
+
+
+def _stale(eng):
+    """The slots whose cross keys on this rank hold nonzero values past
+    their source length: a later request with a shorter source reused a
+    slot (ROADMAP R6)."""
+    k = eng.caches[0]["cross"]["k"]
+    return [slot for slot in range(eng.slots)
+            if eng._local(slot) is not None
+            and bool(k[eng._local(slot), int(eng._src[slot]):].abs().sum()
+                     > 0)]
+
+
 def _record(out, key, eng, api, shape):
-    """A family run's tokens' bookkeeping, and on (2, 2) its prefill
-    logits, split leaves and cache shard shapes."""
+    """A family run's tokens' bookkeeping (an enc-dec run's slots with
+    stale cross keys), and on (2, 2) its prefill logits, split leaves and
+    cache shard shapes."""
     out["mismatches"] += eng.rank_mismatches
     out["engine"][key] = {k: int(eng._m[k].value) for k in ("prefix_hits",
                                                            "spec_rounds")}
-    out["states"][key] = [{k: tuple(t.shape) for k, t in layer.items()}
-                          for layer in eng.caches]
+    out["states"][key] = [leaf_shapes(layer) for layer in eng.caches]
+    if api.encdec:
+        out.setdefault("stale", {})[key] = _stale(eng)
     if shape != (2, 2):
         return
     fkey = key[:2]
     out["logits"][fkey] = prefill_logits(api, eng.params, eng.policy)
     out["split"][fkey] = _split_names(eng.params)
-    out["cache"][fkey] = [tuple(t.shape) for t in eng.caches[0].values()]
+    out["cache"][fkey] = list(leaf_shapes(eng.caches[0]).values())
 
 
 def dense_job(job, meshes, out) -> None:
-    """``_torch_small``'s qwen dense and v1-v3 on every mesh, one
-    ``decode_chunk`` per engine step, and the families that still raise."""
+    """``_torch_small``'s qwen dense and v1-v3 on every mesh, and one
+    ``decode_chunk`` per engine step."""
     api = job["api"]
     for backend, params in job["params"].items():
         for shape, mesh in meshes.items():
@@ -215,12 +241,6 @@ def dense_job(job, meshes, out) -> None:
         assert steps < 300
     api.decode_chunk = inner
     out["chunk_calls"] = (calls[0], eng.stats["decode_steps"], steps)
-    out["raises"] = {}
-    for name, fam_api in job["left_out"].items():
-        try:
-            ServeEngine(fam_api, {}, mesh=mesh, device="cpu")
-        except NotImplementedError as e:
-            out["raises"][name] = str(e)
 
 
 def moe_job(job, meshes, out) -> None:

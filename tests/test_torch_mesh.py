@@ -14,13 +14,12 @@ One module fixture spawns four ``gloo`` ranks on the CPU
 ``tmp_path``) that run ``_torch_small``'s 128-wide qwen dense and v1, v2,
 v3 (v3 with self-speculative decode) on the meshes (2, 2), (4, 1) and
 (1, 4), every run with chunked prefill, a prefix hit and a temperature
-row, and save their results; one ``decode_chunk`` per engine step; the
-family mesh serving still leaves out (whisper); a spy on the summing
-collectives.  The launcher's ``--mesh 2,2`` runs in a subprocess.  The
-other families' mesh runs have files and worlds of their own
-(``test_torch_mesh_moe.py``, ``test_torch_mesh_mla_vision.py``,
-``test_torch_mesh_recurrent.py``), so that ``--dist loadfile`` runs them
-side by side.
+row, and save their results; one ``decode_chunk`` per engine step; a spy
+on the summing collectives.  The launcher's ``--mesh 2,2`` runs in a
+subprocess.  The other families' mesh runs have files and worlds of
+their own (``test_torch_mesh_moe.py``, ``test_torch_mesh_mla_vision.py``,
+``test_torch_mesh_recurrent.py``, ``test_torch_mesh_encdec.py``), so
+that ``--dist loadfile`` runs them side by side.
 """
 import os
 import pathlib
@@ -33,16 +32,11 @@ import torch
 
 from _torch_mesh_ranks import MESHES, prefill_logits, serve, world
 from _torch_small import small_models
-from repro_torch.configs import ARCHS, scale_down
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.models.model import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BACKENDS = [None, "v1", "v2", "v3"]
 IDS = ["dense", "v1", "v2", "v3"]
-LEFT_OUT = {
-    "whisper-medium": dict(d_model=128, n_layers=2, dtype="float32"),
-}
 
 
 @pytest.fixture(scope="module", name="world")
@@ -52,8 +46,6 @@ def _world(tmp_path_factory):
     m = small_models()
     params = {b: m.port_dense if b is None else m.port_packed
               for b in BACKENDS}
-    left = {a: build_model(scale_down(ARCHS[a], **o), device="cpu")
-            for a, o in LEFT_OUT.items()}
 
     def local():
         ref = {"tokens": {}, "logits": {}}
@@ -61,8 +53,8 @@ def _world(tmp_path_factory):
             ref["tokens"][b] = serve(m.port_api, p, b)[0]
             ref["logits"][b] = prefill_logits(m.port_api, p)
         return ref
-    return world(tmp, dict(kind="dense", api=m.port_api, params=params,
-                           left_out=left), local)
+    return world(tmp, dict(kind="dense", api=m.port_api, params=params),
+                 local)
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -126,13 +118,6 @@ def test_every_rank_agrees_and_nothing_sums(world):
         assert out["mismatches"] == 0
         assert out["summed"] == []
         assert out["jax"] == []
-
-
-@pytest.mark.parametrize("arch", sorted(LEFT_OUT))
-def test_left_out_family_raises_on_a_mesh(world, arch):
-    _, ranks = world
-    msg = ranks[0]["raises"].get(arch, "")
-    assert "2x2 mesh waits for a later slice" in msg, msg
 
 
 def test_default_engine_is_1x1_mesh():

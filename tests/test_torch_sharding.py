@@ -571,3 +571,65 @@ def test_recurrent_decode_on_state_shards_bitwise(kind, shape, packed):
             n_split += new[k].shape != state[k].shape
     # sLSTM's states split only their rows
     assert (n_split > 0) == (kind != "slstm" or shape[0] > 1)
+
+
+#: whisper's cross-attention 512 wide, 16 heads of 32: q and o of 4
+#: column tiles, so the packed ones split at 'model' 2 and 4 too
+CROSS = dict(d_model=512, d_ff=512, head_dim=32, n_heads=16, n_kv_heads=16,
+             vocab=256, n_layers=2, dtype="float32")
+
+
+@pytest.mark.parametrize("backend", [None, "v2", "v3"],
+                         ids=["dense", "v2", "v3"])
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_cross_decode_on_head_shards_bitwise(shape, backend):
+    """``cross_decode`` on each rank's shard of the cross K/V (its slot
+    rows over 'data', its heads over 'model', as the cache rule splits
+    them), with a ragged ``src_len`` and ``q``/``o`` column-split into
+    whole tiles, equals the whole call bitwise on every rank; so does the
+    prefill's cross K/V the rank keeps (``constrain(..., "kv")``: its
+    heads of the whole ``cross_kv``)."""
+    from repro_torch.core.integrate import convert_params_to_sme, to_torch
+    from repro_torch.models.attention import cross_decode, cross_kv
+    from repro_torch.parallel.policy import (constrain, policy_for,
+                                             state_part, use_policy)
+    cfg = scale_down(ARCHS["whisper-medium"], **CROSS)
+    tree = init_params(cfg, np.random.default_rng(0))
+    cross = tree["dec"][0]["cross"]
+    cross = to_torch(cross, "cpu") if backend is None else \
+        convert_params_to_sme(cross, squeeze=1, backend=("v2", "v3"),
+                              device="cpu")
+    rng = np.random.default_rng(13)
+    b, t, h, hd = 4, 16, cfg.n_heads, cfg.hd
+    x = torch.as_tensor(rng.standard_normal((b, 1, cfg.d_model),
+                                            dtype=np.float32))
+    enc = torch.as_tensor(rng.standard_normal((b, t, cfg.d_model),
+                                              dtype=np.float32))
+    kv = {k: torch.as_tensor(rng.standard_normal((b, t, h, hd),
+                                                 dtype=np.float32))
+          for k in "kv"}
+    src_len = np.array([5, 16, 9, 1])
+    y_want = cross_decode(cross, x, kv, cfg, src_len, backend)
+    kv_want = cross_kv(cross, enc, cfg, backend)
+
+    def rank_main(mesh):
+        pol = dataclasses.replace(policy_for(mesh, cfg, "decode"),
+                                  exact=True)
+        p = sh.place_tree(cross, mesh)
+        part = (b // mesh.data, t, h // mesh.model, hd)
+        with use_policy(pol):
+            mine = {k: state_part(v, part) for k, v in kv.items()}
+            y = cross_decode(p, x, mine, cfg, src_len, backend)
+            kept = {k: constrain(v, "kv", n_kv=h)
+                    for k, v in cross_kv(p, enc, cfg, backend).items()}
+            want = {k: state_part(v, (b,) + part[1:])
+                    for k, v in kv_want.items()}
+        return y, kept, want, sh.split_of(p["q"]["w"]), \
+            sh.split_of(p["o"]["w"])
+    for y, kept, want, sq, so in _on_threads(shape, rank_main):
+        assert torch.equal(y, y_want)
+        for k in kept:
+            assert kept[k].shape == (b, t, h // shape[1], hd)
+            assert torch.equal(kept[k], want[k]), k
+        assert (sq is not None) == (so is not None) == (shape[1] > 1)

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Pack the weights F4 parted on (ROADMAP §3) several times in a spawned
-pool under SIGSTOP/SIGCONT cycles and compare every operand's bytes with
+pool, paused again and again, and compare every operand's bytes with
 one in-process pack of the same task:
 
-    python3 tools/f4_repack.py [--rounds 3] [--period-s 0.05] [--small]
-                               [--repeat 1]
+    python3 tools/f4_repack.py [--pause] [--rounds 3] [--period-s 0.05]
+                               [--small] [--repeat 1]
 
 The tasks are ``chip_smoke.py``'s own (the same names, seeds, shapes and
 formats): Jamba's first two head slabs (4096 x 16384) and llava's
 7168 x 7168 ``patch_proj``; ``--small`` cuts each to its first 512 rows
-and columns (a quick check of the tool itself).  The pool is
-``chip_smoke.Packer``'s: ``PACK_WORKERS`` spawned processes at nice 19;
-a thread stops and continues them every ``--period-s`` seconds while
-they pack, as the script's ``quiet`` does around every timed reading,
-and this process packs each task ``--repeat`` times meanwhile (no
-signals: the first pack is the reference, the others must equal it);
-``--period-s 0`` packs in the pool with no stops.  Before the packs,
+and columns (a quick check of the tool itself).  With ``--pause`` the
+pool is ``chip_smoke.Packer`` itself (its units, its shared flag): a
+thread holds ``Packer.paused`` for ``--period-s`` seconds, then lets the
+pool run as long, as the script's ``quiet`` pauses it for its readings
+(no signal reaches the pool), and the line after the packs gives the
+pauses and how long they waited for the units in flight.  Without it
+(the reproducer of F4) the pool is ``PACK_WORKERS`` spawned processes
+at nice 19 packing whole tasks, which a thread stops and continues with
+SIGSTOP/SIGCONT every ``--period-s`` seconds, as the script did up to
+its F4 repair.  Either way this process packs each task ``--repeat``
+times meanwhile (the first pack is the reference, the others must
+equal it); ``--period-s 0`` never pauses or stops.  Before the packs,
 ``np.packbits`` (v3's plane bitmaps) is held against a plain shift-and-
 add on one input at 64 byte offsets.  Prints the host's CPU and numpy's
 SIMD dispatch, one line per task and round (equal, or the leaves that
@@ -101,8 +106,85 @@ def differs(a: dict, b: dict) -> list:
                                   .view(np.uint8))]
 
 
+def stop_pool(todo, rounds, period_s):
+    """The reproducer's pool: whole tasks in ``PACK_WORKERS`` processes,
+    stopped and continued every ``period_s`` by a thread.  Returns
+    ([(round, name, a call that waits for its (name, pack))], a call
+    that ends the pool and says how often it was stopped)."""
+    import chip_smoke as cs
+    pool = multiprocessing.get_context("spawn").Pool(
+        cs.PACK_WORKERS, initializer=cs._low_priority)
+    pending = [(r, t[0], pool.apply_async(cs.pack_task, (t,)))
+               for r in range(rounds) for t in todo]
+    done = threading.Event()
+    cycles = [0]
+
+    def signal_all(sig):
+        for proc in pool._pool:
+            try:
+                os.kill(proc.pid, sig)
+            except (ProcessLookupError, TypeError):
+                pass
+
+    def cycle():
+        while period_s > 0 and not done.is_set():
+            for sig in (signal.SIGSTOP, signal.SIGCONT):
+                signal_all(sig)
+                time.sleep(period_s)
+            cycles[0] += 1
+    th = threading.Thread(target=cycle, daemon=True)
+    th.start()
+
+    def end():
+        done.set()
+        th.join()
+        signal_all(signal.SIGCONT)
+        pool.terminate()
+        pool.join()
+        return f"{cycles[0]} stop/continue cycles"
+    return [(r, n, res.get) for r, n, res in pending], end
+
+
+def pause_pool(todo, rounds, period_s):
+    """``chip_smoke.Packer`` on every round's tasks (each named
+    ``<name>@<round>``: the same values), paused for ``period_s`` every
+    ``period_s`` by a thread.  Returns the same as :func:`stop_pool`."""
+    import chip_smoke as cs
+    named = {f"{t[0]}@{r}": (r, t[0]) for r in range(rounds) for t in todo}
+    packer = cs.Packer({"f4": [(f"{t[0]}@{r}",) + tuple(t[1:])
+                               for r in range(rounds) for t in todo]})
+    done = threading.Event()
+
+    def cycle():
+        while period_s > 0 and not done.is_set():
+            with packer.paused():
+                time.sleep(period_s)
+            time.sleep(period_s)
+    th = threading.Thread(target=cycle, daemon=True)
+    th.start()
+    got = {}
+
+    def result(key):
+        def get():
+            if not got:
+                got.update(packer.wait("f4")[0])
+            return key, got[key]
+        return get
+
+    def end():
+        done.set()
+        th.join()
+        pauses = packer.pauses
+        packer.close()
+        return f"{pauses} pauses, no signal"
+    return [(r, name, result(key)) for key, (r, name) in named.items()], end
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--pause", action="store_true",
+                    help="pause chip_smoke's pool as its quiet does (no "
+                    "signals) instead of stopping and continuing it")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--period-s", type=float, default=0.05)
     ap.add_argument("--small", action="store_true")
@@ -112,32 +194,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke as cs
     todo = tasks(args.small)
+    how = "paused as the script's quiet does" if args.pause else \
+        "stopped and continued"
     print(f"f4_repack: {cs.host_cpu()}; {len(todo)} tasks "
           f"{[(t[0], t[2]) for t in todo]}, {args.rounds} rounds in a pool "
-          f"of {cs.PACK_WORKERS} at nice 19, stopped and continued every "
-          f"{args.period_s}s", flush=True)
+          f"of {cs.PACK_WORKERS} at nice 19, {how} every {args.period_s}s",
+          flush=True)
     print(f"f4_repack: np.packbits against shift-and-add: "
           f"{packbits_offsets()} of 64 byte offsets differ", flush=True)
     t0 = time.perf_counter()
-    pool = multiprocessing.get_context("spawn").Pool(
-        cs.PACK_WORKERS, initializer=cs._low_priority)
-    pending = [(r, t[0], pool.apply_async(cs.pack_task, (t,)))
-               for r in range(args.rounds) for t in todo]
-    done = threading.Event()
-    cycles = [0]
-
-    def cycle():
-        while args.period_s > 0 and not done.is_set():
-            for sig in (signal.SIGSTOP, signal.SIGCONT):
-                for proc in pool._pool:
-                    try:
-                        os.kill(proc.pid, sig)
-                    except (ProcessLookupError, TypeError):
-                        pass
-                time.sleep(args.period_s)
-            cycles[0] += 1
-    th = threading.Thread(target=cycle, daemon=True)
-    th.start()
+    pending, end = (pause_pool if args.pause else stop_pool)(
+        todo, args.rounds, args.period_s)
     try:
         ref, bad = {}, 0
         for t in todo:
@@ -150,26 +217,17 @@ def main() -> int:
                       f"{time.perf_counter() - t1:.1f}s"
                       + (f", again: {report(got, ref[t[0]], diff)}" if i
                          else ""), flush=True)
-        for r, name, res in pending:
-            got = res.get()[1]
+        for r, name, get in pending:
+            got = get()[1]
             diff = differs(got, ref[name])
             bad += bool(diff)
             print(f"f4_repack: round {r} {name}: "
                   f"{report(got, ref[name], diff)} ({len(got)} leaves)",
                   flush=True)
     finally:
-        done.set()
-        th.join()
-        for proc in pool._pool:
-            try:
-                os.kill(proc.pid, signal.SIGCONT)
-            except (ProcessLookupError, TypeError):
-                pass
-        pool.terminate()
-        pool.join()
+        cycles = end()
     print(f"f4_repack: {bad} of {len(pending) + len(todo) * (args.repeat - 1)}"
-          f" packs differ from the first in-process pack; {cycles[0]} "
-          f"stop/continue cycles; "
+          f" packs differ from the first in-process pack; {cycles}; "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     return 1 if bad else 0
 
