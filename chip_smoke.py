@@ -125,6 +125,24 @@
    bytes against the 1x1 run's, ms per decode step (correctness only)
    and the phase's seconds (budget 90 s; the pool paused while the
    ranks serve).
+5a''. Mesh training (``mesh_train_phase``, inside the train phase, after
+   5a'): from the overfit's params and AdamW state (qwen1.5-0.5b at full
+   width, :data:`QWEN_LAYERS` deep, f32 with TF32 off), 2 steps on fresh
+   batches of 8 x 256 on the 1x1 mesh in this process (the yardstick),
+   then on four gloo ranks sharing the card on meshes (2, 2), (1, 4)
+   and (4, 1) under the throughput posture (FSDP over 'data', column- and
+   row-parallel linears and a vocab-parallel loss over 'model', sharded
+   AdamW and clipping).  Every rank's losses must be the same bits and
+   within 1e-5 relative of 1x1's, the pre-clip norm within 1e-6, the
+   params, ``m`` and ``v`` after the steps within 1e-5 of each tree's
+   largest magnitude (each rank's shards against the same slices of
+   1x1's), and ``ef_allreduce`` over (2, 2)'s 'data' groups on layer 0's
+   gradient the reference's formula (int32 code sums and residuals
+   bitwise, the result within 1 ulp).  Prints whether ``gloo``
+   all-reduces CUDA tensors natively, each rank's params + ``m`` + ``v``
+   bytes against 1x1's, ms per step per rank (correctness only) and the
+   phase's seconds (budget 60 s; the pool paused while the ranks train).
+   No SME kernel runs here: training takes dense weights.
 5b. The paper's CNNs (``cnn_phase``; the reference's CNN task,
    ``benchmarks/_cnn_task.py``: ResNet widths (32, 64, 128, 128),
    MobileNet (32, 64, 96, 128), 12x12 images, 512 to train at seed 0, 384
@@ -286,7 +304,8 @@
    self and cross caches per rank against 1x1, ms per decode step
    (correctness only), the launches per kernel and the phase's seconds
    (budget 60 s).
-10. Prints the compile, train, cnn, gemma, slice (7' under ``mesh``),
+10. Prints the compile, train (5a' under ``mesh``, 5a'' under
+   ``mesh_train``), cnn, gemma, slice (7' under ``mesh``),
    recurrent (8' under ``mesh``) and encdec (9' under ``mesh``) readings
    as JSON, the
    kernels JSON line (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
@@ -1760,6 +1779,8 @@ def train_phase(dev, card):
         for i in range(OVERFIT_STEPS):
             params, state, loss = step(params, state, i, fixed)
             fit.append(float(loss))
+        # the mesh training phase (5a'') starts from the overfit's state
+        fit_state = (params, state)
         del state
         check(all(np.isfinite(fit)), f"overfit losses {fit}")
         check(fit[-1] < fit[0] / 2, f"overfit: the loss went {fit[0]:.4f} "
@@ -1841,6 +1862,10 @@ def train_phase(dev, card):
             {be: tokens for be, (_, tokens) in served.items()},
             (toks, plen, lk))
         del served, lk
+        free_card()
+        out["mesh_train"] = mesh_train_phase(dev, card, tmp, cfg,
+                                             *fit_state)
+        del fit_state
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -2117,6 +2142,343 @@ def mesh_phase(dev, card, tmp, cfg, prompts, want, window):
     print(f"mesh: phase {out['phase_s']:.1f}s of its 90 s budget "
           f"({serve_s:.1f}s of gloo serving, the pool paused)", flush=True)
     return out, launches
+
+
+# ------------------------------------------------------- mesh training
+#: phase 5a'': the meshes the gloo ranks train on, each over the same
+#: four ranks sharing the one card
+MESH_TRAIN = ((2, 2), (1, 4), (4, 1))
+#: steps of every run, from the overfit's params and AdamW state on fresh
+#: batches of the train phase's global 8 x 256
+MESH_TRAIN_STEPS = 2
+#: a loss's and the pre-clip norm's relative difference to 1x1's, and a
+#: tree's (params, m, v) largest difference over its largest magnitude
+TOL_MESH_LOSS, TOL_MESH_NORM, TOL_MESH_TREE = 1e-5, 1e-6, 1e-5
+
+
+def mesh_train_steps(api, params, state, batches, mesh, ef=False):
+    """:data:`MESH_TRAIN_STEPS` steps of ``make_train_step(mesh=)`` with
+    the overfit's AdamW from its step count on: (the losses, the pre-clip
+    norms, ms per step, params, state, with ``ef`` the first step's
+    gradient shards of layer 0)."""
+    from repro_torch.optim import adamw, global_norm
+    from repro_torch.train import make_train_step
+    norms, kept = [], {}
+    opt = adamw(OVERFIT_LR)
+
+    def update(grads, state, params, i):
+        norms.append(global_norm(grads))
+        if ef and not kept:
+            kept["g"] = grads["blocks"][0]
+        return opt.update(grads, state, params, i)
+    step = make_train_step(api.train_loss,
+                           dataclasses.replace(opt, update=update), 1,
+                           mesh=mesh)
+    losses, ms = [], []
+    for i, batch in enumerate(batches):
+        sync(mesh.device)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, OVERFIT_STEPS + i, batch)
+        sync(mesh.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    return dict(losses=[float(x) for x in losses],
+                norms=[float(x) for x in norms], ms=ms, params=params,
+                state=state, g=kept.get("g"))
+
+
+def cut_index(cut) -> tuple:
+    """The index of this rank's shard in a leaf of ``cut``'s shape."""
+    idx = []
+    for dim, ax in zip(cut.shape, cut.spec):
+        n = cut.mesh.shape[ax] if ax else 1
+        i = cut.mesh.index(ax) if n > 1 else 0
+        idx.append(slice(i * dim // n, (i + 1) * dim // n))
+    return tuple(idx)
+
+
+def warm_up(dev) -> None:
+    """One plain train step of qwen's 2-layer smoke config on ``dev``: a
+    fresh process's first launches (library handles, kernel modules)
+    before its timed steps."""
+    from repro_torch.configs import ARCHS, scale_down
+    from repro_torch.core.integrate import to_torch
+    from repro_torch.data import lm_batches
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    small = scale_down(ARCHS["qwen1.5-0.5b"], n_layers=2, dtype="float32")
+    params = to_torch(init_params(small, np.random.default_rng(SEED)), dev)
+    opt = adamw(OVERFIT_LR)
+    step = make_train_step(build_model(small, device=dev).train_loss, opt)
+    step(params, opt.init(params), 0,
+         next(lm_batches(small.vocab, 8, 256, seed=SEED)))
+    sync(dev)
+
+
+def mesh_train_rank(rank, world, store, tmp, cfg, device):
+    """One of the four gloo ranks on the one card: probe gloo's CUDA
+    all-reduce, then train :data:`MESH_TRAIN` from ``tmp/start.pt`` and
+    hold each rank's shards of the trees after the steps against the same
+    slices of the 1x1 run's (``tmp/end.pt``): the gathered trees'
+    difference, taken where each part lives; ``ef_allreduce`` over the
+    (2, 2) 'data' group on layer 0's gradient.  The results go to
+    ``tmp/train{rank}.pt``."""
+    import os
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.compress import ef_allreduce, zeros_like_resid
+    from repro_torch.parallel.sharding import cut_of, place_throughput
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    tmp = pathlib.Path(tmp)
+    out = {"runs": {}}
+    x = torch.ones(4, device=dev)
+    try:
+        dist.all_reduce(x)
+        out["all_reduce"] = "native" if float(x[0]) == world else \
+            f"wrong sum {float(x[0])}"
+    except Exception as e:                          # noqa: BLE001
+        out["all_reduce"] = f"refused ({type(e).__name__}: {str(e)[:80]})"
+    api = build_model(cfg, device=dev)
+    start = torch.load(tmp / "start.pt", mmap=True, weights_only=False)
+    t0 = time.perf_counter()
+    warm_up(dev)
+    out["warm_up"] = time.perf_counter() - t0
+    (tmp / f"ready{rank}").touch()
+    while not (tmp / "go").exists():
+        time.sleep(0.05)
+    # written by the phase, while the ranks started, before the go
+    end = torch.load(tmp / "end.pt", mmap=True, weights_only=False)
+    out["place"], out["compare"] = {}, {}
+    for shape in MESH_TRAIN:
+        t0 = time.perf_counter()
+        mesh = make_local_mesh(*shape, device=dev)
+        params = place_throughput(start["params"], mesh)
+        state = {k: place_throughput(start[k], mesh) for k in ("m", "v")}
+        nbytes = tree_bytes(params) + tree_bytes(state)
+        sync(dev)
+        out["place"][shape] = time.perf_counter() - t0
+        run = mesh_train_steps(api, params, state, start["batches"], mesh,
+                               ef=shape == (2, 2))
+        t0 = time.perf_counter()
+        errs = {}
+        for name, got in (("params", run["params"]),
+                          ("m", run["state"]["m"]),
+                          ("v", run["state"]["v"])):
+            want = flatten(end[name])
+            errs[name] = max(float((t - want[k][cut_index(cut_of(t))]
+                                    .to(dev)).abs().max())
+                             for k, t in flatten(got).items())
+        out["compare"][shape] = time.perf_counter() - t0
+        res = dict(losses=run["losses"], norms=run["norms"], ms=run["ms"],
+                   bytes=nbytes, errs=errs)
+        if run["g"] is not None:
+            g = run["g"]
+            deq, resid = ef_allreduce(g, zeros_like_resid(g), "data", mesh)
+            res["ef"] = {k: {n: x.detach().cpu()
+                             for n, x in flatten(t).items()}
+                         for k, t in (("g", g), ("deq", deq),
+                                      ("resid", resid))}
+        out["runs"][shape] = res
+        del params, state, run
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["jax"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "repro"))
+    torch.save(out, tmp / f"train{rank}.pt")
+    dist.destroy_process_group()
+    os._exit(0)
+
+
+def ef_check(ranks, shape):
+    """``ef_allreduce`` over each 'data' group of ``shape`` against the
+    reference's formula in numpy from every rank's gradient: the int32
+    code sums bitwise, the result within 1 ulp, each rank's residual
+    bitwise; returns the number of values checked."""
+    data, model = shape
+    n = 0
+    for r, out in enumerate(ranks):
+        group = [d * model + r % model for d in range(data)]
+        ef = out["runs"][shape]["ef"]
+        for k, got in ef["deq"].items():
+            codes, scales = [], []
+            for i in group:
+                x = ranks[i]["runs"][shape]["ef"]["g"][k].numpy()
+                s = np.float32(max(np.abs(x).max(), np.float32(1e-12))
+                               / np.float32(127.0))
+                q = np.clip(np.round(x / s), -127, 127).astype(np.int8)
+                codes.append(q)
+                scales.append(s)
+                if i == r:
+                    want_r = x - q.astype(np.float32) * s
+            summed = np.sum(np.stack(codes).astype(np.int32), axis=0)
+            scale = np.float32(np.float32(sum(scales, np.float32(0)))
+                               / np.float32(data))
+            want = summed.astype(np.float32) * scale / np.float32(data)
+            got = got.numpy()
+            check(np.array_equal(np.rint(got * data / scale).astype(np.int32),
+                                 summed),
+                  f"ef_allreduce {k} on rank {r}: the int32 sums differ")
+            check(bool(np.all(np.abs(got - want) <= np.spacing(
+                np.abs(want).astype(np.float32)))),
+                  f"ef_allreduce {k} on rank {r}: beyond 1 ulp of the "
+                  f"formula")
+            check(np.array_equal(ef["resid"][k].numpy(), want_r),
+                  f"ef_allreduce {k} on rank {r}: the residual differs")
+            n += got.size
+    return n
+
+
+def mesh_train_phase(dev, card, tmp, cfg, params, state):
+    """Phase 5a'': :data:`MESH_TRAIN_STEPS` steps from the overfit's
+    params and AdamW state on the 1x1 mesh in this process (the
+    yardstick), then on :data:`MESH_TRAIN` on four gloo ranks sharing the
+    card, the throughput posture in f32 with TF32 off (correctness only:
+    gloo carries CUDA tensors through host memory).  Every rank's losses
+    must be the same bits, within :data:`TOL_MESH_LOSS` of 1x1's, the
+    pre-clip norm within :data:`TOL_MESH_NORM`, the params and m/v after
+    the steps within :data:`TOL_MESH_TREE` of each tree's largest
+    magnitude, and ``ef_allreduce`` over (2, 2)'s 'data' groups the
+    reference's formula.  Returns the readings."""
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    # a directory of its own: phase 5a' left its ranks' ready and go files
+    tmp = tmp / "mesh-train"
+    tmp.mkdir()
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    api = build_model(cfg, device=dev)
+    data = lm_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 7)
+    batches = [next(data) for _ in range(MESH_TRAIN_STEPS)]
+    parts = {}
+    t0 = time.perf_counter()
+    host = {"params": tree_map(lambda t: t.cpu(), params),
+            **{k: tree_map(lambda t: t.cpu(), v) for k, v in state.items()},
+            "batches": batches}
+    torch.save(host, tmp / "start.pt")
+    del host
+    parts["write start"] = time.perf_counter() - t0
+    with quiet():                # its ms per step are readings
+        one = mesh_train_steps(api, params, state, batches,
+                               Mesh(1, 1, device=dev))
+    end = {"params": one["params"], **one["state"]}
+    tops = {k: max(float(t.abs().max()) for t in tree_leaves(v))
+            for k, v in end.items()}
+    nbytes = tree_bytes(one["params"]) + tree_bytes(one["state"])
+    out = {"1x1": dict(losses=one["losses"], norms=one["norms"],
+                       ms=one["ms"], bytes=nbytes), "runs": {}}
+    del one
+    print(f"mesh-train[1x1]: {MESH_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} from the overfit's params and AdamW state (f32, "
+          f"TF32 off): losses {out['1x1']['losses']}, pre-clip norms "
+          f"{out['1x1']['norms']}, "
+          f"{', '.join(f'{t:.1f}' for t in out['1x1']['ms'])} ms per step, "
+          f"params + m + v {nbytes / 2 ** 20:.1f} MiB | {card}", flush=True)
+    # the ranks start (import, card, warm-up) while this process writes
+    # the 1x1 result they are held to
+    t_spawn = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        mesh_train_rank, args=(MESH_RANKS, str(tmp / "gloo-train"),
+                               str(tmp), cfg, str(dev)),
+        nprocs=MESH_RANKS, join=False, start_method="spawn")
+    try:
+        t0 = time.perf_counter()
+        torch.save({k: tree_map(lambda t: t.cpu(), v)
+                    for k, v in end.items()}, tmp / "end.pt")
+        del end
+        free_card()
+        parts["write end"] = time.perf_counter() - t0
+        while not all((tmp / f"ready{r}").exists()
+                      for r in range(MESH_RANKS)):
+            check(all(p.is_alive() for p in ctx.processes),
+                  "a mesh training rank died before training")
+            time.sleep(0.1)
+        t_ready = time.perf_counter()
+        parts["ranks ready"] = t_ready - t_spawn
+        # the pool pauses while the ranks train: their ms are readings
+        with quiet():
+            (tmp / "go").touch()
+            while not ctx.join(timeout=1):
+                pass
+        train_s = time.perf_counter() - t_ready
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(tmp / f"train{r}.pt", weights_only=False)
+             for r in range(MESH_RANKS)]
+    print(f"mesh-train: gloo's all_reduce on CUDA tensors here: "
+          f"{ranks[0]['all_reduce']}", flush=True)
+    check(all(r["all_reduce"] == "native" for r in ranks),
+          "gloo refused to all-reduce a CUDA tensor")
+    check(all(r["jax"] == [] for r in ranks),
+          "a mesh training rank imported jax")
+    for shape in MESH_TRAIN:
+        label = f"{shape[0]}x{shape[1]}"
+        runs = [r["runs"][shape] for r in ranks]
+        for i, run in enumerate(runs):
+            check(run["losses"] == runs[0]["losses"],
+                  f"mesh-train {label}: rank {i}'s losses differ from rank "
+                  f"0's")
+        rel = [abs(a / b - 1) for a, b in zip(runs[0]["losses"],
+                                             out["1x1"]["losses"])]
+        nrel = [abs(a / b - 1) for a, b in zip(runs[0]["norms"],
+                                              out["1x1"]["norms"])]
+        check(max(rel) <= TOL_MESH_LOSS, f"mesh-train {label}: losses "
+              f"{runs[0]['losses']} vs 1x1 {out['1x1']['losses']}")
+        check(max(nrel) <= TOL_MESH_NORM, f"mesh-train {label}: pre-clip "
+              f"norms {runs[0]['norms']} vs 1x1 {out['1x1']['norms']}")
+        errs = {k: max(run["errs"][k] for run in runs) / tops[k]
+                for k in tops}
+        for k, e in errs.items():
+            check(e <= TOL_MESH_TREE, f"mesh-train {label}: {k} differs "
+                  f"from 1x1 by {e:.3e} of its largest magnitude")
+        frac = [run["bytes"] / out["1x1"]["bytes"] for run in runs]
+        out["runs"][label] = dict(losses=runs[0]["losses"],
+                                  loss_rel=rel, norm_rel=nrel, tree=errs,
+                                  bytes=[run["bytes"] for run in runs],
+                                  frac=frac,
+                                  ms=[run["ms"] for run in runs])
+        print(f"mesh-train[{label}]: 4 ranks, every rank's losses the same "
+              f"bits; vs 1x1: losses {max(rel):.2e}, pre-clip norm "
+              f"{max(nrel):.2e} relative, params / m / v "
+              f"{errs['params']:.2e} / {errs['m']:.2e} / {errs['v']:.2e} "
+              f"of each tree's largest magnitude; params + m + v per rank "
+              f"{', '.join(f'{b / 2 ** 20:.1f}' for b in out['runs'][label]['bytes'])} "
+              f"MiB against 1x1's {out['1x1']['bytes'] / 2 ** 20:.1f} MiB "
+              f"({', '.join(f'{f:.3f}' for f in frac)}); ms per step per "
+              f"rank {[[round(t, 1) for t in run['ms']] for run in runs]} "
+              f"(gloo, 4 ranks on one card: correctness only) | {card}",
+              flush=True)
+    n = ef_check(ranks, (2, 2))
+    out["ef_values"] = n
+    print(f"mesh-train: ef_allreduce over the 'data' groups of 2x2 on "
+          f"layer 0's gradient ({n} values over 4 ranks): the int32 code "
+          f"sums bitwise, within 1 ulp of the formula, residuals bitwise",
+          flush=True)
+    out["train_s"] = train_s
+    out["parts"] = parts
+    parts["warm-up (rank 0)"] = ranks[0]["warm_up"]
+    for k in ("place", "compare"):
+        parts[f"{k} (rank 0)"] = sum(ranks[0][k].values())
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh-train: phase {out['phase_s']:.1f}s of its 60 s budget "
+          f"({train_s:.1f}s of gloo training, the pool paused; "
+          f"{', '.join(f'{k} {v:.1f}s' for k, v in parts.items())})",
+          flush=True)
+    return out
 
 
 # -------------------------------------------------------------- the CNNs

@@ -11,7 +11,10 @@ orders devices), its device and one process group per axis.  Its two
 collectives are every collective the port runs while serving:
 :meth:`Mesh.gather` (an all-gather, then a concatenation) and
 :meth:`Mesh.broadcast` (a select of one rank's tensor).  Neither sums, so
-no float reduction ever crosses a rank (DESIGN.md §7).  ``gloo`` takes
+no float reduction ever crosses a rank (DESIGN.md §7).  Training under
+the throughput posture also sums: :meth:`Mesh.all_reduce` (a sum, or a
+max) and :meth:`Mesh.reduce_scatter` (this rank's part of a sum); the
+exact posture never calls them.  ``gloo`` takes
 CUDA tensors too (on the card host's torch 2.11; it copies them through
 host memory itself, so ranks sharing one card over ``gloo`` check
 correctness, not speed).
@@ -86,6 +89,31 @@ class Mesh:
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=self.groups[axis])
         return torch.cat(parts, dim=dim)
+
+    def all_reduce(self, x: torch.Tensor, axis: str,
+                   op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the maximum) of every rank's ``x`` along
+        ``axis`` (``"world"``: every rank), a new tensor; ``x`` itself on
+        an axis of one rank."""
+        if (self.size if axis == "world" else self.shape[axis]) == 1:
+            return x
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.groups[axis])
+        return x
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        """This rank's part along ``dim`` of the sum of every rank's ``x``
+        along ``axis`` (the parts in coordinate order, as :meth:`gather`
+        joins them): an all-reduce, then a slice, so that any backend
+        that all-reduces a tensor on its device serves it."""
+        n = self.shape[axis]
+        if n == 1:
+            return x
+        step = x.shape[dim] // n
+        return self.all_reduce(x, axis).narrow(
+            dim, self.index(axis) * step, step).contiguous()
 
     def broadcast(self, x: torch.Tensor, axis: str = "world",
                   src: int = 0) -> torch.Tensor:

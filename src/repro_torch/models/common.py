@@ -7,7 +7,8 @@ Checked against ``repro/models/common.py``: ``rmsnorm``, ``layernorm``
 ``norm_pos_active`` compute the same functions in the same dtypes.  GELU is the tanh approximation, ``jax.nn.gelu``'s default.  SME-packed weights dispatch through
 ``core.backend.sme_apply``; ``backend`` is passed down explicitly.  On a
 serving mesh ``linear`` gathers a column-split weight's output
-(``parallel.policy.constrain``).
+(``parallel.policy.constrain``); under the throughput posture (mesh
+training) a split weight goes to ``parallel.policy.throughput_linear``.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.backend import sme_apply
-from ..parallel.policy import constrain
+from ..parallel.policy import (constrain, throughput, throughput_linear,
+                               whole_param)
+from ..parallel.sharding import split_of
 
 __all__ = ["rmsnorm", "layernorm", "apply_norm", "linear", "mlp_apply",
            "rope_freqs", "apply_rope", "sinusoidal_pos", "norm_pos_active"]
@@ -38,7 +41,7 @@ def rmsnorm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * p["w"].float()).to(dt)
+    return (x * whole_param(p["w"]).float()).to(dt)
 
 
 def layernorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
@@ -62,8 +65,12 @@ def linear(x: torch.Tensor, p: dict, backend: Optional[str] = None
     """x @ w (+ b); SME-packed weights go through ``sme_apply``.  On a
     mesh the left operand is always whole (``constrain(x, "lhs")``, the
     reference's ``common.py:85-88``) and a column-split weight's output
-    features (its bias cut the same way) are gathered over 'model'."""
+    features (its bias cut the same way) are gathered over 'model'; under
+    the throughput posture a column- or row-split weight computes as
+    ``throughput_linear`` says."""
     we = p["w"]
+    if throughput() is not None and split_of(we) is not None:
+        return throughput_linear(x, we, p.get("b"))
     x = constrain(x, "lhs")
     if isinstance(we, dict):
         y = sme_apply(x, we, backend, out_dtype=x.dtype)

@@ -19,7 +19,9 @@ pos, nvalid, active, gated)`` (``make_decode_chunk``) and
 ``init_cache(batch, s_max, src_len=None)`` and ``train_loss(params,
 batch)``, the scalar training loss of a batch dict (``tokens``,
 ``labels``, optional ``mask``, ``patches`` or ``frames``, numpy or
-torch) on dense params, differentiable by autograd.  Token and position inputs
+torch) on dense params, differentiable by autograd (on a mesh under
+the throughput posture, the dense decoder-only family only:
+:func:`check_mesh_training`).  Token and position inputs
 may be numpy arrays; they are moved to the model's device.  ``backend``
 picks the SME backend for packed weights (None: the first of v2, v3, v1
 whose operands the weights carry, else torch).  Still refused: MLP
@@ -33,10 +35,28 @@ from typing import Callable, Optional
 import torch
 
 from ..device import resolve_device
+from ..parallel.policy import throughput
 from . import encdec as ed
 from . import transformer as tf
 
-__all__ = ["ModelAPI", "build_model", "init_params", "make_decode_chunk"]
+__all__ = ["ModelAPI", "build_model", "init_params", "make_decode_chunk",
+           "check_mesh_training"]
+
+
+def check_mesh_training(cfg) -> None:
+    """Raise ``ValueError`` unless ``cfg`` is of the family that trains on
+    a mesh of more than one rank: the dense decoder-only one (GQA, no
+    frontend).  The others wait for ROADMAP §1's open item 2."""
+    what = ("the encoder-decoder family" if cfg.n_enc_layers else
+            "the vision frontend" if cfg.frontend else
+            "MLA" if cfg.attn_type == "mla" else
+            f"the {cfg.family} family" if cfg.family != "dense" else None)
+    if what is not None:
+        raise ValueError(
+            f"{cfg.name}: mesh training covers the dense decoder-only "
+            f"family; {what} waits for ROADMAP §1, open item 2 (mesh "
+            f"training of the MoE, MLA, recurrent, encoder-decoder and "
+            f"vision families)")
 
 
 def make_decode_chunk(decode_step: Callable) -> Callable:
@@ -116,6 +136,9 @@ class ModelAPI:
         ``train_loss``): ``tokens`` [B, S] and ``labels``, and ``mask``,
         a vision model's ``patches`` or an enc-dec model's ``frames``
         where given.  Dense params only."""
+        mesh = throughput()
+        if mesh is not None and mesh.size > 1:
+            check_mesh_training(self.cfg)
         tokens, labels = self._ids(batch["tokens"]), self._ids(
             batch["labels"])
         opt = {k: torch.as_tensor(batch[k], device=self.device).float()

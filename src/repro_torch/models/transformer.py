@@ -36,7 +36,11 @@ Training (``lm_train_loss``) runs every layer as ``blocks.block_train``
 chunked cross-entropy: the head's logits are built one sequence chunk at
 a time, each chunk under ``torch.utils.checkpoint``, so autograd keeps
 no [B, S, V] logits (the reference's reason for chunking).  Training is
-over dense weights: a packed (``sme_*``) leaf is refused.
+over dense weights: a packed (``sme_*``) leaf is refused.  Under the
+throughput posture (mesh training, ``parallel.policy``) a vocab-split
+head's loss is vocab-parallel: each chunk's max, sum of exponentials and
+gold logit are reduced over 'model', and the loss is this rank's rows'
+masked sum over the token count of every 'data' rank's rows.
 """
 from __future__ import annotations
 
@@ -47,7 +51,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.backend import sme_apply
-from ..parallel.policy import constrain, embed_rows
+from ..parallel.policy import (constrain, data_total, embed_rows,
+                               enter_model, max_model, reduce_model,
+                               throughput)
+from ..parallel.sharding import split_of
 from .blocks import (SSM_KINDS, block_decode, block_prefill, block_train,
                      init_block_cache)
 from .common import linear, rmsnorm
@@ -311,12 +318,18 @@ def dense_only(params, path: str = "") -> None:
             dense_only(v, f"{path}/{i}")
 
 
-def _lm_head(params, cfg) -> torch.Tensor:
-    """The training head [D, V]: the tied table's transpose rescaled by
-    1/sqrt(D) (in f32, as the reference does), or the untied head."""
+def _lm_head(params, cfg):
+    """(The training head [D, V]: the tied table's transpose rescaled by
+    1/sqrt(D) (in f32, as the reference does), or the untied head; the
+    first vocab column this rank holds, or None when the vocab is
+    whole)."""
+    w = params["embed"]["w"] if cfg.tie_embeddings else \
+        params["lm_head"]["w"]
+    sp = split_of(w)
+    start = None if sp is None else sp.start
     if cfg.tie_embeddings:
-        return params["embed"]["w"].T * (cfg.d_model ** -0.5)
-    return params["lm_head"]["w"]
+        return w.T * (cfg.d_model ** -0.5), start
+    return w, start
 
 
 def _ce_chunk(hx, head_w, lx, mx):
@@ -326,21 +339,47 @@ def _ce_chunk(hx, head_w, lx, mx):
     return ((lse - gold) * mx).sum()
 
 
-def chunked_ce_loss(h, head_w, labels, mask, chunk: int = 128):
+def _ce_chunk_split(hx, head_w, lx, mx, start: int, mesh):
+    """``_ce_chunk`` over this rank's vocab columns [start, start + n) of
+    a vocab-split head: the max, the sum of exponentials and the gold
+    logit reduced over ``mesh``'s 'model' axis (named here: a recomputed
+    chunk runs in the backward's thread, which sees no policy)."""
+    logits = (hx @ head_w.to(hx.dtype)).float()
+    n = logits.shape[-1]
+    top = max_model(logits.amax(dim=-1), mesh)
+    lse = top + torch.log(reduce_model(
+        torch.exp(logits - top[..., None]).sum(dim=-1), mesh))
+    own = (lx >= start) & (lx < start + n)
+    gold = torch.gather(logits, -1, (lx - start).clamp(0, n - 1)[..., None]
+                        )[..., 0]
+    gold = reduce_model(torch.where(own, gold, torch.zeros_like(gold)),
+                        mesh)
+    return ((lse - gold) * mx).sum()
+
+
+def chunked_ce_loss(h, head_w, labels, mask, chunk: int = 128,
+                    vocab_start: Optional[int] = None):
     """h [B, S, D] -> the mean cross-entropy over ``mask``, the logits of
-    one ``chunk`` of positions at a time (recomputed in the backward)."""
+    one ``chunk`` of positions at a time (recomputed in the backward).
+    ``vocab_start``: the first vocab column of a vocab-split ``head_w``
+    (throughput posture), whose loss is vocab-parallel.  Under the
+    throughput posture the count is every 'data' rank's."""
     s = h.shape[1]
     chunk = min(chunk, s)
     remat = torch.is_grad_enabled() and (h.requires_grad
                                          or head_w.requires_grad)
+    fn, extra = _ce_chunk, ()
+    if vocab_start is not None:
+        h, fn = enter_model(h), _ce_chunk_split
+        extra = (vocab_start, throughput())
     tot = cnt = 0
     for c0 in range(0, s, chunk):
         args = (h[:, c0:c0 + chunk], head_w, labels[:, c0:c0 + chunk],
-                mask[:, c0:c0 + chunk])
-        tot = tot + (checkpoint(_ce_chunk, *args, use_reentrant=False)
-                     if remat else _ce_chunk(*args))
+                mask[:, c0:c0 + chunk]) + extra
+        tot = tot + (checkpoint(fn, *args, use_reentrant=False)
+                     if remat else fn(*args))
         cnt = cnt + args[3].sum()
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot / torch.clamp(data_total(cnt), min=1.0)
 
 
 def lm_train_loss(params, tokens: torch.Tensor, labels: torch.Tensor, cfg,
@@ -360,5 +399,6 @@ def lm_train_loss(params, tokens: torch.Tensor, labels: torch.Tensor, cfg,
                           device=labels.device)
     if x.shape[1] != labels.shape[1]:
         x = x[:, x.shape[1] - labels.shape[1]:]
-    return chunked_ce_loss(x, _lm_head(params, cfg), labels, mask,
-                           loss_chunk)
+    head_w, start = _lm_head(params, cfg)
+    return chunked_ce_loss(x, head_w, labels, mask, loss_chunk,
+                           start if throughput() is not None else None)

@@ -11,6 +11,12 @@ arithmetic, so a state written by either package resumes in the other.
 Not ``torch.optim``: its update order and state layout are its own.
 Updates run under ``torch.no_grad`` and return new tensors; the schedules
 are numpy f32 scalars of a Python step.
+
+On a mesh (a tree of throughput shards, each carrying its
+``parallel.sharding.Cut``) the updates are elementwise on the shards and
+``global_norm`` is the whole tree's: each leaf's sum of squares counts
+once over the ranks that hold the same part of it, and the parts' sums
+are added over every rank.
 """
 from __future__ import annotations
 
@@ -20,10 +26,11 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.sharding import cut_of
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["adamw", "sgd", "lion", "cosine_schedule", "linear_warmup",
-           "clip_by_global_norm", "Optimizer"]
+           "clip_by_global_norm", "global_norm", "Optimizer"]
 
 _F = np.float32
 
@@ -35,13 +42,31 @@ class Optimizer:
     """update(grads, state, params, step) -> (new_params, new_state)"""
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled to a global L2 norm of at most ``max_norm``, the norm
-    before clipping as an f32 0-d tensor)."""
+def global_norm(grads) -> torch.Tensor:
+    """The L2 norm of every leaf of ``grads`` as an f32 0-d tensor; of the
+    whole tree for throughput shards (each part counted once, the sums
+    added over every rank)."""
     with torch.no_grad():
         leaves = tree_leaves(grads)
-        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                            for g in leaves))
+        cuts = [cut_of(g) for g in leaves]
+        if all(c is None for c in cuts):
+            return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                  for g in leaves))
+        if any(c is None for c in cuts):
+            raise ValueError("a tree of throughput shards holds a leaf "
+                             "without its Cut")
+        # from a 0-d zero: a rank may hold no counted part
+        sq = sum((torch.sum(torch.square(g.float())) for g, c in
+                  zip(leaves, cuts) if c.counted()),
+                 torch.zeros((), device=leaves[0].device))
+        return torch.sqrt(cuts[0].mesh.all_reduce(sq, "world"))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global L2 norm of at most ``max_norm``, the norm
+    before clipping as an f32 0-d tensor; :func:`global_norm`)."""
+    with torch.no_grad():
+        gn = global_norm(grads)
         scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
         return tree_map(lambda g: (g.float() * scale).to(g.dtype),
                         grads), gn

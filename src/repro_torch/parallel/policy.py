@@ -34,7 +34,41 @@ vocab-split embedding: each rank reads the rows it owns, and the owner's
 row is **selected** from the gathered parts, never summed.  Every
 collective is a gather or a select, so the tokens and f32 logits equal
 the 1x1 mesh's bitwise.  Outside a policy, and on a 1x1 mesh, nothing
-is split and every kind is a no-op.
+is split and every kind is a no-op.  That is the **exact** posture
+(``exact=True``, the serving engine's).
+
+Training runs under the **throughput** posture (``exact=False``, the
+reference's ``policy_for(mesh, cfg, "train")``; DESIGN.md §7): its
+leaves are cut by ``sharding.place_throughput``, and its collectives sum,
+so its results equal the 1x1 step's only up to the reassociation of
+float sums.  Four autograd functions carry them, each backward following
+from the rule that activations are whole and replicated at every op
+boundary:
+
+  * :func:`enter_model` (forward the identity, backward an all-reduce
+    over 'model'): a replicated activation feeding a column- or
+    row-split weight gets only a partial gradient on each rank;
+  * :func:`gather_model` (forward an all-gather over 'model', backward
+    this rank's slice of the replicated gradient);
+  * :func:`reduce_model` (forward an all-reduce of a row-split product's
+    partial sums over 'model', backward the identity);
+  * :func:`gather_data` (forward an all-gather of an FSDP shard into the
+    whole leaf over 'data', backward a reduce-scatter: the gradient's
+    data-parallel sum; a leaf whole over 'data' enters instead, its
+    gradient all-reduced over 'data').
+
+None of them runs under the exact posture.  Under the throughput posture
+a layer's norm weight is read whole (:func:`whole_param`),
+``common.linear`` sends a split weight to :func:`throughput_linear` (a
+column split's product gathered; a row split's partial products reduced,
+then the bias added once), :func:`embed_rows` gathers its parts with a
+backward (still a select), and ``transformer.chunked_ce_loss`` computes
+the loss vocab-parallel over a vocab-split head (per-chunk max, sum of
+exponentials and gold logit, each reduced over 'model': no [B, chunk, V]
+logits are gathered), its token count summed over 'data'
+(:func:`data_total`).  Attention computes every head whole (q, k, v are
+gathered), as in serving, so ``heads_tp`` and the SP ``seq_axis`` change
+nothing in the port.
 """
 from __future__ import annotations
 
@@ -47,12 +81,14 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .sharding import shard_shape, split_of, state_spec
+from .sharding import Split, shard_shape, split_of, state_spec
 
 __all__ = ["ShardPolicy", "use_policy", "constrain", "current_policy",
            "policy_for", "embed_rows", "expert_rows", "local_heads",
            "row_start", "whole_state", "state_part", "state_shape",
-           "whole_weight"]
+           "whole_weight", "throughput", "enter_model", "gather_model",
+           "reduce_model", "max_model", "data_total", "gather_data",
+           "model_split", "throughput_linear", "whole_param"]
 
 _POLICY: contextvars.ContextVar = contextvars.ContextVar(
     "shard_policy", default=None)
@@ -121,14 +157,16 @@ def _mesh():
 def _gather_split(x: torch.Tensor, split, dim: int) -> torch.Tensor:
     """The whole of ``x``, split like ``split`` on ``dim``: every rank's
     part padded to ``split.step`` (a ragged last column tile), gathered
-    over 'model', cut to ``split.full``."""
+    over 'model' (with a backward under the throughput posture), cut to
+    ``split.full``."""
     mesh = _mesh()
     dim = dim % x.dim()
     short = split.step - x.shape[dim]
     if short:
         pad = [0, 0] * (x.dim() - 1 - dim) + [0, short]
         x = F.pad(x, pad)
-    y = mesh.gather(x, "model", dim)
+    y = mesh.gather(x, "model", dim) if throughput() is None else \
+        gather_model(x, dim)
     return y.narrow(dim, 0, split.full) if y.shape[dim] != split.full else y
 
 
@@ -285,14 +323,176 @@ def expert_rows(h: torch.Tensor, w) -> torch.Tensor:
 def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` for a table whose vocab rows may be split over
     'model': each rank looks up the rows it owns (a clamped index
-    elsewhere), the parts are gathered, and each id's owner's row is
-    selected from them, never summed."""
+    elsewhere), the parts are gathered (with a backward under the
+    throughput posture), and each id's owner's row is selected from them,
+    never summed."""
     sp = split_of(table)
     if sp is None:
         return table[ids]
     mesh = _mesh()
     local = table[(ids - sp.start).clamp(0, table.shape[0] - 1)]
-    parts = mesh.gather(local[None], "model", 0)       # [model, *ids, D]
+    # [model, *ids, D]
+    parts = mesh.gather(local[None], "model", 0) if throughput() is None \
+        else gather_model(local[None], 0)
     owner = (ids // sp.step).clamp(max=parts.shape[0] - 1)
     idx = owner[None, ..., None].expand((1,) + local.shape)
     return torch.gather(parts, 0, idx)[0]
+
+
+# ------------------------------------------------- the throughput posture
+
+def throughput():
+    """The mesh of the current throughput policy; None without a policy
+    or a mesh, and under the exact posture."""
+    pol = current_policy()
+    if pol is None or pol.exact or pol.mesh is None:
+        return None
+    return pol.mesh
+
+
+def _tp_mesh():
+    mesh = throughput()
+    if mesh is None:
+        raise RuntimeError("a summing collective outside a throughput "
+                           "ShardPolicy: the exact posture never sums")
+    return mesh
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.axis), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.start = mesh.index(axis) * ctx.n
+        return mesh.gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.start, ctx.n).contiguous(), None,
+                None, None)
+
+
+class _GatherScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.reduce_scatter(g, ctx.axis, ctx.dim), None, None,
+                None)
+
+
+def enter_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x`` entering a model-split op: the identity, whose backward sums
+    the ranks' partial gradients over 'model'.  ``mesh``: the throughput
+    policy's by default (pass it where the call may run in the backward,
+    a recomputed checkpoint, whose thread does not see the policy)."""
+    mesh = mesh or _tp_mesh()
+    return x if mesh.model == 1 else _Enter.apply(x, mesh, "model")
+
+
+def gather_model(x: torch.Tensor, dim: int, mesh=None) -> torch.Tensor:
+    """Every rank's ``x`` over 'model' joined on ``dim``; the backward
+    takes this rank's slice of the (replicated) gradient."""
+    mesh = mesh or _tp_mesh()
+    return x if mesh.model == 1 else _GatherSlice.apply(
+        x, mesh, "model", dim % x.dim())
+
+
+def reduce_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum of every rank's partial ``x`` over 'model'; the backward
+    is the identity."""
+    mesh = mesh or _tp_mesh()
+    return x if mesh.model == 1 else _Reduce.apply(x, mesh, "model")
+
+
+def max_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The maximum of every rank's ``x`` over 'model', without a
+    gradient (a softmax's shift)."""
+    return (mesh or _tp_mesh()).all_reduce(x.detach(), "model", op="max")
+
+
+def data_total(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over 'data' under a throughput policy (a loss's
+    token count over every data rank's rows), ``x`` otherwise; without a
+    gradient."""
+    mesh = throughput()
+    return x if mesh is None else mesh.all_reduce(x.detach(), "data")
+
+
+def gather_data(shard: torch.Tensor, cut) -> torch.Tensor:
+    """The leaf of throughput shard ``shard`` (its ``sharding.Cut``
+    ``cut``) whole over 'data', as the model reads it: its FSDP parts
+    gathered (the backward reduce-scatters the gradient over 'data'), or,
+    whole already, entered (the backward all-reduces the gradient over
+    'data'); ``shard`` itself on a 'data' axis of one rank."""
+    mesh = _tp_mesh()
+    d = cut.dim("data")
+    if d is not None:
+        return _GatherScatter.apply(shard, mesh, "data", d)
+    return shard if mesh.data == 1 else _Enter.apply(shard, mesh, "data")
+
+
+def model_split(t: torch.Tensor, cut) -> torch.Tensor:
+    """``t``, a leaf whole over 'data', marked with the :class:`Split` of
+    its 'model' cut (dim 0: a row-parallel weight's rows or the
+    embedding's vocab rows; -1: output columns); returns ``t``."""
+    m = cut.dim("model")
+    if m is not None:
+        full = cut.shape[m]
+        step = full // cut.mesh.model
+        t.mesh_split = Split(m if m < len(cut.shape) - 1 else -1, full,
+                             step, cut.mesh.index("model") * step)
+    return t
+
+
+def throughput_linear(x: torch.Tensor, w: torch.Tensor,
+                      b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w (+ b)`` for a weight split over 'model' under the throughput
+    posture.  A column split (q/k/v/wi/wg) computes its columns and
+    gathers them; a row split (o/wo, row-parallel) takes its rows' slice
+    of the whole input, reduces the partial products over 'model', then
+    adds the bias once (gathered whole where it is split)."""
+    sp = split_of(w)
+    x = enter_model(x)
+    if sp.dim == 0:
+        y = reduce_model(x.narrow(-1, sp.start, sp.step) @ w.to(x.dtype))
+        if b is not None:
+            if b.shape[-1] != y.shape[-1]:
+                b = gather_model(b, -1)
+            y = y + b.to(x.dtype)
+        return y
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return gather_model(y, -1)
+
+
+def whole_param(w: torch.Tensor) -> torch.Tensor:
+    """A leaf the model reads whole (a layer's norm weight, which the
+    throughput rule splits over 'model'): every rank's part gathered, the
+    backward taking this rank's slice; ``w`` itself when it is whole."""
+    sp = split_of(w)
+    return w if sp is None else gather_model(w, sp.dim)

@@ -42,6 +42,19 @@ bias follows it.  Every other leaf (norm weights, the router, row
 permutations, meta) stays replicated: the model reads them whole.  Each
 split leaf carries its :class:`Split`, which ``parallel.policy`` reads
 to gather the product.
+
+:func:`place_throughput` is its counterpart for training under the
+throughput posture: every dense leaf is cut by its whole throughput spec
+(``_param_spec(fsdp=True, exact=False)``, a layer's leaf asked as its
+stacked leaf's, as :func:`param_sharding` asks it) over both axes, FSDP
+over 'data' included: q/k/v/wi/wg ``[d, "model"]``, o/wo row-parallel
+``["model", d]``, the tied embedding ``["model", d]``, biases
+``["model"]``, a layer's norm weights ``["model"]`` (the stacked rule's
+``[d, "model"]`` without its layer dim), the final norm whole.  Each
+shard carries its :class:`Cut`
+(the leaf's whole shape and spec).  :func:`gather_throughput` joins
+such shards back into whole leaves; :func:`local_rows` is this rank's
+rows of a global batch under :func:`batch_sharding`.
 """
 from __future__ import annotations
 
@@ -51,10 +64,14 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from ..tree import tree_leaves, tree_map
+
 __all__ = ["param_sharding", "cache_sharding", "batch_sharding",
            "dp_axes", "axis_size", "tree_shardings", "replicated",
            "leaf_sharding", "place_tree", "Split", "split_of",
-           "shard_shape", "state_spec", "EXACT_MIN_SHARD"]
+           "shard_shape", "state_spec", "EXACT_MIN_SHARD", "Cut",
+           "cut_of", "place_throughput", "gather_throughput",
+           "carry_cuts", "local_rows"]
 
 
 def axis_size(mesh, name: str) -> int:
@@ -603,3 +620,119 @@ same objects)."""
         return _same(t, out)
 
     return walk(tree, ())
+
+
+# ------------------------------------------------- the throughput posture
+
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """How a leaf placed by :func:`place_throughput` is cut: its whole
+    ``shape`` and its throughput ``spec`` (None, "data" or "model" per
+    dim) on ``mesh``."""
+    shape: Tuple[int, ...]
+    spec: tuple
+    mesh: Any = dataclasses.field(compare=False, repr=False)
+
+    def dim(self, axis: str) -> Optional[int]:
+        """The dim split over ``axis`` (None when no dim is, or the axis
+        has one rank)."""
+        if axis_size(self.mesh, axis) == 1 or axis not in self.spec:
+            return None
+        return self.spec.index(axis)
+
+    def counted(self) -> bool:
+        """Whether this rank's part counts in a sum over every rank's
+        parts: on each axis the leaf is not split over, only the rank at
+        coordinate 0 counts (a replicated part is counted once)."""
+        return all(self.dim(a) is not None or axis_size(self.mesh, a) == 1
+                   or self.mesh.index(a) == 0 for a in ("data", "model"))
+
+
+def cut_of(t) -> Optional[Cut]:
+    """The :class:`Cut` a throughput shard carries; None for any other
+    tensor."""
+    return getattr(t, "mesh_cut", None)
+
+
+def _throughput_spec(mesh, path, shape) -> tuple:
+    spec = _port_spec(lambda q, s: _param_spec(mesh, q, s, True,
+                                               exact=False), path, shape)
+    for ax in spec:
+        if ax not in (None, "data", "model"):
+            raise ValueError(f"{'/'.join(path)}: spec {spec} splits a dim "
+                             f"over several axes")
+    return spec
+
+
+def place_throughput(tree, mesh):
+    """This rank's shard of every leaf of a dense port param tree (or of
+    an optimizer state tree shaped like one) on the mesh's device, cut by
+    its throughput spec over 'data' and 'model'; each shard carries its
+    :class:`Cut`.  A packed weight is refused: training takes dense
+    weights."""
+    def one(path, leaf):
+        if isinstance(leaf, dict) and "sme_codes" in leaf:
+            raise ValueError(f"{'/'.join(path)} is SME-packed: the "
+                             f"throughput posture places dense weights")
+        if isinstance(leaf, dict):
+            return {k: one(path + (str(k),), v) for k, v in leaf.items()}
+        if isinstance(leaf, (list, tuple)):
+            return type(leaf)(one(path + (str(i),), v)
+                              for i, v in enumerate(leaf))
+        shape = tuple(leaf.shape)
+        spec = _throughput_spec(mesh, path, shape)
+        idx = []
+        for dim, ax in zip(shape, spec):
+            i, n = _parts(mesh, ax) if ax else (0, 1)
+            idx.append(slice(i * (dim // n), (i + 1) * (dim // n)))
+        if torch.is_tensor(leaf):
+            leaf = leaf.detach()
+        t = _to(mesh, leaf, tuple(idx))
+        t.mesh_cut = Cut(shape, spec, mesh)
+        return t
+    return one((), tree)
+
+
+def gather_throughput(tree, mesh):
+    """The whole leaves of a tree of throughput shards (each carrying its
+    :class:`Cut`: placed, or returned by a mesh step), every rank's parts
+    joined over 'model' and then over 'data'."""
+    def one(t):
+        cut = cut_of(t)
+        if cut is None:
+            raise ValueError("a leaf carries no Cut: place the tree with "
+                             "place_throughput")
+        t = t.detach()              # a whole leaf carries no Cut
+        for axis in ("model", "data"):
+            d = cut.dim(axis)
+            if d is not None:
+                t = mesh.gather(t, axis, d)
+        return t
+    return tree_map(one, tree)
+
+
+def carry_cuts(tree, like):
+    """``tree`` with each leaf carrying the :class:`Cut` of the leaf at
+    the same place in ``like`` (a step's new params or optimizer state
+    from its inputs); returns ``tree``."""
+    for t, src in zip(tree_leaves(tree), tree_leaves(like)):
+        cut = cut_of(src)
+        if cut is not None:
+            t.mesh_cut = cut
+    return tree
+
+
+def local_rows(mesh, batch):
+    """This rank's rows of every leaf of a global ``batch`` (dim 0 split
+    as :func:`batch_sharding` splits it; all rows where it is not)."""
+    specs = batch_sharding(mesh, batch)
+    out = {}
+    for k, leaf in batch.items():
+        ax = specs[k][0]
+        if ax is None:
+            out[k] = leaf
+            continue
+        i, n = _parts(mesh, ax)
+        rows = leaf.shape[0] // n
+        out[k] = leaf[i * rows:(i + 1) * rows]
+    return out

@@ -3,7 +3,8 @@ nothing of the reference package, so that spawned ranks stay the port
 alone.
 
 ``serve`` is the one serving run both sides make (the test process on the
-1x1 mesh, every rank on its meshes); :func:`worlds` spawns four ranks on
+1x1 mesh, every rank on its meshes), and ``train_run`` the one training
+run; :func:`worlds` spawns four ranks on
 each job file while the test process runs its own 1x1 runs; ``run_rank`` is
 one spawned ``gloo`` rank on the CPU: it joins the group through a file
 store, builds the meshes (2, 2), (4, 1) and (1, 4) over the same four
@@ -15,6 +16,7 @@ them side by side.
 """
 from __future__ import annotations
 
+import dataclasses
 import pathlib
 import sys
 
@@ -272,8 +274,105 @@ def family_job(job, meshes, out) -> None:
                 _record(out, key, eng, fam_api, shape)
 
 
+#: the mesh training runs: (mesh shape, microbatches)
+TRAIN_RUNS = tuple((shape, micro) for shape in MESHES for micro in (1, 2))
+
+
+def train_optimizer():
+    """The train runs' AdamW: weight decay 0.01, clip 1.0, cosine."""
+    from repro_torch.optim import adamw, cosine_schedule
+    return adamw(cosine_schedule(3e-3, 1, 4), weight_decay=0.01)
+
+
+def recording(opt, seen):
+    """``opt`` whose update first hands its gradient tree to ``seen``."""
+    def update(grads, state, params, step):
+        seen(grads)
+        return opt.update(grads, state, params, step)
+    return dataclasses.replace(opt, update=update)
+
+
+def train_run(api, params, batches, micro, mesh=None):
+    """Two steps of ``make_train_step`` (on ``mesh``, over this rank's
+    throughput shards): the losses, each step's pre-clip norm, the first
+    step's gradient shards, and the params, ``m`` and ``v`` after the
+    steps (gathered whole on a mesh), with this rank's bytes of params +
+    ``m`` + ``v``."""
+    from repro_torch.optim import global_norm
+    from repro_torch.parallel.sharding import (gather_throughput,
+                                               place_throughput)
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_map
+    norms, grads = [], []
+
+    def seen(g):
+        norms.append(float(global_norm(g)))
+        grads.append(tree_map(torch.Tensor.detach, g))   # without a Cut
+    opt = recording(train_optimizer(), seen)
+    step = make_train_step(api.train_loss, opt, micro, mesh=mesh)
+    if mesh is not None:
+        params = place_throughput(params, mesh)
+    state = opt.init(params)
+    losses = []
+    for i, batch in enumerate(batches):
+        params, state, loss = step(params, state, i, batch)
+        losses.append(loss)
+    out = dict(losses=losses, norms=norms, grads=grads[0],
+               bytes=_bytes(params) + _bytes(state["m"])
+               + _bytes(state["v"]))
+    if mesh is not None:
+        params = gather_throughput(params, mesh)
+        state = {k: gather_throughput(v, mesh) for k, v in state.items()}
+    return dict(out, params=params, m=state["m"], v=state["v"])
+
+
+def _error(fn) -> str:
+    """The ``ValueError`` message of ``fn()`` ("" when it returns)."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def train_job(job, meshes, out) -> None:
+    """Mesh training of the dense model (:data:`TRAIN_RUNS`); the shards
+    placed and gathered back; ``ef_allreduce`` over the 'data' groups of
+    (2, 2) and (4, 1) on the first step's gradient; a packed tree and an
+    MoE model refused."""
+    from repro_torch.parallel.compress import ef_allreduce, zeros_like_resid
+    from repro_torch.parallel.sharding import (gather_throughput,
+                                               place_throughput)
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten
+    api, params, batches = job["api"], job["params"], job["batches"]
+    out["train"], out["ef"], out["shards"] = {}, {}, {}
+    for shape, micro in TRAIN_RUNS:
+        run = train_run(api, params, batches, micro, meshes[shape])
+        out["train"][(shape, micro)] = run
+        if micro == 1 and shape in ((2, 2), (4, 1)):
+            g = run["grads"]
+            deq, resid = ef_allreduce(g, zeros_like_resid(g), "data",
+                                      meshes[shape])
+            out["ef"][shape] = dict(g=g, deq=deq, resid=resid)
+    for shape, mesh in meshes.items():
+        placed = place_throughput(params, mesh)
+        out["shards"][shape] = dict(
+            shapes={k: tuple(t.shape) for k, t in flatten(placed).items()},
+            back=gather_throughput(placed, mesh))
+    mesh = meshes[(2, 2)]
+    step = make_train_step(api.train_loss, train_optimizer(), mesh=mesh)
+    out["refused"] = {
+        "packed": _error(lambda: step(job["packed"], None, 0, batches[0])),
+        "moe": _error(lambda: make_train_step(
+            job["moe"][0].train_loss, train_optimizer(), mesh=mesh)(
+            place_throughput(job["moe"][1], mesh), None, 0,
+            job["moe"][2]))}
+
+
 #: job kind -> what a rank runs
-JOBS = {"dense": dense_job, "moe": moe_job, "family": family_job}
+JOBS = {"dense": dense_job, "moe": moe_job, "family": family_job,
+        "train": train_job}
 
 
 def run_rank(rank: int, world: int, store: str, tmp: str) -> None:

@@ -909,3 +909,30 @@ def test_mla_decode_on_two_of_four_rows_bitwise(cuda):
             part, _ = mla_decode(p, x, zeroed, pos, cfg)
             assert torch.equal(part[r0:r0 + rows], whole[r0:r0 + rows]), \
                 (rows, r0)
+
+
+def test_int8_compression_on_the_card_equals_the_cpu(cuda):
+    """``parallel.compress`` on the card: codes, scales, residuals and the
+    dequantized tree bitwise the CPU's (which equal the reference's,
+    ``test_torch_compress.py``) over two error-feedback rounds: every
+    division rounds once (a Python divisor would be multiplied as its
+    reciprocal on the card)."""
+    from repro_torch.parallel import compress as C
+    rng = np.random.default_rng(9)
+    trees = [{"a": rng.standard_normal((257, 129)).astype(np.float32)
+              * np.float32(s), "z": np.zeros(7, np.float32)}
+             for s in (1.0, 3e-4)]
+    resid = {d: C.zeros_like_resid({k: torch.as_tensor(v, device=d)
+                                    for k, v in trees[0].items()})
+             for d in ("cpu", cuda)}
+    for tree in trees:
+        got = {}
+        for d in ("cpu", cuda):
+            g = {k: torch.as_tensor(v, device=d) for k, v in tree.items()}
+            packed, resid[d] = C.compress_tree(g, resid[d])
+            got[d] = (packed, resid[d], C.decompress_tree(packed))
+        (pc, rc, dc), (pg, rg, dg) = got["cpu"], got[cuda]
+        for a, b in ((pc["q"], pg["q"]), (pc["scale"], pg["scale"]),
+                     (rc, rg), (dc, dg)):
+            for k in a:
+                assert torch.equal(a[k], b[k].cpu()), k

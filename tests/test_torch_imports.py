@@ -35,6 +35,7 @@ def test_port_import_leaves_jax_unloaded():
             "repro_torch.train.checkpoint, repro_torch.train.fault, "
             "repro_torch.models.cnn, repro_torch.optim, repro_torch.data, "
             "repro_torch.parallel, repro_torch.parallel.policy, "
+            "repro_torch.parallel.compress, "
             "repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")

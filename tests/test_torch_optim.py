@@ -82,3 +82,44 @@ def test_clip_by_global_norm_matches_reference(max_norm):
     p, pn = P.clip_by_global_norm(_port(g), max_norm)
     assert abs(float(pn) - float(rn)) <= 1e-6 * float(rn)
     _close(p, r)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("max_norm", [0.5, 100.0])
+def test_sharded_clip_is_the_whole_trees(shape, max_norm):
+    """``clip_by_global_norm`` on every rank's throughput shards of a
+    gradient tree (qwen's small tree: matrices split over both axes,
+    biases and layer norms over 'model', the final norm whole), the ranks
+    threads of this process: on every rank the norm is the whole tree's
+    within 1e-6 (each part counted once over the ranks that hold it) and
+    the clipped shards are the whole clipped tree's."""
+    from repro_torch.configs import ARCHS, scale_down
+    from repro_torch.core.integrate import to_torch
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel import sharding as sh
+    from _torch_threads import on_threads
+    cfg = scale_down(ARCHS["qwen1.5-0.5b"], n_layers=2, dtype="float32")
+    rng = np.random.default_rng(5)
+    grads = jax.tree.map(
+        lambda a: torch.as_tensor(rng.standard_normal(a.shape, np.float32)
+                                  * np.float32(0.05)),
+        to_torch(init_params(cfg, np.random.default_rng(0)), "cpu"))
+    want, wn = P.clip_by_global_norm(grads, max_norm)
+
+    def rank_main(mesh):
+        clipped, gn = P.clip_by_global_norm(sh.place_throughput(grads, mesh),
+                                            max_norm)
+        return sh.carry_cuts(clipped, sh.place_throughput(grads, mesh)), gn
+    for clipped, gn in on_threads(shape, rank_main):
+        assert abs(float(gn) - float(wn)) <= 1e-6 * float(wn)
+        for got, whole in zip(jax.tree.leaves(clipped),
+                              jax.tree.leaves(want)):
+            cut = sh.cut_of(got)
+            mesh = cut.mesh
+            part = whole
+            for d, ax in enumerate(cut.spec):
+                if ax is not None and mesh.shape[ax] > 1:
+                    n = whole.shape[d] // mesh.shape[ax]
+                    part = part.narrow(d, mesh.index(ax) * n, n)
+            assert torch.allclose(got, part, rtol=1e-6, atol=0)

@@ -20,7 +20,6 @@ between them).
 """
 import dataclasses
 import functools
-import threading
 
 import jax
 import numpy as np
@@ -37,6 +36,8 @@ from repro_torch.convert import from_reference, to_reference
 from repro_torch.launch.mesh import Mesh, make_serve_mesh, parse_mesh
 from repro_torch.models.model import build_model, init_params
 from repro_torch.parallel import sharding as sh
+
+from _torch_threads import on_threads as _on_threads
 
 MESHES = [(1, 1), (2, 2), (4, 1), (1, 4), (2, 4)]
 
@@ -385,41 +386,6 @@ def test_plain_kernels_on_two_shards_bitwise(backend, m):
     assert torch.equal(torch.cat(parts, dim=-1), whole)
 
 
-class _Hub:
-    """Every thread-rank's tensor of one collective, in rank order."""
-
-    def __init__(self, n):
-        self.barrier = threading.Barrier(n, timeout=120)
-        self.slots = [None] * n
-
-    def exchange(self, rank, x):
-        self.barrier.wait()
-        self.slots[rank] = x
-        self.barrier.wait()
-        return list(self.slots)
-
-
-class _ThreadMesh(Mesh):
-    """A stand-in Mesh for one thread of this process: its gather
-    concatenates the tensors of the threads on its axis group, in
-    coordinate order, as ``Mesh.gather`` does over a process group."""
-
-    def __init__(self, data, model, rank, hub):
-        super().__init__(data, model, rank=rank, device="cpu",
-                         groups={"world": None})
-        self.hub = hub
-
-    def gather(self, x, axis, dim):
-        if self.shape[axis] == 1:
-            return x
-        got = self.hub.exchange(self.rank, x)
-        d, m = self.coords
-        ranks = ([self.global_rank(d, j) for j in range(self.model)]
-                 if axis == "model" else
-                 [self.global_rank(j, m) for j in range(self.data)])
-        return torch.cat([got[r] for r in ranks], dim=dim)
-
-
 @pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
 @pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
@@ -466,30 +432,6 @@ def test_mla_decode_on_row_shards_bitwise(shape, packed):
         for k in c:
             assert c[k].shape[0] == rows
             assert torch.equal(c[k], want[k][r0:r0 + rows]), k
-
-
-def _on_threads(shape, fn):
-    """``fn(mesh)`` on one thread per rank of a ``shape`` mesh of
-    :class:`_ThreadMesh` es; every rank's result, in rank order."""
-    n = shape[0] * shape[1]
-    hub, out = _Hub(n), [None] * n
-
-    def rank_main(rank):
-        try:
-            out[rank] = fn(_ThreadMesh(*shape, rank, hub))
-        except BaseException as e:                  # noqa: BLE001
-            hub.barrier.abort()
-            out[rank] = e
-    threads = [threading.Thread(target=rank_main, args=(r,))
-               for r in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for res in out:
-        if isinstance(res, BaseException):
-            raise res
-    return out
 
 
 #: kind -> (arch, widths, layer): Mamba at the recurrent tests' widths
@@ -633,3 +575,151 @@ def test_cross_decode_on_head_shards_bitwise(shape, backend):
             assert kept[k].shape == (b, t, h // shape[1], hd)
             assert torch.equal(kept[k], want[k]), k
         assert (sq is not None) == (so is not None) == (shape[1] > 1)
+
+
+def _slice(leaf, spec, mesh):
+    """``leaf`` cut to ``mesh``'s coordinate under ``spec`` (jax's block
+    layout: shard ``i`` of ``n`` holds the ``i``-th of ``n`` equal
+    blocks)."""
+    idx = []
+    for dim, ax in zip(leaf.shape, spec):
+        if ax is None:
+            idx.append(slice(None))
+            continue
+        n, i = mesh.shape[ax], mesh.index(ax)
+        idx.append(slice(i * dim // n, (i + 1) * dim // n))
+    return leaf[tuple(idx)]
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4), (2, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_throughput_shards_follow_reference_spec(shape):
+    """``place_throughput`` on qwen's small dense tree and on an AdamW
+    state of it (``m`` and ``v``, drawn so that no leaf is zero): every
+    rank's shard of every leaf equals the whole leaf sliced by the
+    reference's ``_param_spec(fsdp=True, exact=False)`` of its stacked
+    leaf (``param_sharding``'s spec, the layer dim dropped), and carries
+    its Cut; on rank threads ``gather_throughput`` joins the shards back
+    into every leaf bitwise; a packed tree is refused; ``place_tree``'s
+    exact shards carry no Cut."""
+    from repro_torch.core.integrate import to_torch
+    from repro_torch.optim import adamw
+    from _torch_threads import on_threads
+    cfg = scale_down(ARCHS["qwen1.5-0.5b"], n_layers=2, dtype="float32")
+    params = to_torch(init_params(cfg, np.random.default_rng(0)), "cpu")
+    ref = to_reference(params, len(cfg.pattern))
+    want = _ref_specs(ref_sh.param_sharding(
+        AbstractMesh(shape, ("data", "model")), ref, fsdp=True,
+        exact=False))
+    rng = np.random.default_rng(1)
+    state = {k: jax.tree.map(lambda t: torch.as_tensor(rng.standard_normal(
+        t.shape, dtype=np.float32)), v)
+        for k, v in adamw(1e-3).init(params).items()}
+    trees = {"params": params, "m": state["m"], "v": state["v"]}
+    n_split = 0
+    for mesh in _coords(*shape):
+        for name, tree in trees.items():
+            placed = dict(_flat(sh.place_throughput(tree, mesh)))
+            for path, leaf in _flat(tree):
+                if path[0] == "blocks":
+                    spec = want[_keystr(("blocks", "slot0") + path[2:])][1:]
+                else:
+                    spec = want[_keystr(path)]
+                got = placed[path]
+                assert sh.cut_of(got) == sh.Cut(tuple(leaf.shape), spec,
+                                                mesh), (name, path)
+                assert torch.equal(got, _slice(leaf, spec, mesh)), path
+                n_split += got.shape != leaf.shape
+        assert all(sh.cut_of(t) is None
+                   for _, t in _flat(sh.place_tree(params, mesh)))
+    assert n_split > 0
+    spec = want[_keystr(("blocks", "slot0", "mix", "o", "w"))][1:]
+    assert spec == ("model", "data")             # row-parallel, FSDP
+
+    def gathered(mesh):
+        return {name: sh.gather_throughput(sh.place_throughput(tree, mesh),
+                                           mesh)
+                for name, tree in trees.items()}
+    for got in on_threads(shape, gathered):
+        for name, tree in trees.items():
+            whole = dict(_flat(got[name]))
+            for path, leaf in _flat(tree):
+                assert sh.cut_of(whole[path]) is None
+                assert torch.equal(whole[path], leaf), (name, path)
+    with pytest.raises(ValueError, match="wi/w is SME-packed"):
+        sh.place_throughput(_qwen_wi(), _coords(*shape)[0])
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_throughput_ops_and_gradients_on_rank_threads(shape):
+    """Under the throughput posture, on rank threads: a column-split then
+    a row-split ``throughput_linear`` (its bias gathered whole once after
+    the reduce), a split norm weight read whole, and the vocab-parallel
+    ``chunked_ce_loss`` over a vocab-split head (its chunks recomputed in
+    the backward) give the whole computation's loss and every gradient
+    within 1e-5: this rank's rows of the input's, its slices of the
+    weights' (summed over 'data', whose ranks hold other rows).  The
+    backward runs after the policy is left, as a card's autograd thread
+    runs it, so nothing in it may read the policy."""
+    from repro_torch.models.common import rmsnorm
+    from repro_torch.models.transformer import chunked_ce_loss
+    from repro_torch.parallel.policy import (ShardPolicy, model_split,
+                                             throughput_linear, use_policy)
+    from _torch_threads import on_threads
+    data, model = shape
+    rng = np.random.default_rng(3)
+    b, s, k, n, v = 2 * data, 6, 8, 16, 32
+
+    def draw(*dims):
+        return torch.as_tensor(rng.standard_normal(dims, dtype=np.float32))
+    x, wc, bc, wr, br, g, table = (draw(b, s, k), draw(k, n), draw(n),
+                                   draw(n, k), draw(k), draw(k), draw(v, k))
+    labels = torch.as_tensor(rng.integers(0, v, (b, s)))
+    mask = torch.as_tensor(rng.random((b, s)) < 0.8).float()
+
+    def loss_of(x, wc, bc, wr, br, g, table, labels, mask, start=None):
+        h = throughput_linear(x, wc, bc) if start is not None else x @ wc + bc
+        h = throughput_linear(h, wr, br) if start is not None else h @ wr + br
+        h = rmsnorm(h, {"w": g})
+        return chunked_ce_loss(h, table.T, labels, mask, chunk=4,
+                               vocab_start=start)
+    whole = [t.clone().requires_grad_() for t in (x, wc, bc, wr, br, g,
+                                                  table)]
+    want = loss_of(*whole, labels, mask)
+    want_g = torch.autograd.grad(want, whole)
+
+    def rank_main(mesh):
+        pol = ShardPolicy(dp=("data",), dp_size=data, model_size=model,
+                          mesh=mesh)
+        rows = slice(mesh.index("data") * 2, mesh.index("data") * 2 + 2)
+        cuts = {"wc": ("data", "model"), "bc": ("model",),
+                "wr": ("model", "data"), "br": ("model",), "g": ("model",),
+                "table": ("model", "data")}
+        leaves = {}
+        for name, t in (("wc", wc), ("bc", bc), ("wr", wr), ("br", br),
+                        ("g", g), ("table", table)):
+            cut = sh.Cut(tuple(t.shape), cuts[name], mesh)
+            # whole over 'data' (the step's gather), split over 'model'
+            part = _slice(t, tuple(None if a == "data" else a
+                                   for a in cuts[name]), mesh)
+            leaves[name] = model_split(part.clone().requires_grad_(), cut)
+        xl = x[rows].clone().requires_grad_()
+        with use_policy(pol):
+            loss = loss_of(xl, *leaves.values(), labels[rows], mask[rows],
+                           start=sh.split_of(leaves["table"]).start)
+        grads = torch.autograd.grad(loss, [xl, *leaves.values()])
+        return (mesh.all_reduce(loss.detach(), "data"), rows,
+                [grads[0]] + [mesh.all_reduce(t, "data") for t in grads[1:]],
+                list(leaves.values()))
+    want = float(want.detach())
+    for loss, rows, grads, mine in on_threads(shape, rank_main):
+        assert abs(float(loss) - want) <= 1e-5 * abs(want)
+        parts = [want_g[0][rows]] + [
+            ref if sh.split_of(t) is None else ref.narrow(
+                sh.split_of(t).dim, sh.split_of(t).start, sh.split_of(t).step)
+            for ref, t in zip(want_g[1:], mine)]
+        for got, part, name in zip(grads, parts, ("x", "wc", "bc", "wr",
+                                                  "br", "g", "table")):
+            top = float(part.abs().max())
+            assert float((got - part).abs().max()) <= 1e-5 * top, name
