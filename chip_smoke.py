@@ -142,7 +142,29 @@
    all-reduces CUDA tensors natively, each rank's params + ``m`` + ``v``
    bytes against 1x1's, ms per step per rank (correctness only) and the
    phase's seconds (budget 60 s; the pool paused while the ranks train).
+   The (2, 2) run saves its params and AdamW state after step 1 through
+   the mesh checkpoint (``checkpoint.save(mesh=)``: every rank gathers,
+   rank 0 writes the logical arrays); the (4, 1) run restores them
+   (``restore(mesh=)``, an elastic reshard) in place of its own step 1
+   and takes step 2 under the same gates against 1x1's second step.
    No SME kernel runs here: training takes dense weights.
+5a'''. Mesh training of the MoE family and MLA (``mesh_train_moe_phase``,
+   inside the train phase, after 5a''): deepseek-v2-lite-16b at full
+   width and phase 7's depth (``first0`` and one MoE layer: MLA, 64
+   routed experts top-6 and 2 shared, untied head; 1.08 B f32 params
+   from a numpy seed), dense, f32 with TF32 off.  Its initial params are
+   written once with ``checkpoint.save``; one step of 8 x 256 on the 1x1
+   mesh in this process (the yardstick), its state then freed from the
+   card; four gloo ranks sharing the card restore the checkpoint onto
+   (2, 2) and (1, 4) (``restore(mesh=)``) and take the same step under
+   the throughput posture (expert-parallel routed experts, the shared
+   experts, MLA and ``first0`` column- and row-parallel, FSDP over
+   'data', the vocab-parallel loss), with the gates of 5a''; the routes
+   rank 0 took that differ from 1x1's are counted (a reading: a float
+   reassociation may flip a near tie).  Prints params + m + v per rank
+   against 1x1, ms per step per rank (the first step, with its
+   warm-up; correctness only) and the phase's seconds (budget 120 s;
+   the pool paused while the ranks train).  No SME kernel runs here.
 5b. The paper's CNNs (``cnn_phase``; the reference's CNN task,
    ``benchmarks/_cnn_task.py``: ResNet widths (32, 64, 128, 128),
    MobileNet (32, 64, 96, 128), 12x12 images, 512 to train at seed 0, 384
@@ -305,7 +327,8 @@
    (correctness only), the launches per kernel and the phase's seconds
    (budget 60 s).
 10. Prints the compile, train (5a' under ``mesh``, 5a'' under
-   ``mesh_train``), cnn, gemma, slice (7' under ``mesh``),
+   ``mesh_train``, 5a''' under ``mesh_train_moe``), cnn, gemma, slice
+   (7' under ``mesh``),
    recurrent (8' under ``mesh``) and encdec (9' under ``mesh``) readings
    as JSON, the
    kernels JSON line (qwen times per model layer: 4 q/k/v/o + 2 wi/wg + 1 wo calls; decode
@@ -1866,6 +1889,8 @@ def train_phase(dev, card):
         out["mesh_train"] = mesh_train_phase(dev, card, tmp, cfg,
                                              *fit_state)
         del fit_state
+        free_card()
+        out["mesh_train_moe"] = mesh_train_moe_phase(dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -2148,6 +2173,10 @@ def mesh_phase(dev, card, tmp, cfg, prompts, want, window):
 #: phase 5a'': the meshes the gloo ranks train on, each over the same
 #: four ranks sharing the one card
 MESH_TRAIN = ((2, 2), (1, 4), (4, 1))
+#: the mesh whose params and AdamW state after step 1 are saved through
+#: the mesh checkpoint, and the mesh that restores them in place of its
+#: own step 1 and takes step 2 (an elastic reshard)
+MESH_SAVE, MESH_RESUME = (2, 2), (4, 1)
 #: steps of every run, from the overfit's params and AdamW state on fresh
 #: batches of the train phase's global 8 x 256
 MESH_TRAIN_STEPS = 2
@@ -2156,12 +2185,16 @@ MESH_TRAIN_STEPS = 2
 TOL_MESH_LOSS, TOL_MESH_NORM, TOL_MESH_TREE = 1e-5, 1e-6, 1e-5
 
 
-def mesh_train_steps(api, params, state, batches, mesh, ef=False):
-    """:data:`MESH_TRAIN_STEPS` steps of ``make_train_step(mesh=)`` with
-    the overfit's AdamW from its step count on: (the losses, the pre-clip
-    norms, ms per step, params, state, with ``ef`` the first step's
-    gradient shards of layer 0)."""
+def mesh_train_steps(api, params, state, batches, mesh, ef=False,
+                     first=0, save_to=None):
+    """Steps ``first``, ... of :data:`MESH_TRAIN_STEPS` (one per batch)
+    of ``make_train_step(mesh=)`` with the overfit's AdamW from its step
+    count on: (the losses, the pre-clip norms, ms per step, params,
+    state, with ``ef`` the first step's gradient shards of layer 0).
+    With ``save_to``, the params and AdamW state after the first step
+    are saved there through the mesh checkpoint (untimed)."""
     from repro_torch.optim import adamw, global_norm
+    from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import make_train_step
     norms, kept = [], {}
     opt = adamw(OVERFIT_LR)
@@ -2174,17 +2207,22 @@ def mesh_train_steps(api, params, state, batches, mesh, ef=False):
     step = make_train_step(api.train_loss,
                            dataclasses.replace(opt, update=update), 1,
                            mesh=mesh)
-    losses, ms = [], []
-    for i, batch in enumerate(batches):
+    losses, ms, save_s = [], [], None
+    for i, batch in enumerate(batches[first:], first):
         sync(mesh.device)
         t0 = time.perf_counter()
         params, state, loss = step(params, state, OVERFIT_STEPS + i, batch)
         sync(mesh.device)
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
+        if save_to is not None and i == first:
+            t0 = time.perf_counter()
+            ckpt.save(save_to, OVERFIT_STEPS + i + 1,
+                      {"params": params, "opt": state}, mesh=mesh)
+            save_s = time.perf_counter() - t0
     return dict(losses=[float(x) for x in losses],
                 norms=[float(x) for x in norms], ms=ms, params=params,
-                state=state, g=kept.get("g"))
+                state=state, g=kept.get("g"), save_s=save_s)
 
 
 def cut_index(cut) -> tuple:
@@ -2216,6 +2254,39 @@ def warm_up(dev) -> None:
     sync(dev)
 
 
+def train_rank_start(rank, world, store, device):
+    """A spawned training rank's start: the repo's sources importable,
+    TF32 off, its device (one intra-op thread on the CPU), the gloo group
+    of ``world`` ranks through the file store ``store``; returns the
+    device."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    return dev
+
+
+def shard_errs(trees, end, dev) -> dict:
+    """{name: the largest difference of this rank's shards of tree
+    ``name`` (each carrying its Cut) to the same slices of the whole
+    tree ``end[name]``}, taken on ``dev``."""
+    from repro_torch.parallel.sharding import cut_of
+    from repro_torch.tree import flatten
+    errs = {}
+    for name, got in trees.items():
+        want = flatten(end[name])
+        errs[name] = max(float((t - want[k][cut_index(cut_of(t))]
+                                .to(dev)).abs().max())
+                         for k, t in flatten(got).items())
+    return errs
+
+
 def mesh_train_rank(rank, world, store, tmp, cfg, device):
     """One of the four gloo ranks on the one card: probe gloo's CUDA
     all-reduce, then train :data:`MESH_TRAIN` from ``tmp/start.pt`` and
@@ -2226,20 +2297,13 @@ def mesh_train_rank(rank, world, store, tmp, cfg, device):
     ``tmp/train{rank}.pt``."""
     import os
     import torch.distributed as dist
-    sys.path.insert(0, str(ROOT / "src"))
+    dev = train_rank_start(rank, world, store, device)
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.model import build_model
     from repro_torch.parallel.compress import ef_allreduce, zeros_like_resid
-    from repro_torch.parallel.sharding import cut_of, place_throughput
+    from repro_torch.parallel.sharding import place_throughput
+    from repro_torch.train import checkpoint as ckpt
     from repro_torch.tree import flatten
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    else:
-        torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=world)
     tmp = pathlib.Path(tmp)
     out = {"runs": {}}
     x = torch.ones(4, device=dev)
@@ -2260,28 +2324,35 @@ def mesh_train_rank(rank, world, store, tmp, cfg, device):
     # written by the phase, while the ranks started, before the go
     end = torch.load(tmp / "end.pt", mmap=True, weights_only=False)
     out["place"], out["compare"] = {}, {}
+    saved = tmp / "ckpt"
     for shape in MESH_TRAIN:
         t0 = time.perf_counter()
         mesh = make_local_mesh(*shape, device=dev)
-        params = place_throughput(start["params"], mesh)
-        state = {k: place_throughput(start[k], mesh) for k in ("m", "v")}
+        first = 0
+        if shape == MESH_RESUME:
+            # MESH_SAVE's step-1 params and AdamW state, resharded
+            like = {"params": start["params"],
+                    "opt": {k: start[k] for k in ("m", "v")}}
+            got = ckpt.restore(saved, None, like, mesh=mesh)
+            params, state, first = got["params"], got["opt"], 1
+            del got
+        else:
+            params = place_throughput(start["params"], mesh)
+            state = {k: place_throughput(start[k], mesh)
+                     for k in ("m", "v")}
         nbytes = tree_bytes(params) + tree_bytes(state)
         sync(dev)
         out["place"][shape] = time.perf_counter() - t0
-        run = mesh_train_steps(api, params, state, start["batches"], mesh,
-                               ef=shape == (2, 2))
+        run = mesh_train_steps(
+            api, params, state, start["batches"], mesh, ef=shape == (2, 2),
+            first=first, save_to=saved if shape == MESH_SAVE else None)
         t0 = time.perf_counter()
-        errs = {}
-        for name, got in (("params", run["params"]),
-                          ("m", run["state"]["m"]),
-                          ("v", run["state"]["v"])):
-            want = flatten(end[name])
-            errs[name] = max(float((t - want[k][cut_index(cut_of(t))]
-                                    .to(dev)).abs().max())
-                             for k, t in flatten(got).items())
+        errs = shard_errs({"params": run["params"], **run["state"]}, end,
+                          dev)
         out["compare"][shape] = time.perf_counter() - t0
         res = dict(losses=run["losses"], norms=run["norms"], ms=run["ms"],
-                   bytes=nbytes, errs=errs)
+                   bytes=nbytes, errs=errs, first=first,
+                   save_s=run["save_s"])
         if run["g"] is not None:
             g = run["g"]
             deq, resid = ef_allreduce(g, zeros_like_resid(g), "data", mesh)
@@ -2432,10 +2503,11 @@ def mesh_train_phase(dev, card, tmp, cfg, params, state):
             check(run["losses"] == runs[0]["losses"],
                   f"mesh-train {label}: rank {i}'s losses differ from rank "
                   f"0's")
+        first = runs[0]["first"]
         rel = [abs(a / b - 1) for a, b in zip(runs[0]["losses"],
-                                             out["1x1"]["losses"])]
+                                             out["1x1"]["losses"][first:])]
         nrel = [abs(a / b - 1) for a, b in zip(runs[0]["norms"],
-                                              out["1x1"]["norms"])]
+                                              out["1x1"]["norms"][first:])]
         check(max(rel) <= TOL_MESH_LOSS, f"mesh-train {label}: losses "
               f"{runs[0]['losses']} vs 1x1 {out['1x1']['losses']}")
         check(max(nrel) <= TOL_MESH_NORM, f"mesh-train {label}: pre-clip "
@@ -2451,8 +2523,17 @@ def mesh_train_phase(dev, card, tmp, cfg, params, state):
                                   bytes=[run["bytes"] for run in runs],
                                   frac=frac,
                                   ms=[run["ms"] for run in runs])
-        print(f"mesh-train[{label}]: 4 ranks, every rank's losses the same "
-              f"bits; vs 1x1: losses {max(rel):.2e}, pre-clip norm "
+        how = ""
+        if shape == MESH_SAVE:
+            out["runs"][label]["save_s"] = runs[0]["save_s"]
+            how = (f" (its step-1 params and AdamW state saved through the "
+                   f"mesh checkpoint in {runs[0]['save_s']:.2f}s)")
+        if first:
+            how = (f" (step 2 only: {MESH_SAVE[0]}x{MESH_SAVE[1]}'s step-1 "
+                   f"checkpoint restored onto this mesh in "
+                   f"{ranks[0]['place'][shape]:.2f}s)")
+        print(f"mesh-train[{label}]{how}: 4 ranks, every rank's losses the "
+              f"same bits; vs 1x1: losses {max(rel):.2e}, pre-clip norm "
               f"{max(nrel):.2e} relative, params / m / v "
               f"{errs['params']:.2e} / {errs['m']:.2e} / {errs['v']:.2e} "
               f"of each tree's largest magnitude; params + m + v per rank "
@@ -2476,6 +2557,256 @@ def mesh_train_phase(dev, card, tmp, cfg, params, state):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"mesh-train: phase {out['phase_s']:.1f}s of its 60 s budget "
           f"({train_s:.1f}s of gloo training, the pool paused; "
+          f"{', '.join(f'{k} {v:.1f}s' for k, v in parts.items())})",
+          flush=True)
+    return out
+
+
+# ------------------------------------------- mesh training of MoE and MLA
+#: phase 5a''': deepseek-v2-lite-16b at phase 7's depth (``first0`` and
+#: one MoE layer) trains one step on these meshes, each over the same
+#: four gloo ranks sharing the one card
+MOE_MESH_TRAIN = ((2, 2), (1, 4))
+#: its seconds' budget
+MOE_MESH_BUDGET = 120
+
+
+@contextlib.contextmanager
+def route_spy():
+    """Every ``moe_apply`` call's top-k expert indices [G, S, k] (the
+    ones its dispatch takes), on the host, in call order."""
+    from repro_torch.models import moe
+    seen = []
+    inner = moe._group_dispatch
+
+    def spy(xg, idx, *rest):
+        seen.append(idx.detach().cpu())
+        return inner(xg, idx, *rest)
+    moe._group_dispatch = spy
+    try:
+        yield seen
+    finally:
+        moe._group_dispatch = inner
+
+
+def moe_mesh_config():
+    """deepseek-v2-lite-16b at full width, phase 7's depth, f32."""
+    return dataclasses.replace(slice_config("deepseek"), dtype="float32")
+
+
+def moe_train_rank(rank, world, store, tmp, cfg, device):
+    """One of the four gloo ranks of phase 5a''': the initial params
+    restored from ``tmp/init`` (the 1x1 run's checkpoint) onto each of
+    :data:`MOE_MESH_TRAIN` as this rank's throughput shards, AdamW's
+    state cut like them, one step, and the shards of the trees after it
+    held against the same slices of the 1x1 run's (``tmp/end_*.pt``).
+    Rank 0 keeps its routes.  The results go to ``tmp/moe{rank}.pt``."""
+    import os
+    import torch.distributed as dist
+    dev = train_rank_start(rank, world, store, device)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+    tmp = pathlib.Path(tmp)
+    api = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    warm_up(dev)
+    out = {"runs": {}, "warm_up": time.perf_counter() - t0, "restore": {},
+           "compare": {}}
+    (tmp / f"ready{rank}").touch()
+    while not (tmp / "go").exists():
+        time.sleep(0.05)
+    batches = torch.load(tmp / "batches.pt", weights_only=False)
+    end = {k: torch.load(tmp / f"end_{k}.pt", mmap=True,
+                         weights_only=False) for k in ("params", "m", "v")}
+    for shape in MOE_MESH_TRAIN:
+        t0 = time.perf_counter()
+        mesh = make_local_mesh(*shape, device=dev)
+        params = ckpt.restore(tmp / "init", None, end["params"], mesh=mesh)
+        state = adamw(OVERFIT_LR).init(params)
+        nbytes = tree_bytes(params) + tree_bytes(state)
+        sync(dev)
+        out["restore"][shape] = time.perf_counter() - t0
+        with route_spy() as routes:
+            run = mesh_train_steps(api, params, state, batches, mesh)
+        del params, state
+        t0 = time.perf_counter()
+        errs = shard_errs({"params": run["params"], **run["state"]}, end,
+                          dev)
+        out["compare"][shape] = time.perf_counter() - t0
+        out["runs"][shape] = dict(losses=run["losses"], norms=run["norms"],
+                                  ms=run["ms"], bytes=nbytes, errs=errs,
+                                  routes=routes if rank == 0 else None)
+        del run
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["jax"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "repro"))
+    torch.save(out, tmp / f"moe{rank}.pt")
+    dist.destroy_process_group()
+    os._exit(0)
+
+
+def mesh_train_moe_phase(dev, card, tmp):
+    """Phase 5a''': deepseek-v2-lite-16b at full width and phase 7's
+    depth, dense, f32 with TF32 off.  Its initial params (numpy, from a
+    seed) are written once with ``checkpoint.save``; the 1x1 step runs in
+    this process (the yardstick: one step of :data:`TRAIN_BATCH` x
+    :data:`TRAIN_SEQ`); four gloo ranks sharing the card restore the
+    checkpoint onto each of :data:`MOE_MESH_TRAIN` (``restore(mesh=)``)
+    and take the same step under the throughput posture: expert-parallel
+    routed experts, the shared experts, MLA and ``first0`` column- and
+    row-parallel, FSDP over 'data', a vocab-parallel loss.  Every rank's
+    loss must be the same bits and within :data:`TOL_MESH_LOSS` of 1x1's,
+    the pre-clip norm within :data:`TOL_MESH_NORM`, the params and m/v
+    after the step within :data:`TOL_MESH_TREE` of each tree's largest
+    magnitude; the routes rank 0 took that differ from 1x1's are counted
+    (a reading).  Returns the readings."""
+    from repro_torch.core.integrate import to_torch
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    tmp = tmp / "mesh-train-moe"
+    tmp.mkdir()
+    cfg = moe_mesh_config()
+    parts = {}
+    t0 = time.perf_counter()
+    host = init_params(cfg, np.random.default_rng(SEED + 8))
+    n_params = sum(a.size for a in tree_leaves(host))
+    parts["draw"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.save(tmp / "init", 0, host)
+    parts["write init"] = time.perf_counter() - t0
+    batches = [next(lm_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                               seed=SEED + 9))]
+    torch.save(batches, tmp / "batches.pt")
+    print(f"mesh-train-moe: deepseek-v2-lite-16b at full width, "
+          f"{cfg.first_dense_layers} dense + "
+          f"{cfg.n_layers - cfg.first_dense_layers} MoE layer of "
+          f"{SLICE_DEPTH['deepseek']} ({n_params / 1e9:.3f} B f32 params; "
+          f"{cfg.n_experts} routed experts top-{cfg.top_k} and "
+          f"{cfg.n_shared_experts} shared, MLA, untied head); its initial "
+          f"params drawn in {parts['draw']:.1f}s and written with "
+          f"checkpoint.save in {parts['write init']:.1f}s", flush=True)
+    # the ranks start (import, card, warm-up) while this process takes
+    # the 1x1 step and writes its result
+    t_spawn = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        moe_train_rank, args=(MESH_RANKS, str(tmp / "gloo-moe"), str(tmp),
+                              cfg, str(dev)),
+        nprocs=MESH_RANKS, join=False, start_method="spawn")
+    try:
+        api = build_model(cfg, device=dev)
+        params = to_torch(host, dev)
+        del host
+        with quiet(), route_spy() as want_routes:
+            one = mesh_train_steps(api, params, adamw(OVERFIT_LR).init(
+                params), batches, Mesh(1, 1, device=dev))
+        del params
+        nbytes = tree_bytes(one["params"]) + tree_bytes(one["state"])
+        end = {"params": one["params"], **one["state"]}
+        tops = {k: max(float(t.abs().max()) for t in tree_leaves(v))
+                for k, v in end.items()}
+        out = {"1x1": dict(losses=one["losses"], norms=one["norms"],
+                           ms=one["ms"], bytes=nbytes), "runs": {},
+               "params": n_params}
+        del one
+        print(f"mesh-train-moe[1x1]: one step of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} (f32, TF32 off): loss {out['1x1']['losses']}, "
+              f"pre-clip norm {out['1x1']['norms']}, "
+              f"{out['1x1']['ms'][0]:.1f} ms (the first step: with its "
+              f"warm-up), params + m + v {nbytes / 2 ** 30:.2f} GiB "
+              f"| {card}", flush=True)
+        t0 = time.perf_counter()
+        for k, v in end.items():
+            torch.save(tree_map(lambda t: t.cpu(), v), tmp / f"end_{k}.pt")
+        del end
+        free_card()
+        parts["write end"] = time.perf_counter() - t0
+        while not all((tmp / f"ready{r}").exists()
+                      for r in range(MESH_RANKS)):
+            check(all(p.is_alive() for p in ctx.processes),
+                  "a mesh training rank died before training")
+            time.sleep(0.1)
+        t_ready = time.perf_counter()
+        parts["ranks ready"] = t_ready - t_spawn
+        with quiet():
+            (tmp / "go").touch()
+            while not ctx.join(timeout=1):
+                pass
+        train_s = time.perf_counter() - t_ready
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(tmp / f"moe{r}.pt", weights_only=False)
+             for r in range(MESH_RANKS)]
+    check(all(r["jax"] == [] for r in ranks),
+          "a mesh training rank imported jax")
+    for shape in MOE_MESH_TRAIN:
+        label = f"{shape[0]}x{shape[1]}"
+        runs = [r["runs"][shape] for r in ranks]
+        for i, run in enumerate(runs):
+            check(run["losses"] == runs[0]["losses"],
+                  f"mesh-train-moe {label}: rank {i}'s loss differs from "
+                  f"rank 0's")
+        rel = [abs(a / b - 1) for a, b in zip(runs[0]["losses"],
+                                             out["1x1"]["losses"])]
+        nrel = [abs(a / b - 1) for a, b in zip(runs[0]["norms"],
+                                              out["1x1"]["norms"])]
+        # rank 0 holds the first rows over 'data', one group per row
+        got = runs[0]["routes"]
+        check(len(got) == len(want_routes),
+              f"mesh-train-moe {label}: {len(got)} MoE calls, 1x1 made "
+              f"{len(want_routes)}")
+        flips = sum(int((g != w[:g.shape[0]]).sum())
+                    for g, w in zip(got, want_routes))
+        routes = sum(g.numel() for g in got)
+        errs = {k: max(run["errs"][k] for run in runs) / tops[k]
+                for k in tops}
+        frac = [run["bytes"] / out["1x1"]["bytes"] for run in runs]
+        out["runs"][label] = dict(losses=runs[0]["losses"], loss_rel=rel,
+                                  norm_rel=nrel, tree=errs, flips=flips,
+                                  routes=routes,
+                                  bytes=[run["bytes"] for run in runs],
+                                  frac=frac, ms=[run["ms"] for run in runs])
+        print(f"mesh-train-moe[{label}]: 4 ranks restored the 1x1 run's "
+              f"initial checkpoint onto this mesh "
+              f"({ranks[0]['restore'][shape]:.1f}s on rank 0), every "
+              f"rank's loss the same bits; vs 1x1: loss {max(rel):.2e}, "
+              f"pre-clip norm {max(nrel):.2e} relative, params / m / v "
+              f"{errs['params']:.2e} / {errs['m']:.2e} / {errs['v']:.2e} "
+              f"of each tree's largest magnitude; route flips (rank 0 vs "
+              f"1x1): {flips} of {routes} (token, k) routes; params + m + "
+              f"v per rank "
+              f"{', '.join(f'{b / 2 ** 30:.2f}' for b in out['runs'][label]['bytes'])} "
+              f"GiB against 1x1's {out['1x1']['bytes'] / 2 ** 30:.2f} GiB "
+              f"({', '.join(f'{f:.3f}' for f in frac)}); ms per step per "
+              f"rank {[round(run['ms'][0], 1) for run in runs]} (the first "
+              f"step, with its warm-up; gloo, 4 ranks on one card: "
+              f"correctness only) | {card}", flush=True)
+        check(max(rel) <= TOL_MESH_LOSS, f"mesh-train-moe {label}: loss "
+              f"{runs[0]['losses']} vs 1x1 {out['1x1']['losses']}")
+        check(max(nrel) <= TOL_MESH_NORM, f"mesh-train-moe {label}: "
+              f"pre-clip norm {runs[0]['norms']} vs 1x1 "
+              f"{out['1x1']['norms']}")
+        for k, e in errs.items():
+            check(e <= TOL_MESH_TREE, f"mesh-train-moe {label}: {k} differs "
+                  f"from 1x1 by {e:.3e} of its largest magnitude")
+    out["train_s"] = train_s
+    parts["warm-up (rank 0)"] = ranks[0]["warm_up"]
+    for k in ("restore", "compare"):
+        parts[f"{k} (rank 0)"] = sum(ranks[0][k].values())
+    out["parts"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh-train-moe: phase {out['phase_s']:.1f}s of its "
+          f"{MOE_MESH_BUDGET} s budget ({train_s:.1f}s of gloo training, "
+          f"the pool paused; "
           f"{', '.join(f'{k} {v:.1f}s' for k, v in parts.items())})",
           flush=True)
     return out

@@ -14,7 +14,8 @@ collectives are every collective the port runs while serving:
 no float reduction ever crosses a rank (DESIGN.md §7).  Training under
 the throughput posture also sums: :meth:`Mesh.all_reduce` (a sum, or a
 max) and :meth:`Mesh.reduce_scatter` (this rank's part of a sum); the
-exact posture never calls them.  ``gloo`` takes
+exact posture never calls them.  :meth:`Mesh.barrier` waits for every
+rank (a checkpoint written by rank 0 alone).  ``gloo`` takes
 CUDA tensors too (on the card host's torch 2.11; it copies them through
 host memory itself, so ranks sharing one card over ``gloo`` check
 correctness, not speed).
@@ -114,6 +115,13 @@ class Mesh:
         step = x.shape[dim] // n
         return self.all_reduce(x, axis).narrow(
             dim, self.index(axis) * step, step).contiguous()
+
+    def barrier(self) -> None:
+        """Return once every rank of the mesh has come here (an
+        all-reduce of one element over every rank); nothing on a mesh of
+        one rank."""
+        if self.size > 1:
+            self.all_reduce(torch.zeros(1, device=self.device), "world")
 
     def broadcast(self, x: torch.Tensor, axis: str = "world",
                   src: int = 0) -> torch.Tensor:

@@ -20,9 +20,10 @@ pos, nvalid, active, gated)`` (``make_decode_chunk``) and
 batch)``, the scalar training loss of a batch dict (``tokens``,
 ``labels``, optional ``mask``, ``patches`` or ``frames``, numpy or
 torch) on dense params, differentiable by autograd (on a mesh under
-the throughput posture, the dense decoder-only family only:
-:func:`check_mesh_training`).  Token and position inputs
-may be numpy arrays; they are moved to the model's device.  ``backend``
+the throughput posture, the decoder-only text families without a
+recurrence, dense and MoE: :func:`check_mesh_training`).  Token and
+position inputs may be numpy arrays; they are moved to the model's
+device.  ``backend``
 picks the SME backend for packed weights (None: the first of v2, v3, v1
 whose operands the weights carry, else torch).  Still refused: MLP
 activations other than SwiGLU and GELU, LayerNorm or the audio stub in a
@@ -38,25 +39,29 @@ from ..device import resolve_device
 from ..parallel.policy import throughput
 from . import encdec as ed
 from . import transformer as tf
+from .blocks import ATTN_KINDS
 
 __all__ = ["ModelAPI", "build_model", "init_params", "make_decode_chunk",
            "check_mesh_training"]
 
 
 def check_mesh_training(cfg) -> None:
-    """Raise ``ValueError`` unless ``cfg`` is of the family that trains on
-    a mesh of more than one rank: the dense decoder-only one (GQA, no
-    frontend).  The others wait for ROADMAP §1's open item 2."""
+    """Raise ``ValueError`` unless ``cfg`` is of a family that trains on
+    a mesh of more than one rank: the decoder-only text transformers
+    without a recurrence (dense and MoE, GQA or MLA, leading dense
+    layers).  The recurrent family, the encoder-decoder family and the
+    vision frontend wait for ROADMAP §1, open item 1."""
+    recurrent = cfg.family in ("ssm", "hybrid") or any(
+        kind not in ATTN_KINDS for kind in cfg.pattern)
     what = ("the encoder-decoder family" if cfg.n_enc_layers else
             "the vision frontend" if cfg.frontend else
-            "MLA" if cfg.attn_type == "mla" else
-            f"the {cfg.family} family" if cfg.family != "dense" else None)
+            "the recurrent family" if recurrent else None)
     if what is not None:
         raise ValueError(
-            f"{cfg.name}: mesh training covers the dense decoder-only "
-            f"family; {what} waits for ROADMAP §1, open item 2 (mesh "
-            f"training of the MoE, MLA, recurrent, encoder-decoder and "
-            f"vision families)")
+            f"{cfg.name}: mesh training covers the decoder-only text "
+            f"families (dense and MoE, GQA or MLA); {what} waits for "
+            f"ROADMAP §1, open item 1 (mesh training of the recurrent, "
+            f"encoder-decoder and vision families)")
 
 
 def make_decode_chunk(decode_step: Callable) -> Callable:

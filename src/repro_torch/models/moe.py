@@ -25,7 +25,10 @@ on one another (one chain per output element), so this equals the
 per-group loop.  Empty experts compute too, as in the reference.
 Routing runs on the replicated activations, so on a mesh every rank
 routes, drops and combines alike, in the 1x1 order; only the expert
-matmuls split (``_expert_mm``).
+matmuls split (``_expert_mm``).  Under the throughput posture (mesh
+training) the buffer a split stack reads enters the 'model' axis
+(``parallel.policy.expert_rows``), so its gradient, partial on each rank,
+is summed; an expert-TP ``wo``'s partial products are reduced.
 """
 from __future__ import annotations
 
@@ -77,7 +80,9 @@ def _expert_mm(w, h, backend, dtype):
     expert (the same call on any mesh: the card's batched matmul picks its
     algorithm by batch count).  On a mesh (reference ``moe.py:124``) an
     expert-parallel stack computes this rank's experts and gathers them
-    over 'model'; a column-split one its output features."""
+    over 'model'; a column-split one its output features; a row-split one
+    (throughput expert-TP ``wo``) its F slice, the partial products
+    reduced."""
     h = expert_rows(constrain(h, "lhs"), w)
     if isinstance(w, dict):
         y = sme_apply(h, w, backend, out_dtype=dtype)

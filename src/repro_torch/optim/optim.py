@@ -95,8 +95,14 @@ def _lr_fn(lr) -> Callable:
 
 
 def _zeros(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """f32 zeros shaped like each leaf, carrying a throughput shard's
+    :class:`~repro_torch.parallel.sharding.Cut`."""
+    def zero(p):
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        if cut_of(p) is not None:
+            z.mesh_cut = cut_of(p)
+        return z
+    return tree_map(zero, params)
 
 
 def adamw(lr: Callable | float, b1=0.9, b2=0.95, eps=1e-8,

@@ -66,9 +66,17 @@ backward (still a select), and ``transformer.chunked_ce_loss`` computes
 the loss vocab-parallel over a vocab-split head (per-chunk max, sum of
 exponentials and gold logit, each reduced over 'model': no [B, chunk, V]
 logits are gathered), its token count summed over 'data'
-(:func:`data_total`).  Attention computes every head whole (q, k, v are
-gathered), as in serving, so ``heads_tp`` and the SP ``seq_axis`` change
-nothing in the port.
+(:func:`data_total`).  An MoE layer's expert stacks follow the same
+rule per expert (:func:`expert_rows`, ``constrain(..., "experts")``): an
+expert-parallel stack computes this rank's experts of the entered
+buffer and gathers them on the expert dim; an expert-TP ``wi``/``wg``
+its F columns, gathered; an expert-TP ``wo`` (split on F, dim 1) its F
+slice of the entered hidden buffer, the partial products reduced.  The
+router is whole, so routing runs alike on every rank.  Attention
+computes every head whole (q, k, v are gathered), as in serving, so
+``heads_tp`` and the SP ``seq_axis`` change nothing in the port.  The
+decoder-only text families train this way, dense and MoE, GQA or MLA
+(``models.model.check_mesh_training``).
 """
 from __future__ import annotations
 
@@ -273,7 +281,9 @@ def constrain(x: torch.Tensor, kind: str, w=None, *, n_kv: int = 0,
     """kind: 'act' [B,S,D] | 'lhs' (a matmul's left operand): nothing to
     do | 'features' [..., N]: the product of weight ``w`` gathered over
     'model' when ``w`` is column-split | 'experts' [E, ..., N]: an
-    expert-parallel ``w``'s outputs gathered on dim 0 | 'kv'
+    expert-parallel ``w``'s outputs gathered on dim 0, a column-split
+    stack's on the last dim, a row-split stack's (dim 1, the throughput
+    posture's expert-TP ``wo``) partial products reduced | 'kv'
     [B,S,KV,hd]: this rank's heads of ``n_kv`` KV heads | 'block': an
     output computed in the 1x1 shape whose valid part is this rank's
     block of shape ``part`` (:func:`whole_state`'s placement), every
@@ -287,6 +297,10 @@ def constrain(x: torch.Tensor, kind: str, w=None, *, n_kv: int = 0,
             return x
         if kind == "experts" and sp.dim == 0:
             return _gather_split(x, sp, 0)
+        if kind == "experts" and sp.dim == 1:
+            # a row split's partial products (throughput posture only:
+            # the exact posture never splits a contraction)
+            return reduce_model(x)
         return _gather_split(x, sp, -1)
     pol = current_policy()
     if kind == "block":
@@ -312,12 +326,23 @@ def constrain(x: torch.Tensor, kind: str, w=None, *, n_kv: int = 0,
 
 
 def expert_rows(h: torch.Tensor, w) -> torch.Tensor:
-    """This rank's experts of ``h`` [E, ...] for an expert-parallel ``w``
-    (all of them otherwise)."""
+    """This rank's part of ``h`` [E, M, K], the left operand of expert
+    stack ``w``: its experts for an expert-parallel ``w`` (split on dim
+    0), its K columns for a row-split one (dim 1: the throughput
+    posture's expert-TP ``wo``, split on F), all of ``h`` otherwise.
+    Under the throughput posture a split ``w``'s ``h`` enters the 'model'
+    axis first (:func:`enter_model`): each rank's gradient of it is
+    partial."""
     sp = split_of(w)
-    if sp is None or sp.dim != 0:
+    if sp is None:
         return h
-    return h[sp.start:sp.start + sp.step]
+    if throughput() is not None:
+        h = enter_model(h)
+    if sp.dim == 0:
+        return h[sp.start:sp.start + sp.step]
+    if sp.dim == 1:
+        return h.narrow(-1, sp.start, sp.step)
+    return h
 
 
 def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -457,8 +482,9 @@ def gather_data(shard: torch.Tensor, cut) -> torch.Tensor:
 
 def model_split(t: torch.Tensor, cut) -> torch.Tensor:
     """``t``, a leaf whole over 'data', marked with the :class:`Split` of
-    its 'model' cut (dim 0: a row-parallel weight's rows or the
-    embedding's vocab rows; -1: output columns); returns ``t``."""
+    its 'model' cut (dim 0: a row-parallel weight's rows, the embedding's
+    vocab rows or an expert-parallel stack's experts; 1: an expert-TP
+    ``wo`` stack's F rows; -1: output columns); returns ``t``."""
     m = cut.dim("model")
     if m is not None:
         full = cut.shape[m]

@@ -50,15 +50,22 @@ stacked leaf's, as :func:`param_sharding` asks it) over both axes, FSDP
 over 'data' included: q/k/v/wi/wg ``[d, "model"]``, o/wo row-parallel
 ``["model", d]``, the tied embedding ``["model", d]``, biases
 ``["model"]``, a layer's norm weights ``["model"]`` (the stacked rule's
-``[d, "model"]`` without its layer dim), the final norm whole.  Each
-shard carries its :class:`Cut`
-(the leaf's whole shape and spec).  :func:`gather_throughput` joins
-such shards back into whole leaves; :func:`local_rows` is this rank's
-rows of a global batch under :func:`batch_sharding`.
+``[d, "model"]`` without its layer dim), the final norm and a leading
+dense layer's norms whole, expert stacks expert-parallel (wi/wg
+``["model", d, None]``, wo ``["model", None, d]``) where the experts
+divide 'model', else expert-TP (``[None, d, "model"]``, wo ``[None,
+"model", d]``), the router whole.  Each shard carries its :class:`Cut`
+(the leaf's whole shape and spec).  A leaf's spec is read from its path
+in its param tree, so a tree that holds param trees (a checkpoint's
+``{"params", "opt": {"m", "v"}}``) places each leaf as its param's.
+:func:`gather_throughput` joins such shards back into whole leaves;
+:func:`local_rows` is this rank's rows of a global batch under
+:func:`batch_sharding`.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -70,8 +77,9 @@ __all__ = ["param_sharding", "cache_sharding", "batch_sharding",
            "dp_axes", "axis_size", "tree_shardings", "replicated",
            "leaf_sharding", "place_tree", "Split", "split_of",
            "shard_shape", "state_spec", "EXACT_MIN_SHARD", "Cut",
-           "cut_of", "place_throughput", "gather_throughput",
-           "carry_cuts", "local_rows"]
+           "cut_of", "throughput_shard", "place_throughput",
+           "gather_shard", "gather_throughput", "carry_cuts",
+           "local_rows"]
 
 
 def axis_size(mesh, name: str) -> int:
@@ -459,7 +467,8 @@ def shard_shape(mesh, spec: tuple, shape) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class Split:
     """How a placed weight is cut over the 'model' axis: along its ``dim``
-    (0: the experts of a stack or the embedding's rows; -1: output
+    (0: the experts of a stack or the embedding's rows; 1: an expert-TP
+    ``wo`` stack's F rows, under the throughput posture; -1: output
     columns), ``full`` entries in all, ``step`` per rank (the last rank
     may hold fewer: a packed weight's ragged last column tile)."""
     dim: int
@@ -654,9 +663,25 @@ def cut_of(t) -> Optional[Cut]:
     return getattr(t, "mesh_cut", None)
 
 
+#: the top-level keys of a port param tree (``first{i}`` besides)
+_TOP_KEYS = ("embed", "final_norm", "lm_head", "patch_proj", "blocks",
+             "enc", "dec", "enc_norm", "dec_norm")
+
+
+def _tree_path(path: Tuple[str, ...]) -> Tuple[str, ...]:
+    """A leaf's path from its param tree's root: a prefix naming the tree
+    (a checkpoint's ``params`` or ``opt/m``) dropped, up to the first
+    top-level key of a param tree."""
+    for i, k in enumerate(path):
+        if k in _TOP_KEYS or re.fullmatch(r"first\d+", k):
+            return path[i:]
+    return path
+
+
 def _throughput_spec(mesh, path, shape) -> tuple:
     spec = _port_spec(lambda q, s: _param_spec(mesh, q, s, True,
-                                               exact=False), path, shape)
+                                               exact=False),
+                      _tree_path(tuple(path)), shape)
     for ax in spec:
         if ax not in (None, "data", "model"):
             raise ValueError(f"{'/'.join(path)}: spec {spec} splits a dim "
@@ -664,10 +689,30 @@ def _throughput_spec(mesh, path, shape) -> tuple:
     return spec
 
 
+def throughput_shard(mesh, path, leaf) -> torch.Tensor:
+    """This rank's shard of one dense ``leaf`` (a tensor or a host array)
+    at ``path`` (its keys, from the root of a param tree or of a tree
+    holding param trees: a checkpoint's ``params``, ``opt/m``...) on the
+    mesh's device, cut by its throughput spec, carrying its
+    :class:`Cut`."""
+    shape = tuple(leaf.shape)
+    spec = _throughput_spec(mesh, path, shape)
+    idx = []
+    for dim, ax in zip(shape, spec):
+        i, n = _parts(mesh, ax) if ax else (0, 1)
+        idx.append(slice(i * (dim // n), (i + 1) * (dim // n)))
+    if torch.is_tensor(leaf):
+        leaf = leaf.detach()
+    t = _to(mesh, leaf, tuple(idx))
+    t.mesh_cut = Cut(shape, spec, mesh)
+    return t
+
+
 def place_throughput(tree, mesh):
     """This rank's shard of every leaf of a dense port param tree (or of
-    an optimizer state tree shaped like one) on the mesh's device, cut by
-    its throughput spec over 'data' and 'model'; each shard carries its
+    an optimizer state tree shaped like one, or of a tree holding such
+    trees) on the mesh's device, cut by its throughput spec over 'data'
+    and 'model' (:func:`throughput_shard`); each shard carries its
     :class:`Cut`.  A packed weight is refused: training takes dense
     weights."""
     def one(path, leaf):
@@ -679,36 +724,31 @@ def place_throughput(tree, mesh):
         if isinstance(leaf, (list, tuple)):
             return type(leaf)(one(path + (str(i),), v)
                               for i, v in enumerate(leaf))
-        shape = tuple(leaf.shape)
-        spec = _throughput_spec(mesh, path, shape)
-        idx = []
-        for dim, ax in zip(shape, spec):
-            i, n = _parts(mesh, ax) if ax else (0, 1)
-            idx.append(slice(i * (dim // n), (i + 1) * (dim // n)))
-        if torch.is_tensor(leaf):
-            leaf = leaf.detach()
-        t = _to(mesh, leaf, tuple(idx))
-        t.mesh_cut = Cut(shape, spec, mesh)
-        return t
+        return throughput_shard(mesh, path, leaf)
     return one((), tree)
+
+
+def gather_shard(t, mesh) -> torch.Tensor:
+    """The whole leaf of throughput shard ``t`` (carrying its
+    :class:`Cut`), every rank's part joined over 'model' and then over
+    'data': a collective on every rank of ``mesh``."""
+    cut = cut_of(t)
+    if cut is None:
+        raise ValueError("a leaf carries no Cut: place the tree with "
+                         "place_throughput")
+    t = t.detach()              # a whole leaf carries no Cut
+    for axis in ("model", "data"):
+        d = cut.dim(axis)
+        if d is not None:
+            t = mesh.gather(t, axis, d)
+    return t
 
 
 def gather_throughput(tree, mesh):
     """The whole leaves of a tree of throughput shards (each carrying its
-    :class:`Cut`: placed, or returned by a mesh step), every rank's parts
-    joined over 'model' and then over 'data'."""
-    def one(t):
-        cut = cut_of(t)
-        if cut is None:
-            raise ValueError("a leaf carries no Cut: place the tree with "
-                             "place_throughput")
-        t = t.detach()              # a whole leaf carries no Cut
-        for axis in ("model", "data"):
-            d = cut.dim(axis)
-            if d is not None:
-                t = mesh.gather(t, axis, d)
-        return t
-    return tree_map(one, tree)
+    :class:`Cut`: placed, or returned by a mesh step), in leaf order
+    (:func:`gather_shard`)."""
+    return tree_map(lambda t: gather_shard(t, mesh), tree)
 
 
 def carry_cuts(tree, like):

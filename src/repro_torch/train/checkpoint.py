@@ -1,4 +1,4 @@
-"""Checkpoints: atomic, asynchronous, restored onto any device.
+"""Checkpoints: atomic, asynchronous, elastic-reshardable.
 
 Checked against ``repro/train/checkpoint.py`` (``save``, ``save_async``,
 ``wait_for_async``, ``restore``, ``latest_step``, ``CheckpointManager``),
@@ -11,9 +11,24 @@ Leaves are named by the reference's rule (``tree.flatten``), so a tree in
 the reference's layout (``convert.to_reference``: per-layer leaves
 stacked) names its leaves as the reference's does.  ``save_async``
 copies every leaf to host memory before it returns, then writes in a
-background thread.  The reference's ``shardings`` (an elastic re-mesh)
-has no counterpart on one card: ``restore`` takes a target ``device``
-instead (None: numpy arrays on the host).
+background thread.  ``restore`` takes a target ``device`` (None: numpy
+arrays on the host).
+
+As in the reference, a checkpoint holds **logical** (whole) arrays, so
+it restores onto any mesh (the reference's ``restore(shardings=)``, an
+elastic re-mesh).  On a mesh (``mesh=``, a ``launch.mesh.Mesh``) the
+tree may hold this rank's throughput shards, each carrying its
+``parallel.sharding.Cut``: ``save``, ``save_async`` and
+``CheckpointManager.maybe_save`` gather every leaf whole, in leaf order,
+as a collective on every rank (a leaf without a Cut is taken as it is:
+replicated), and rank 0 alone writes the files, the same arrays bitwise
+as a one-process save of the gathered tree; ``save`` returns on every
+rank after the rename, and ``save_async`` hands only rank 0's write to
+the background thread.  ``restore(mesh=)`` reads the logical arrays on
+every rank and returns this rank's throughput shards, each cut by its
+spec on that mesh (``sharding.throughput_shard``: a leaf's spec is its
+param's, so AdamW's ``m`` and ``v`` are cut like the params they
+follow), whatever mesh, card or package wrote them.
 """
 from __future__ import annotations
 
@@ -28,6 +43,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.sharding import cut_of, gather_shard, throughput_shard
 from ..tree import flatten, unflatten_like
 
 __all__ = ["save", "save_async", "wait_for_async", "restore", "latest_step",
@@ -54,9 +70,32 @@ def _host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
-def save(ckpt_dir, step: int, tree, extra: Optional[Dict] = None
-         ) -> pathlib.Path:
-    """Atomic synchronous save of a tree of tensors or arrays."""
+def _logical(tree, mesh) -> Optional[Dict[str, np.ndarray]]:
+    """{name: host array} of every leaf of ``tree``; with ``mesh`` each
+    throughput shard's leaf gathered whole first (a collective on every
+    rank, in leaf order), the arrays kept on rank 0 alone (None
+    elsewhere)."""
+    flat = flatten(tree)
+    if mesh is None:
+        if any(cut_of(v) is not None and cut_of(v).mesh.size > 1
+               for v in flat.values()):
+            raise ValueError("the tree holds throughput shards of a mesh "
+                             "of several ranks: save it with mesh=")
+        return {k: _host(v) for k, v in flat.items()}
+    mine = mesh.rank == 0
+    out = {}
+    for k, v in flat.items():
+        whole = v if cut_of(v) is None else gather_shard(v, mesh)
+        if mine:
+            out[k] = _host(whole)
+        del whole
+    return out if mine else None
+
+
+def _write(ckpt_dir, step: int, arrays: Dict[str, np.ndarray],
+           extra: Optional[Dict]) -> pathlib.Path:
+    """``arrays`` written as step ``step`` under ``ckpt_dir``: into the
+    ``.tmp`` directory, then renamed."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
@@ -64,7 +103,6 @@ def save(ckpt_dir, step: int, tree, extra: Optional[Dict] = None
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    arrays = {k: _host(v) for k, v in flatten(tree).items()}
 
     def write():
         np.savez(tmp / "arrays.npz", **{k.replace("/", "%"): v
@@ -82,6 +120,21 @@ def save(ckpt_dir, step: int, tree, extra: Optional[Dict] = None
     if final.exists():
         shutil.rmtree(final)
     os.rename(tmp, final)
+    return final
+
+
+def save(ckpt_dir, step: int, tree, extra: Optional[Dict] = None,
+         mesh=None) -> pathlib.Path:
+    """Atomic synchronous save of a tree of tensors or arrays; on
+    ``mesh`` of this rank's throughput shards, gathered and written by
+    rank 0, every rank returning after the rename (see the module
+    note)."""
+    arrays = _logical(tree, mesh)
+    final = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
+    if arrays is not None:
+        final = _write(ckpt_dir, step, arrays, extra)
+    if mesh is not None:
+        mesh.barrier()
     return final
 
 
@@ -114,16 +167,15 @@ class _AsyncWriter:
 _WRITER = _AsyncWriter()
 
 
-def save_async(ckpt_dir, step: int, tree, extra: Optional[Dict] = None):
-    """Non-blocking save: copies to host memory now, writes in the
-    background (one write in flight; the next waits for it)."""
-    flat = {k: _host(v) for k, v in flatten(tree).items()}
-
-    def write():
-        # a flat one-level tree of the same leaf names
-        save(ckpt_dir, step, flat, extra)
-
-    _WRITER.submit(write)
+def save_async(ckpt_dir, step: int, tree, extra: Optional[Dict] = None,
+               mesh=None):
+    """Non-blocking save: copies to host memory now (on ``mesh``, every
+    rank gathers its shards now), writes in the background (rank 0's
+    write alone on a mesh; one write in flight, the next waits for
+    it)."""
+    arrays = _logical(tree, mesh)
+    if arrays is not None:
+        _WRITER.submit(lambda: _write(ckpt_dir, step, arrays, extra))
 
 
 def wait_for_async():
@@ -139,11 +191,14 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir, step: Optional[int], like, device=None) -> Any:
+def restore(ckpt_dir, step: Optional[int], like, device=None,
+            mesh=None) -> Any:
     """The checkpoint at ``step`` (None: the latest) in the structure of
-    ``like``: every leaf named as ``like``'s, of its shape (a mismatch
-    raises ``ValueError``, a missing name ``KeyError``), as numpy arrays,
-    or as tensors on ``device``."""
+    ``like``: every leaf named as ``like``'s, of its shape (a throughput
+    shard's whole shape, read from its Cut; a mismatch raises
+    ``ValueError``, a missing name ``KeyError``), as numpy arrays, as
+    tensors on ``device``, or, with ``mesh``, as this rank's throughput
+    shards on the mesh's device, one leaf read and cut at a time."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -158,11 +213,16 @@ def restore(ckpt_dir, step: Optional[int], like, device=None) -> Any:
             raise KeyError(f"checkpoint {path} has no leaf {k!r} (it holds "
                            f"{sorted(data.files)[:3]}...)")
         arr = data[name]
-        expect = tuple(getattr(leaf, "shape", arr.shape))
+        cut = cut_of(leaf)
+        expect = cut.shape if cut is not None else \
+            tuple(getattr(leaf, "shape", arr.shape))
         if tuple(arr.shape) != expect:
             raise ValueError(f"ckpt leaf {k}: shape {arr.shape} != {expect}")
-        out.append(arr if device is None
-                   else torch.as_tensor(arr, device=device))
+        if mesh is not None:
+            arr = throughput_shard(mesh, tuple(k.split("/")), arr)
+        elif device is not None:
+            arr = torch.as_tensor(arr, device=device)
+        out.append(arr)
     return unflatten_like(like, out)
 
 
@@ -176,14 +236,16 @@ class CheckpointManager:
         self.keep = keep
         self.async_save = async_save
 
-    def maybe_save(self, step: int, tree, extra=None):
+    def maybe_save(self, step: int, tree, extra=None, mesh=None):
+        """On ``mesh``: every rank gathers, rank 0 writes and collects."""
         if step % self.every:
             return False
         if self.async_save:
-            save_async(self.dir, step, tree, extra)
+            save_async(self.dir, step, tree, extra, mesh)
         else:
-            save(self.dir, step, tree, extra)
-        self._gc()
+            save(self.dir, step, tree, extra, mesh)
+        if mesh is None or mesh.rank == 0:
+            self._gc()
         return True
 
     def _gc(self):
@@ -191,6 +253,9 @@ class CheckpointManager:
         for p in steps[:-self.keep]:
             shutil.rmtree(p, ignore_errors=True)
 
-    def restore_latest(self, like, device=None):
+    def restore_latest(self, like, device=None, mesh=None):
+        """On ``mesh``, after rank 0's write in flight has landed."""
         wait_for_async()
-        return restore(self.dir, None, like, device)
+        if mesh is not None:
+            mesh.barrier()
+        return restore(self.dir, None, like, device, mesh)

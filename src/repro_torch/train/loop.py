@@ -26,8 +26,10 @@ the gathers' backward once, which reduce-scatters them over 'data'; the
 optimizer updates only the local shards (its clip takes the whole tree's
 norm, ``optim.global_norm``), and the returned loss, summed over 'data',
 is identical on every rank.  The model on a mesh of more than one rank
-is the dense decoder-only family (``models.model.check_mesh_training``);
-a packed tree is refused (``transformer.dense_only``).  On the 1x1 mesh
+is a decoder-only text family without a recurrence: dense or MoE (its
+expert stacks expert-parallel, or expert-TP where the experts do not
+divide 'model'), GQA or MLA (``models.model.check_mesh_training``); a
+packed tree is refused (``transformer.dense_only``).  On the 1x1 mesh
 every collective is the identity and the step is ``mesh=None``'s
 bitwise.  The optimizer's ``update`` gets this rank's gradient shards,
 each with its cut.

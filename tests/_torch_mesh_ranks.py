@@ -9,13 +9,15 @@ each job file while the test process runs its own 1x1 runs; ``run_rank`` is
 one spawned ``gloo`` rank on the CPU: it joins the group through a file
 store, builds the meshes (2, 2), (4, 1) and (1, 4) over the same four
 ranks, runs the job's cases (:data:`JOBS`: the dense model's matrix,
-mixtral and the artifact, or a family's runs such as
-:data:`FAMILY_RUNS`) and saves its results for the test process to read.
+mixtral and the artifact, a family's runs such as :data:`FAMILY_RUNS`,
+or mesh training: :data:`TRAIN_RUNS`, :data:`MOE_TRAIN_RUNS`) and saves
+its results for the test process to read.
 Each test file spawns its own world, so that ``--dist loadfile`` runs
 them side by side.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import pathlib
 import sys
@@ -326,6 +328,61 @@ def train_run(api, params, batches, micro, mesh=None):
     return dict(out, params=params, m=state["m"], v=state["v"])
 
 
+@contextlib.contextmanager
+def routes():
+    """Every ``moe_apply`` call's top-k expert indices [G, S, k] (the
+    ones its dispatch takes), in call order."""
+    from repro_torch.models import moe
+    seen = []
+    inner = moe._group_dispatch
+
+    def spy(xg, idx, *rest):
+        seen.append(idx.detach().clone())
+        return inner(xg, idx, *rest)
+    moe._group_dispatch = spy
+    try:
+        yield seen
+    finally:
+        moe._group_dispatch = inner
+
+
+#: the MoE and MLA mesh training runs: (model, mesh shape,
+#: microbatches); ``mixtral-e6``'s 6 experts do not divide (1, 4)'s
+#: 'model' axis, so its stacks are expert-TP there
+MOE_TRAIN_RUNS = tuple((model, shape, micro)
+                       for model in ("mixtral", "deepseek")
+                       for shape in MESHES for micro in (1, 2)) + (
+    ("mixtral-e6", (1, 4), 1),)
+
+
+def moe_train_run(api, params, batches, micro, mesh=None):
+    """:func:`train_run` without the gradient, with every MoE layer's
+    routes of both steps."""
+    with routes() as seen:
+        run = train_run(api, params, batches, micro, mesh)
+    run.pop("grads")
+    return dict(run, routes=seen)
+
+
+def moe_train_job(job, meshes, out) -> None:
+    """Mesh training of the MoE family and MLA (``job["runs"]``, of
+    :data:`MOE_TRAIN_RUNS`, over ``job["models"]``: name -> (api,
+    params, batches)); each run's expert stacks' specs and shards."""
+    from repro_torch.parallel.sharding import cut_of, place_throughput
+    out["train"], out["experts"] = {}, {}
+    for name, shape, micro in job["runs"]:
+        api, params, batches = job["models"][name]
+        key = (name, shape, micro)
+        out["train"][key] = moe_train_run(api, params, batches, micro,
+                                          meshes[shape])
+        layer = params["blocks"][0]["mlp"]
+        placed = place_throughput({k: layer[k] for k in ("wi", "wo")},
+                                  meshes[shape])
+        # each stack's spec and this rank's shard shape
+        out["experts"][key] = {k: (cut_of(t).spec, tuple(t.shape))
+                               for k, t in placed.items()}
+
+
 def _error(fn) -> str:
     """The ``ValueError`` message of ``fn()`` ("" when it returns)."""
     try:
@@ -339,7 +396,7 @@ def train_job(job, meshes, out) -> None:
     """Mesh training of the dense model (:data:`TRAIN_RUNS`); the shards
     placed and gathered back; ``ef_allreduce`` over the 'data' groups of
     (2, 2) and (4, 1) on the first step's gradient; a packed tree and an
-    MoE model refused."""
+    recurrent model refused."""
     from repro_torch.parallel.compress import ef_allreduce, zeros_like_resid
     from repro_torch.parallel.sharding import (gather_throughput,
                                                place_throughput)
@@ -364,15 +421,15 @@ def train_job(job, meshes, out) -> None:
     step = make_train_step(api.train_loss, train_optimizer(), mesh=mesh)
     out["refused"] = {
         "packed": _error(lambda: step(job["packed"], None, 0, batches[0])),
-        "moe": _error(lambda: make_train_step(
-            job["moe"][0].train_loss, train_optimizer(), mesh=mesh)(
-            place_throughput(job["moe"][1], mesh), None, 0,
-            job["moe"][2]))}
+        "recurrent": _error(lambda: make_train_step(
+            job["recurrent"][0].train_loss, train_optimizer(), mesh=mesh)(
+            place_throughput(job["recurrent"][1], mesh), None, 0,
+            job["recurrent"][2]))}
 
 
 #: job kind -> what a rank runs
 JOBS = {"dense": dense_job, "moe": moe_job, "family": family_job,
-        "train": train_job}
+        "train": train_job, "train_moe": moe_train_job}
 
 
 def run_rank(rank: int, world: int, store: str, tmp: str) -> None:

@@ -73,10 +73,11 @@ def _world(tmp_path_factory):
     api = build_model(scale_down(ARCHS["qwen1.5-0.5b"], **SMOKE),
                       device="cpu")
     params = from_reference(dense, device="cpu")
-    moe_cfg = scale_down(ARCHS["mixtral-8x7b"], dtype="float32")
-    moe = (build_model(moe_cfg, device="cpu"),
-           to_torch(init_params(moe_cfg, np.random.default_rng(0)), "cpu"),
-           next(lm_batches(moe_cfg.vocab, 8, 32, seed=4)))
+    rec_cfg = scale_down(ARCHS["xlstm-1.3b"], dtype="float32")
+    recurrent = (build_model(rec_cfg, device="cpu"),
+                 to_torch(init_params(rec_cfg, np.random.default_rng(0)),
+                          "cpu"),
+                 next(lm_batches(rec_cfg.vocab, 8, 32, seed=4)))
 
     def local():
         ref, port = {}, {}
@@ -96,7 +97,7 @@ def _world(tmp_path_factory):
             port[micro] = train_run(api, params, batches, micro)
         return dict(ref=ref, port=port, params=params)
     job = dict(kind="train", api=api, params=params, batches=batches,
-               packed=small_models().port_packed, moe=moe)
+               packed=small_models().port_packed, recurrent=recurrent)
     return world(tmp, job, local)
 
 
@@ -237,11 +238,15 @@ def test_ef_allreduce_on_data_groups(world, shape):
 
 def test_packed_tree_and_other_family_refused(world):
     """On (2, 2) a packed tree raises ValueError before any collective,
-    and an MoE model (mixtral's smoke config) names the ROADMAP item;
-    no rank imported jax or the reference package."""
+    and a recurrent model (xlstm's smoke config) names the ROADMAP item
+    (the MoE family and MLA train on a mesh:
+    ``test_torch_mesh_train_moe.py``); no rank imported jax or the
+    reference package."""
     _, ranks = world
     for out in ranks:
         assert "SME-packed" in out["refused"]["packed"]
-        assert "mesh training covers the dense" in out["refused"]["moe"]
-        assert "ROADMAP" in out["refused"]["moe"]
+        msg = out["refused"]["recurrent"]
+        assert "the recurrent family waits for ROADMAP §1, open item 1" \
+            in msg, msg
+        assert "mesh training covers the decoder-only text families" in msg
         assert out["jax"] == []

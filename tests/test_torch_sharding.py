@@ -591,23 +591,18 @@ def _slice(leaf, spec, mesh):
     return leaf[tuple(idx)]
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4), (2, 4)],
-                         ids=lambda s: f"{s[0]}x{s[1]}")
-def test_throughput_shards_follow_reference_spec(shape):
-    """``place_throughput`` on qwen's small dense tree and on an AdamW
-    state of it (``m`` and ``v``, drawn so that no leaf is zero): every
-    rank's shard of every leaf equals the whole leaf sliced by the
-    reference's ``_param_spec(fsdp=True, exact=False)`` of its stacked
-    leaf (``param_sharding``'s spec, the layer dim dropped), and carries
-    its Cut; on rank threads ``gather_throughput`` joins the shards back
-    into every leaf bitwise; a packed tree is refused; ``place_tree``'s
-    exact shards carry no Cut."""
+def _throughput_shards_follow(cfg, shape):
+    """``place_throughput`` of ``cfg``'s small tree (2 layers or more, f32)
+    and of an AdamW state of it on every coordinate of ``shape`` against
+    the reference's ``param_sharding(fsdp=True, exact=False)``, and the
+    shards gathered back on rank threads (see the tests below); returns
+    {path: spec} of the params."""
     from repro_torch.core.integrate import to_torch
     from repro_torch.optim import adamw
     from _torch_threads import on_threads
-    cfg = scale_down(ARCHS["qwen1.5-0.5b"], n_layers=2, dtype="float32")
+    n_slots = len(cfg.pattern)
     params = to_torch(init_params(cfg, np.random.default_rng(0)), "cpu")
-    ref = to_reference(params, len(cfg.pattern))
+    ref = to_reference(params, n_slots)
     want = _ref_specs(ref_sh.param_sharding(
         AbstractMesh(shape, ("data", "model")), ref, fsdp=True,
         exact=False))
@@ -616,15 +611,17 @@ def test_throughput_shards_follow_reference_spec(shape):
         t.shape, dtype=np.float32)), v)
         for k, v in adamw(1e-3).init(params).items()}
     trees = {"params": params, "m": state["m"], "v": state["v"]}
-    n_split = 0
+    n_split, specs = 0, {}
     for mesh in _coords(*shape):
         for name, tree in trees.items():
             placed = dict(_flat(sh.place_throughput(tree, mesh)))
             for path, leaf in _flat(tree):
                 if path[0] == "blocks":
-                    spec = want[_keystr(("blocks", "slot0") + path[2:])][1:]
+                    slot = ("blocks", f"slot{path[1] % n_slots}")
+                    spec = want[_keystr(slot + path[2:])][1:]
                 else:
                     spec = want[_keystr(path)]
+                specs[path] = spec
                 got = placed[path]
                 assert sh.cut_of(got) == sh.Cut(tuple(leaf.shape), spec,
                                                 mesh), (name, path)
@@ -633,8 +630,6 @@ def test_throughput_shards_follow_reference_spec(shape):
         assert all(sh.cut_of(t) is None
                    for _, t in _flat(sh.place_tree(params, mesh)))
     assert n_split > 0
-    spec = want[_keystr(("blocks", "slot0", "mix", "o", "w"))][1:]
-    assert spec == ("model", "data")             # row-parallel, FSDP
 
     def gathered(mesh):
         return {name: sh.gather_throughput(sh.place_throughput(tree, mesh),
@@ -646,8 +641,80 @@ def test_throughput_shards_follow_reference_spec(shape):
             for path, leaf in _flat(tree):
                 assert sh.cut_of(whole[path]) is None
                 assert torch.equal(whole[path], leaf), (name, path)
+    return specs
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4), (2, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_throughput_shards_follow_reference_spec(shape):
+    """``place_throughput`` on qwen's small dense tree and on an AdamW
+    state of it (``m`` and ``v``, drawn so that no leaf is zero): every
+    rank's shard of every leaf equals the whole leaf sliced by the
+    reference's ``_param_spec(fsdp=True, exact=False)`` of its stacked
+    leaf (``param_sharding``'s spec, the layer dim dropped), and carries
+    its Cut; on rank threads ``gather_throughput`` joins the shards back
+    into every leaf bitwise; a packed tree is refused; ``place_tree``'s
+    exact shards carry no Cut."""
+    cfg = scale_down(ARCHS["qwen1.5-0.5b"], n_layers=2, dtype="float32")
+    specs = _throughput_shards_follow(cfg, shape)
+    # row-parallel, FSDP
+    assert specs[("blocks", 0, "mix", "o", "w")] == ("model", "data")
     with pytest.raises(ValueError, match="wi/w is SME-packed"):
         sh.place_throughput(_qwen_wi(), _coords(*shape)[0])
+
+
+#: the MoE family and MLA at the CPU tests' size; ``mixtral-e6``'s 6
+#: experts divide no 'model' axis of 4 (expert-TP there)
+_W128 = dict(d_model=128, expert_dff=128, dtype="float32")
+THROUGHPUT_MOE = {
+    "mixtral": ("mixtral-8x7b", dict(_W128, n_layers=2)),
+    "mixtral-e6": ("mixtral-8x7b", dict(_W128, n_layers=2, n_experts=6)),
+    "deepseek": ("deepseek-v2-lite-16b", _W128)}
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("model", list(THROUGHPUT_MOE))
+def test_throughput_moe_mla_shards_follow_reference_spec(model, shape):
+    """The same for mixtral's and deepseek's small trees (their AdamW
+    state too), and by name: expert stacks expert-parallel where the
+    experts divide 'model' (wi/wg ``["model", "data", None]``, wo
+    ``["model", None, "data"]``), else expert-TP (``[None, "data",
+    "model"]``, wo ``[None, "model", "data"]``); the router whole; the
+    shared experts and ``first0``'s MLP column-parallel with ``wo``
+    row-parallel; MLA's q, kv_down and kv_up column-parallel, o
+    row-parallel; a layer's norms over 'model', ``first0``'s whole."""
+    arch, over = THROUGHPUT_MOE[model]
+    cfg = scale_down(ARCHS[arch], **over)
+    specs = _throughput_shards_follow(cfg, shape)
+
+    def drop(spec):
+        """The spec as a mesh of these sizes cuts it."""
+        return tuple(None if ax and dict(zip(("data", "model"), shape))[ax]
+                     == 1 else ax for ax in spec)
+    got = {k: drop(v) for k, v in specs.items()}
+    col, row = drop(("data", "model")), drop(("model", "data"))
+    tp = cfg.n_experts % shape[1] != 0
+    mlp = ("blocks", 0, "mlp")
+    assert got[mlp + ("wi",)] == got[mlp + ("wg",)] == drop(
+        (None, "data", "model") if tp else ("model", "data", None))
+    assert got[mlp + ("wo",)] == drop((None, "model", "data") if tp
+                                      else ("model", None, "data"))
+    assert got[mlp + ("router", "w")] == (None, None)
+    assert got[("blocks", 0, "norm1", "w")] == drop(("model",))
+    if model != "deepseek":
+        assert got[("blocks", 0, "mix", "q", "w")] == col
+        return
+    for name in ("wi", "wg"):
+        assert got[mlp + ("shared", name, "w")] == col
+        assert got[("first0", "mlp", name, "w")] == col
+    assert got[mlp + ("shared", "wo", "w")] == row
+    assert got[("first0", "mlp", "wo", "w")] == row
+    for name in ("q", "kv_down", "kv_up"):
+        assert got[("blocks", 0, "mix", name, "w")] == col, name
+        assert got[("first0", "mix", name, "w")] == col, name
+    assert got[("blocks", 0, "mix", "o", "w")] == row
+    assert got[("first0", "norm1", "w")] == (None,)
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)],
